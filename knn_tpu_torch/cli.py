@@ -1,0 +1,128 @@
+"""CLI driver: the ``classify`` job of the JAX package's CLI, on the port.
+
+``python -m knn_tpu_torch TRAIN TEST k`` (bare positional argv implies the
+``classify`` subcommand) loads both ARFF files, classifies every test row
+against the train rows, and prints the reference's result line
+(main.cpp:146), timing the classify region only, parsing excluded. The
+region ends after the predictions are back on the host, so it includes the
+device work.
+
+Flags: ``--backend {cuda,oracle}`` (default ``cuda``: the stripe kernel),
+``--device {cuda,cpu}`` (default ``cuda``; ``cpu`` runs the kernel's plain
+PyTorch version), ``--warmup`` (one untimed run first: kernel build and
+upload), ``--json`` (a structured line after the result line).
+
+Exit codes, as the JAX package's (knn_tpu/cli.py:45-54): 0 success; 2 the
+input was rejected before classification (bad flags, bad k, missing or
+malformed files, mismatched feature counts); 1 the computation failed — on
+``cuda`` that includes a missing card or a failing kernel, with no fallback
+to another backend or to the host. Errors are one ``error:`` line on
+stderr.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional, Sequence
+
+from knn_tpu_torch.data.arff import load_arff
+from knn_tpu_torch.resilience.errors import ResilienceError
+from knn_tpu_torch.utils.cli_format import result_json, result_line
+from knn_tpu_torch.utils.evaluate import accuracy, confusion_matrix
+from knn_tpu_torch.utils.timing import RegionTimer
+
+EXIT_USAGE = 2
+EXIT_RUNTIME = 1
+
+_SUBCOMMANDS = ("classify",)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch",
+        description="KNN classify on a CUDA card (PyTorch port of knn_tpu)",
+    )
+    sub = p.add_subparsers(dest="command", metavar="{classify}")
+    c = sub.add_parser(
+        "classify",
+        help="one-shot classify (bare positional argv implies it)",
+        description="Reference-parity KNN classifier",
+    )
+    c.add_argument("train", help="train ARFF file")
+    c.add_argument("test", help="test ARFF file")
+    c.add_argument("k", type=int, help="number of neighbors")
+    c.add_argument("--backend", choices=["cuda", "oracle"], default="cuda",
+                   help="cuda: the stripe kernel (default); oracle: numpy")
+    c.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the cuda backend runs (cpu: its plain "
+                   "PyTorch version)")
+    c.add_argument("--warmup", action="store_true",
+                   help="run once before timing (excludes build and upload)")
+    c.add_argument("--json", action="store_true",
+                   help="emit structured JSON metrics")
+    return p
+
+
+def _normalize_argv(argv: Optional[Sequence[str]]) -> "list[str]":
+    """Prepend ``classify`` unless argv already names it (or asks for
+    top-level help), keeping the reference's bare positional invocation."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or (argv[0] not in _SUBCOMMANDS
+                    and argv[0] not in ("-h", "--help")):
+        argv = ["classify"] + argv
+    return argv
+
+
+def _error(msg: str) -> None:
+    print("error: " + " | ".join(str(msg).splitlines()), file=sys.stderr)
+
+
+def run(argv: Optional[Sequence[str]] = None, stdout=None) -> int:
+    stdout = stdout or sys.stdout
+    try:
+        args = build_parser().parse_args(_normalize_argv(argv))
+    except SystemExit as e:
+        return e.code if isinstance(e.code, int) else EXIT_USAGE
+    return _run_classify(args, stdout)
+
+
+def _run_classify(args, stdout) -> int:
+    from knn_tpu_torch.backends import get_backend
+
+    try:
+        train = load_arff(args.train)
+        test = load_arff(args.test)
+        train.validate_for_knn(args.k, test)
+    except (OSError, ValueError) as e:
+        _error(e)
+        return EXIT_USAGE
+
+    predict = get_backend(args.backend)
+    try:
+        if args.warmup:
+            predict(train, test, args.k, device=args.device)
+        with RegionTimer() as t:
+            predictions = predict(train, test, args.k, device=args.device)
+    except ResilienceError as e:
+        _error(f"{type(e).__name__}: {e}")
+        return EXIT_RUNTIME
+    except (ValueError, RuntimeError) as e:  # an unported option, a CUDA error
+        _error(e)
+        return EXIT_RUNTIME
+
+    acc = accuracy(confusion_matrix(predictions, test.labels, test.num_classes))
+    print(result_line(args.k, test.num_instances, train.num_instances, t.ms, acc),
+          file=stdout)
+    if args.json:
+        print(result_json(args.k, test.num_instances, train.num_instances, t.ms,
+                          acc, args.backend), file=stdout)
+    return 0
+
+
+def main() -> None:
+    sys.exit(run())
+
+
+if __name__ == "__main__":
+    main()
