@@ -6,12 +6,13 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. ``env``            — card name and power limit (nvidia-smi), versions.
 2. ``build``          — every ``knn_tpu_torch/csrc/*.cu`` built with nvcc.
-3. ``kernel_parity``  — the stripe kernel against its plain PyTorch version
-                        on the card: bit-equal distances, equal indices.
+3. ``kernel_parity``  — the scan and merge kernels, and the two together,
+                        against their plain PyTorch versions on the card:
+                        bit-equal keys and distances, equal indices.
 4. ``classify_large`` — the main path, ``knn_tpu_torch.cli.run``, on the
                         large-fixture shape written as ARFF under build/.
-5. ``classify_xl``    — the kernel and its plain version on ~1.02 M train
-                        rows: equal results, timed with CUDA events.
+5. ``classify_xl``    — the kernels and their plain versions on ~1.02 M
+                        train rows: equal results, timed with CUDA events.
 6. ``kernels``        — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -33,8 +34,11 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM.
-PEAK_FP32_OPS = 67e12
+# H100 SXM peaks (NVIDIA data sheet). Its FP32 rate outside the tensor
+# cores, 67 TFLOP/s, counts a fused multiply-add as two operations; the
+# kernels are built with --fmad=false and run sub, mul and add (and the
+# key compare) as one instruction each, so their rate is half of it.
+PEAK_FP32_INSTR = 67e12 / 2
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -50,16 +54,34 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def stripe_bound_ms(q: int, n_valid: int, d: int, k: int) -> "tuple[float, str]":
-    """Least time for the stripe function on this card: 3*d FP32 operations
-    (sub, mul, add) plus one selection compare per (query, valid train row),
-    against the bytes of each input read once and each output written once.
-    Returns (ms, "operations" or "bytes")."""
-    ops = q * n_valid * (3 * d + 1)
-    nbytes = (n_valid * d + q * d) * 4 + q * k * 8
-    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_HBM_BYTES
+def bound_ms(ops: int, nbytes: int) -> "tuple[float, str]":
+    """The larger of ``ops`` at the FP32 instruction rate and ``nbytes`` at
+    the HBM rate, in ms, and which of the two it is."""
+    t_ops, t_bytes = ops / PEAK_FP32_INSTR, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def scan_bound_ms(q: int, n_valid: int, d: int, k: int, splits: int):
+    """The scan: 3*d unfused FP32 instructions (sub, mul, add) plus one key
+    compare per (query, valid train row); train and queries read once, the
+    [Q, splits, k] int64 keys written once."""
+    return bound_ms(q * n_valid * (3 * d + 1),
+                    (n_valid * d + q * d) * 4 + q * splits * k * 8)
+
+
+def merge_bound_ms(q: int, k: int, splits: int):
+    """The merge: the [Q, splits, k] keys read once, [Q, k] float32
+    distances and int32 indices written once; at least one compare per
+    (query, split) list."""
+    return bound_ms(q * splits, q * splits * k * 8 + q * k * 8)
+
+
+def stripe_bound_ms(q: int, n_valid: int, d: int, k: int):
+    """Scan and merge as one function: the scan's operations, and the bytes
+    of the inputs read once and the [Q, k] output written once."""
+    return bound_ms(q * n_valid * (3 * d + 1),
+                    (n_valid * d + q * d) * 4 + q * k * 8)
 
 
 def cuda_ms(torch, fn, args_list, reps: int) -> float:
@@ -144,6 +166,12 @@ def write_arff(path: Path, x: np.ndarray, y: np.ndarray, relation: str) -> None:
     path.write_text("\n".join(head + rows) + "\n")
 
 
+def max_err(torch, got, want) -> float:
+    """Largest |got - want| over the finite entries of ``want``."""
+    fin = torch.isfinite(want)
+    return (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+
+
 def check_equal(what: str, torch, got, want) -> None:
     if not torch.equal(got, want):
         raise SystemExit(f"{what}: {(got != want).sum().item()} of "
@@ -167,6 +195,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     wrapper = cuda_knn.knn_stripe_candidates
+    scan, merge = cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge
 
     def plain_predict(tx, ty, qx, n_valid, k, num_classes):
         _, idx = cuda_knn.knn_stripe_candidates_reference(tx, qx, n_valid, k)
@@ -187,22 +216,31 @@ def main() -> int:
 
     phase("kernel_parity")
     rng = np.random.default_rng(0)
-    max_abs_err = 0.0
+    err = {"scan": 0.0, "merge": 0.0, "candidates": 0.0}
     n_cases = 0
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, tx, qx, n_valid, k in parity_cases(rng):
         t = torch.from_numpy(tx).to(dev)
         qt = torch.from_numpy(qx).to(dev)
+        plan = cuda_knn.split_plan(n_valid, qt.shape[0], sm_count)
+        partial = scan(t, qt, n_valid, k, *plan)
+        want = cuda_knn.knn_stripe_scan_reference(t, qt, n_valid, k, *plan)
+        check_equal(f"kernel_parity {name} scan keys", torch, partial, want)
+        err["scan"] = max(err["scan"], max_err(torch, *(
+            cuda_knn._unpack_keys(x)[0] for x in (partial, want))))
+        md, mi = merge(partial)
+        rd, ri = cuda_knn.knn_stripe_merge_reference(partial)
+        check_equal(f"kernel_parity {name} merge indices", torch, mi, ri)
+        check_equal(f"kernel_parity {name} merge distances", torch, md, rd)
+        err["merge"] = max(err["merge"], max_err(torch, md, rd))
         kd, ki = wrapper(t, qt, n_valid, k)
         rd, ri = cuda_knn.knn_stripe_candidates_reference(t, qt, n_valid, k)
-        torch.cuda.synchronize()
         check_equal(f"kernel_parity {name} indices", torch, ki, ri)
         check_equal(f"kernel_parity {name} distances", torch, kd, rd)
-        fin = torch.isfinite(rd)
-        if fin.any():
-            max_abs_err = max(max_abs_err, (kd[fin] - rd[fin]).abs().max().item())
+        err["candidates"] = max(err["candidates"], max_err(torch, kd, rd))
         n_cases += 1
-    print(f"{n_cases} cases (tolerance: bit-equal): indices equal, distances "
-          f"bit-equal, max_abs_err {max_abs_err}")
+    print(f"{n_cases} cases (tolerance: bit-equal): scan keys equal; merge and "
+          f"scan+merge indices equal, distances bit-equal; max_abs_err {err}")
 
     phase("classify_large")
     train_x, train_y, test_x, test_y = large_fixture(seed=0)
@@ -212,19 +250,18 @@ def main() -> int:
     write_arff(train_path, train_x, train_y, "large-train")
     write_arff(test_path, test_x, test_y, "large-test")
     out = io.StringIO()
-    wrapper.launches = 0
+    scan.launches = merge.launches = 0
     rc = cli.run([str(train_path), str(test_path), "5", "--warmup", "--json"],
                  stdout=out)
-    launches = wrapper.launches
+    launches = {"scan": scan.launches, "merge": merge.launches}
     if rc != 0:
         raise SystemExit(f"classify_large: cli.run exited {rc}")
     line, js = out.getvalue().splitlines()
     print(line)
     print(js)
-    if launches < 1:
-        raise SystemExit("classify_large: the stripe kernel was never launched")
-    print(f"stripe_knn_exact launches on the main path: {launches} "
-          "(--warmup run + timed run)")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"classify_large: a kernel was never launched: {launches}")
+    print(f"launches on the main path: {launches} (--warmup run + timed run)")
     train, test = load_arff(str(train_path)), load_arff(str(test_path))
     preds = get_backend("cuda")(train, test, 5)
     tx = torch.from_numpy(train.features.copy()).to(dev)
@@ -251,7 +288,8 @@ def main() -> int:
     large_bound, _ = stripe_bound_ms(q, n, d, 5)
     print(f"predictions, indices and distances equal to the plain version on "
           f"the card (bit-equal), predictions equal to the oracle on 128 "
-          f"queries; kernel at {n}x{d}, {q} queries, k=5: "
+          f"queries; scan+merge at {n}x{d}, {q} queries, k=5, "
+          f"{cuda_knn.split_plan(n, q, sm_count)[0]} splits: "
           f"{large_ms} ms (bound {large_bound} ms)")
 
     phase("classify_xl")
@@ -271,28 +309,58 @@ def main() -> int:
     ms = cuda_ms(torch, wrapper, [(tx, qb, n, k) for qb in queries], reps=12)
     plain_ms = cuda_ms(torch, cuda_knn.knn_stripe_candidates_reference,
                        [(tx, qb, n, k) for qb in queries[:3]], reps=3)
-    bound_ms, bound_by = stripe_bound_ms(q, n, d, k)
+    b_ms, b_by = stripe_bound_ms(q, n, d, k)
     print(f"xl {n}x{d}, {q} queries, k={k}: indices and predictions equal to "
-          f"the plain version; kernel {ms} ms (median of 12, CUDA events), "
-          f"plain {plain_ms} ms (median of 3), bound {bound_ms} ms "
-          f"({bound_by}); library_ms null: no single PyTorch call computes "
-          f"this function with its (distance, index) tie rule")
+          f"the plain version; scan+merge {ms} ms (median of 12, CUDA events), "
+          f"plain {plain_ms} ms (median of 3), bound {b_ms} ms ({b_by})")
+
+    plan = cuda_knn.split_plan(n, q, sm_count)
+    partials = [scan(tx, qb, n, k, *plan) for qb in queries]
+    check_equal("classify_xl scan keys", torch, partials[0],
+                cuda_knn.knn_stripe_scan_reference(tx, queries[0], n, k, *plan))
+    times = {
+        "scan": cuda_ms(torch, scan, [(tx, qb, n, k, *plan) for qb in queries],
+                        reps=12),
+        "merge": cuda_ms(torch, merge, [(pb,) for pb in partials], reps=12),
+    }
+    plain_t = {
+        "scan": cuda_ms(torch, cuda_knn.knn_stripe_scan_reference,
+                        [(tx, qb, n, k, *plan) for qb in queries[:3]], reps=3),
+        "merge": cuda_ms(torch, cuda_knn.knn_stripe_merge_reference,
+                         [(pb,) for pb in partials], reps=12),
+    }
+    # The merge's library call: one torch.topk over a query's packed keys
+    # gives its k best keys, sorted (the unpacking is a bit-cast).
+    library = cuda_ms(torch, lambda pb: torch.topk(
+        pb.view(q, -1), k, dim=1, largest=False, sorted=True),
+        [(pb,) for pb in partials], reps=12)
+    bounds = {"scan": scan_bound_ms(q, n, d, k, plan[0]),
+              "merge": merge_bound_ms(q, k, plan[0])}
+    for name in ("scan", "merge"):
+        print(f"xl {name} ({plan[0]} splits of {plan[1]} rows): "
+              f"{times[name]} ms (median of 12), plain {plain_t[name]} ms, "
+              f"bound {bounds[name][0]} ms ({bounds[name][1]})")
+    print(f"xl merge library call (torch.topk on the packed keys): {library} "
+          "ms; the scan has none: no single PyTorch call computes it with "
+          "its (distance, index) tie rule")
 
     phase("kernels")
+    replaces = {"scan": "knn_tpu/ops/pallas_knn.py:279",
+                "merge": "knn_tpu/ops/pallas_knn.py:105"}
     print(json.dumps({"kernels": [{
-        "name": "stripe_knn_exact",
+        "name": f"stripe_knn_{name}",
         "route": "cuda",
         "source": "knn_tpu_torch/csrc/stripe_knn.cu",
-        "replaces": "knn_tpu/ops/pallas_knn.py:279",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "shape": f"q={q} n={n} d={d} k={k}",
-    }]}))
+        "replaces": replaces[name],
+        "launches": launches[name],
+        "max_abs_err": err[name],
+        "ms": times[name],
+        "plain_ms": plain_t[name],
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": library if name == "merge" else None,
+        "shape": f"q={q} n={n} d={d} k={k} splits={plan[0]}",
+    } for name in ("scan", "merge")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

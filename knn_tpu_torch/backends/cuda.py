@@ -59,19 +59,16 @@ def predict_arrays(
     metric: str = "euclidean",
     engine: str = "auto",
     approx: bool = False,
-    query_batch: "int | None" = None,
     device="cuda",
     device_cache: "dict | None" = None,
 ) -> np.ndarray:
-    """Host-side entry: ``[Q]`` int32 predictions. ``query_batch`` caps the
-    query rows per kernel call; ``device_cache`` (normally the train
-    ``Dataset.device_cache``) memoizes the device-side train arrays."""
+    """Host-side entry: ``[Q]`` int32 predictions. ``device_cache``
+    (normally the train ``Dataset.device_cache``) memoizes the device-side
+    train arrays."""
     _check_supported(train_x.shape[1], k, precision, metric, engine, approx)
-    if query_batch is not None and query_batch < 1:
-        raise ValueError(f"query_batch must be >= 1, got {query_batch}")
     return stripe_classify_arrays(
         train_x, train_y, test_x, k, num_classes, device=device,
-        max_rows=query_batch, cache=device_cache,
+        cache=device_cache,
     )
 
 
@@ -84,7 +81,6 @@ def predict(
     metric: str = "euclidean",
     engine: str = "auto",
     approx: bool = False,
-    query_batch: "int | None" = None,
     device="cuda",
     **_unused,
 ) -> np.ndarray:
@@ -92,6 +88,6 @@ def predict(
     return predict_arrays(
         train.features, train.labels, test.features, k, train.num_classes,
         precision=precision, metric=metric, engine=engine, approx=approx,
-        query_batch=query_batch, device=device,
+        device=device,
         device_cache=train.device_cache,
     )

@@ -1,9 +1,10 @@
 // Exact stripe KNN for Hopper (sm_90a): per query, the k smallest
 // (squared euclidean distance, train index) pairs over train rows < n_valid.
 //
-// Replaces knn_tpu/ops/pallas_knn.py::_knn_stripe_kernel, exact form (and
-// the XLA _merge_topk_rounds that follows it): the same [Q, k] float32
-// distances and int32 global indices, ascending by (distance, index).
+// Replaces knn_tpu/ops/pallas_knn.py::_knn_stripe_kernel, exact form
+// (stripe_scan_kernel), and the XLA _merge_topk_rounds that follows it
+// (stripe_merge_kernel): the same [Q, k] float32 distances and int32 global
+// indices, ascending by (distance, index).
 //
 // Contract, as in the TPU kernel and the reference's main.cpp:17-19:
 // - d = d + diff*diff over the true features in source order, rounded after
@@ -18,16 +19,21 @@
 // memory. Each thread scores 4 rows per pass over the features (one float4
 // broadcast load per feature) and keeps a sorted register list of k packed
 // keys (stripe_knn.cuh). Splitting the train rows over gridDim.y fills the
-// card when there are few queries; each (split, query) list goes to a
-// [splits, Q, k] scratch buffer. stripe_merge_kernel: one thread per query
+// card when there are few queries; each (query, split) list goes to a
+// [Q, splits, k] scratch buffer. stripe_merge_kernel: one thread per query
 // folds its sorted split lists into k keys, stopping each list at the first
-// key that cannot enter, and unpacks them.
+// key that cannot enter, and unpacks them. The merge runs even when there is
+// one split (it then only unpacks): one split happens only past ~270k
+// queries on a 132-SM card, where the merge is a small share of the scan.
 //
-// Bound on this card: FP32 CUDA-core work, 3*d operations (sub, mul, add)
-// per (query, train row) plus one key compare for the selection; the bytes
-// (train once, queries once, [Q, k] out) are far below it at d = 11. The
-// train rows of a split are re-read once per 128-query block (from L2 when
-// they fit).
+// Bound on this card (scan): 3*d FP32 instructions (sub, mul, add) per
+// (query, train row) plus one key compare for the selection. With FMA
+// contraction forbidden each is one instruction, so the rate is the card's
+// FP32 instruction rate, half its FMA-counted 67 TFLOP/s: 33.5e12 per
+// second. The bytes (train once, queries once, the [Q, splits, k] keys out)
+// are far below it at d = 11. The train rows of a split are re-read once
+// per 128-query block (from L2 when they fit). The merge is bound by the
+// bytes of the keys it reads.
 //
 // Left for later: TMA/cp.async staging with double buffering, larger query
 // tiles per thread (register blocking over queries as well as rows), and the
@@ -35,6 +41,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "stripe_knn.cuh"
 
@@ -102,7 +109,7 @@ stripe_scan_kernel(const float* __restrict__ train, int n_valid,
   }
 
   if (q0 + tid < n_queries) {
-    uint64_t* out = partial + (size_t(split) * n_queries + q0 + tid) * K;
+    uint64_t* out = partial + (size_t(q0 + tid) * gridDim.y + split) * K;
 #pragma unroll
     for (int j = 0; j < K; ++j) out[j] = list[j];
   }
@@ -119,7 +126,7 @@ __global__ void stripe_merge_kernel(const uint64_t* __restrict__ partial,
 #pragma unroll
   for (int j = 0; j < K; ++j) list[j] = kSentinelKey;
   for (int s = 0; s < n_splits; ++s) {
-    const uint64_t* src = partial + (size_t(s) * n_queries + q) * K;
+    const uint64_t* src = partial + (size_t(q) * n_splits + s) * K;
     for (int j = 0; j < K; ++j) {
       const uint64_t key = src[j];
       if (!(key < list[K - 1])) break;  // src is sorted: nothing later enters
@@ -134,10 +141,9 @@ __global__ void stripe_merge_kernel(const uint64_t* __restrict__ partial,
 }
 
 template <int K>
-cudaError_t launch(const float* train, int n_valid, const float* test,
-                   int n_queries, int d, int n_splits, int rows_per_split,
-                   uint64_t* partial, float* out_d, int* out_i,
-                   cudaStream_t stream) {
+cudaError_t launch_scan(const float* train, int n_valid, const float* test,
+                        int n_queries, int d, int n_splits, int rows_per_split,
+                        uint64_t* partial, cudaStream_t stream) {
   const size_t smem = size_t(d) * (kQueriesPerBlock + kTileRows) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       stripe_scan_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -147,8 +153,12 @@ cudaError_t launch(const float* train, int n_valid, const float* test,
                   n_splits);
   stripe_scan_kernel<K><<<grid, kQueriesPerBlock, smem, stream>>>(
       train, n_valid, test, n_queries, d, rows_per_split, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_merge(const uint64_t* partial, int n_splits, int n_queries,
+                         float* out_d, int* out_i, cudaStream_t stream) {
   constexpr int kMergeThreads = 128;
   stripe_merge_kernel<K>
       <<<(n_queries + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0,
@@ -156,37 +166,48 @@ cudaError_t launch(const float* train, int n_valid, const float* test,
   return cudaGetLastError();
 }
 
+// f(std::integral_constant<int, K>{}) for the K == k in 1..kMaxK, so the
+// register list's length is a compile-time constant.
+template <int K = 1, typename F>
+cudaError_t with_k(int k, F&& f) {
+  if constexpr (K > kMaxK) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (k == K) return f(std::integral_constant<int, K>{});
+    return with_k<K + 1>(k, static_cast<F&&>(f));
+  }
+}
+
 }  // namespace stripe_knn
 
-// Launch both kernels on `stream`; returns the CUDA status (0 = launched).
-// The caller validates shapes (1 <= k <= 16, 0 <= d <= 128, n_queries >= 1,
+// Launch the scan on `stream`; returns the CUDA status (0 = launched). The
+// caller validates shapes (1 <= k <= 16, 0 <= d <= 128, n_queries >= 1,
 // 0 <= n_valid <= rows of train, n_splits * rows_per_split >= n_valid) and
-// allocates `partial` as [n_splits, n_queries, k] uint64.
-extern "C" int stripe_knn_exact(const void* train, int n_valid,
-                                const void* test, int n_queries, int d, int k,
-                                int n_splits, int rows_per_split,
-                                void* partial, void* out_d, void* out_i,
+// allocates `partial` as [n_queries, n_splits, k] uint64.
+extern "C" int stripe_knn_scan(const void* train, int n_valid,
+                               const void* test, int n_queries, int d, int k,
+                               int n_splits, int rows_per_split,
+                               void* partial, void* stream) {
+  using namespace stripe_knn;
+  return int(with_k(k, [&](auto kc) {
+    return launch_scan<decltype(kc)::value>(
+        static_cast<const float*>(train), n_valid,
+        static_cast<const float*>(test), n_queries, d, n_splits,
+        rows_per_split, static_cast<uint64_t*>(partial),
+        static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// Launch the merge of the scan's [n_queries, n_splits, k] keys into
+// [n_queries, k] distances and indices on `stream`; returns the CUDA status.
+extern "C" int stripe_knn_merge(const void* partial, int n_splits,
+                                int n_queries, int k, void* out_d, void* out_i,
                                 void* stream) {
   using namespace stripe_knn;
-  const auto* tr = static_cast<const float*>(train);
-  const auto* te = static_cast<const float*>(test);
-  auto* pa = static_cast<uint64_t*>(partial);
-  auto* od = static_cast<float*>(out_d);
-  auto* oi = static_cast<int*>(out_i);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (k) {
-#define STRIPE_KNN_CASE(K)                                                  \
-  case K:                                                                   \
-    return int(launch<K>(tr, n_valid, te, n_queries, d, n_splits,           \
-                         rows_per_split, pa, od, oi, st));
-    STRIPE_KNN_CASE(1) STRIPE_KNN_CASE(2) STRIPE_KNN_CASE(3)
-    STRIPE_KNN_CASE(4) STRIPE_KNN_CASE(5) STRIPE_KNN_CASE(6)
-    STRIPE_KNN_CASE(7) STRIPE_KNN_CASE(8) STRIPE_KNN_CASE(9)
-    STRIPE_KNN_CASE(10) STRIPE_KNN_CASE(11) STRIPE_KNN_CASE(12)
-    STRIPE_KNN_CASE(13) STRIPE_KNN_CASE(14) STRIPE_KNN_CASE(15)
-    STRIPE_KNN_CASE(16)
-#undef STRIPE_KNN_CASE
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  return int(with_k(k, [&](auto kc) {
+    return launch_merge<decltype(kc)::value>(
+        static_cast<const uint64_t*>(partial), n_splits, n_queries,
+        static_cast<float*>(out_d), static_cast<int*>(out_i),
+        static_cast<cudaStream_t>(stream));
+  }));
 }

@@ -97,8 +97,10 @@ def build_all() -> "list[Path]":
     return [library_path(n) for n in names]
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load_library(name: str, signatures: "dict | None" = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    ``signatures`` maps each C entry to ``(argtypes, restype)``; they are
+    declared once, when the library is first loaded."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -106,5 +108,8 @@ def load_library(name: str) -> ctypes.CDLL:
             if started is not None:
                 _finish(name, started)
             lib = ctypes.CDLL(str(library_path(name)))
+            for entry, (argtypes, restype) in (signatures or {}).items():
+                fn = getattr(lib, entry)
+                fn.argtypes, fn.restype = argtypes, restype
             _loaded[name] = lib
     return lib

@@ -6,7 +6,13 @@ kernel (``csrc/stripe_knn.cu``) is written for the GPU, not translated from
 the Pallas blocks: no 128-lane layout, no v5e block tunings, no padding
 (rows at or past ``n_valid`` are masked inside the kernel), and no
 super-chunk or windowed dispatch — those worked around the TPU's fetch
-round trip. Queries are chunked only to bound the kernel's scratch.
+round trip. The queries go to the card in one call.
+
+Two kernels, each with its own wrapper, launch counter and plain version:
+:func:`knn_stripe_scan` keeps the k best keys of each (query, train split),
+and :func:`knn_stripe_merge` folds a query's split lists into its k best
+(the counterpart of the JAX package's XLA ``_merge_topk_rounds``).
+:func:`knn_stripe_candidates` plans the splits and runs both.
 
 Semantics, shared by the kernel and :func:`knn_stripe_candidates_reference`:
 per query, the k smallest ``(distance, train index)`` pairs over rows
@@ -42,9 +48,6 @@ _TILE_ROWS = 64
 _BLOCKS_PER_SM = 16
 # Elements of the plain version's [queries, N] distance block per step.
 _REFERENCE_BLOCK = 1 << 26
-# Query rows per kernel call in the host entries (bounds the kernel's
-# [splits, rows, k] scratch; the outputs themselves are only [rows, k]).
-_QUERY_CHUNK = 1 << 16
 
 
 def stripe_route_ok(precision: str, d: int, k: int) -> bool:
@@ -112,12 +115,18 @@ def split_plan(n_valid: int, n_queries: int, sm_count: int) -> Tuple[int, int]:
     """``(n_splits, rows_per_split)`` for the scan kernel's grid: the train
     rows are cut into contiguous splits of whole tiles, as many as it takes
     to give the card about ``_BLOCKS_PER_SM`` blocks per SM."""
-    q_blocks = -(-n_queries // _QUERIES_PER_BLOCK)
+    q_blocks = max(1, -(-n_queries // _QUERIES_PER_BLOCK))
     tiles = max(1, -(-n_valid // _TILE_ROWS))
     want = max(1, sm_count * _BLOCKS_PER_SM // q_blocks)
     rows_per_split = -(-tiles // min(want, tiles, 65535)) * _TILE_ROWS
     n_splits = max(1, -(-n_valid // rows_per_split))
     return n_splits, rows_per_split
+
+
+def _pack_keys(dists: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int64 keys ``(float bits << 32) | index``; positive, because the bits
+    of a non-negative float (or +inf) are < 2**31."""
+    return (dists.view(torch.int32).to(torch.int64) << 32) | idx.to(torch.int64)
 
 
 def _unpack_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,12 +138,11 @@ def _unpack_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def knn_stripe_candidates_reference(
     train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain PyTorch version, on whatever device the tensors
-    are on: the [rows, N] distance block of :func:`pairwise_sq_dists`, rows
-    ``>= n_valid`` masked to (+inf, INT32_MAX), packed into int64 keys
-    ``(float bits << 32) | index`` (positive: a non-negative float's bits
-    are < 2**31), the k smallest keys by ``torch.topk``, sorted, unpacked.
-    The keys are unique, so the order is fully determined."""
+    """The plain PyTorch version of scan + merge, on whatever device the
+    tensors are on: the [rows, N] distance block of :func:`pairwise_sq_dists`,
+    rows ``>= n_valid`` masked to (+inf, INT32_MAX), packed into int64 keys,
+    the k smallest keys by ``torch.topk``, sorted, unpacked. The keys are
+    unique, so the order is fully determined."""
     n, q = train_x.shape[0], test_x.shape[0]
     dev = test_x.device
     index = torch.arange(n, dtype=torch.int64, device=dev)
@@ -146,10 +154,41 @@ def knn_stripe_candidates_reference(
     for s in range(0, q if kk else 0, rows):
         d = pairwise_sq_dists(test_x[s : s + rows], train_x)
         d = torch.where(valid, d, torch.inf)
-        keys = (d.view(torch.int32).to(torch.int64) << 32) | index
-        top = torch.topk(keys, kk, dim=1, largest=False).values
+        top = torch.topk(_pack_keys(d, index), kk, dim=1, largest=False).values
         out[s : s + rows, :kk] = torch.sort(top, dim=1).values
     return _unpack_keys(out)
+
+
+def knn_stripe_scan_reference(
+    train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
+    n_splits: int, rows_per_split: int,
+) -> torch.Tensor:
+    """The scan kernel's plain version: ``[Q, n_splits, k]`` int64 keys,
+    for each split ``s`` the k smallest keys over the train rows
+    ``[s * rows_per_split, min((s + 1) * rows_per_split, n_valid))`` with
+    their global indices, ascending, sentinel-filled past the split's rows."""
+    q = test_x.shape[0]
+    out = torch.full((q, n_splits, k), _SENTINEL_KEY, dtype=torch.int64,
+                     device=test_x.device)
+    for s in range(n_splits):
+        lo = s * rows_per_split
+        hi = min(lo + rows_per_split, n_valid)
+        if hi > lo:
+            d, i = knn_stripe_candidates_reference(train_x[lo:hi], test_x, hi - lo, k)
+            out[:, s] = _pack_keys(d, torch.where(i == INT_MAX, i, i + lo))
+    return out
+
+
+def knn_stripe_merge_reference(
+    partial: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge kernel's plain version: a query's ``[n_splits, k]`` keys
+    -> its k smallest, sorted and unpacked to float32 distances and int32
+    indices."""
+    q, n_splits, k = partial.shape
+    top = torch.topk(partial.reshape(q, n_splits * k), k, dim=1,
+                     largest=False).values
+    return _unpack_keys(torch.sort(top, dim=1).values)
 
 
 def _check_kernel_inputs(train_x, test_x, n_valid: int, k: int) -> None:
@@ -178,6 +217,95 @@ def _check_kernel_inputs(train_x, test_x, n_valid: int, k: int) -> None:
                          f"and N below {INT_MAX}")
 
 
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# The C entries of csrc/stripe_knn.cu; pointers and the stream are 64-bit.
+_SIGNATURES = {
+    "stripe_knn_scan": ([_p, _i, _p, _i, _i, _i, _i, _i, _p, _p], _i),
+    "stripe_knn_merge": ([_p, _i, _i, _i, _p, _p, _p], _i),
+}
+
+
+def _library():
+    return _build.load_library("stripe_knn", _SIGNATURES)
+
+
+def knn_stripe_scan(
+    train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
+    n_splits: int, rows_per_split: int,
+) -> torch.Tensor:
+    """``[N, D]`` train and ``[Q, D]`` queries (float32) -> ``[Q, n_splits,
+    k]`` int64 keys, as :func:`knn_stripe_scan_reference` gives them.
+
+    CPU tensors take the plain version. CUDA tensors launch the scan kernel
+    on the current stream, or raise. ``knn_stripe_scan.launches`` counts
+    the launches."""
+    n_valid, k = int(n_valid), int(k)
+    n_splits, rows_per_split = int(n_splits), int(rows_per_split)
+    if train_x.device.type == "cpu" and test_x.device.type == "cpu":
+        return knn_stripe_scan_reference(train_x, test_x, n_valid, k,
+                                         n_splits, rows_per_split)
+    _check_kernel_inputs(train_x, test_x, n_valid, k)
+    if not (1 <= n_splits <= 65535 and 1 <= rows_per_split
+            and (n_splits - 1) * rows_per_split < max(n_valid, 1)
+            <= n_splits * rows_per_split
+            and n_valid + rows_per_split <= INT_MAX):
+        raise ValueError(f"{n_splits} splits of {rows_per_split} rows do not "
+                         f"cut n_valid={n_valid} into non-empty splits")
+    fn = _library().stripe_knn_scan
+    q, d = test_x.shape
+    dev = train_x.device
+    partial = torch.empty((q, n_splits, k), dtype=torch.int64, device=dev)
+    if q == 0:
+        return partial
+    with torch.cuda.device(dev):
+        rc = fn(train_x.data_ptr(), n_valid, test_x.data_ptr(), q, d, k,
+                n_splits, rows_per_split, partial.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise DeviceError(f"stripe_knn_scan launch failed: CUDA error {rc}")
+    knn_stripe_scan.launches += 1
+    return partial
+
+
+knn_stripe_scan.launches = 0
+
+
+def knn_stripe_merge(partial: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[Q, n_splits, k]`` int64 keys, each split's list ascending ->
+    ``([Q, k]`` float32 distances, ``[Q, k]`` int32 indices``)``.
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the merge
+    kernel on the current stream, or raises. ``knn_stripe_merge.launches``
+    counts the launches."""
+    if partial.device.type == "cpu":
+        return knn_stripe_merge_reference(partial)
+    if (partial.dtype != torch.int64 or partial.dim() != 3
+            or not partial.is_contiguous() or partial.device.type != "cuda"):
+        raise ValueError(
+            "partial must be a contiguous 3-D int64 CUDA tensor, got "
+            f"{partial.dtype} {tuple(partial.shape)} on {partial.device}")
+    q, n_splits, k = partial.shape
+    if not 1 <= k <= STRIPE_MAX_K or not 1 <= n_splits <= 65535:
+        raise ValueError(f"k={k} outside 1..{STRIPE_MAX_K} or "
+                         f"n_splits={n_splits} outside 1..65535")
+    fn = _library().stripe_knn_merge
+    dev = partial.device
+    out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return out_d, out_i
+    with torch.cuda.device(dev):
+        rc = fn(partial.data_ptr(), n_splits, q, k, out_d.data_ptr(),
+                out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise DeviceError(f"stripe_knn_merge launch failed: CUDA error {rc}")
+    knn_stripe_merge.launches += 1
+    return out_d, out_i
+
+
+knn_stripe_merge.launches = 0
+
+
 def knn_stripe_candidates(
     train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,42 +313,21 @@ def knn_stripe_candidates(
     float32 distances, ``[Q, k]`` int32 indices``)``, ascending by
     (distance, index) over rows ``< n_valid``.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel
-    (``csrc/stripe_knn.cu``) on the current stream, or raise: a build
-    failure is a :class:`CompileError`, a refused launch a
-    :class:`DeviceError`, inputs the kernel does not take a ``ValueError``.
-    ``knn_stripe_candidates.launches`` counts the launches."""
+    CPU tensors take the plain version. CUDA tensors run
+    :func:`knn_stripe_scan` over the splits of :func:`split_plan`, then
+    :func:`knn_stripe_merge`, or raise: a build failure is a
+    :class:`CompileError`, a refused launch a :class:`DeviceError`, inputs
+    the kernels do not take a ``ValueError``."""
     if train_x.device.type == "cpu" and test_x.device.type == "cpu":
         return knn_stripe_candidates_reference(train_x, test_x, n_valid, k)
-    n_valid, k = int(n_valid), int(k)
-    _check_kernel_inputs(train_x, test_x, n_valid, k)
-    fn = _build.load_library("stripe_knn").stripe_knn_exact
-    # Declared on every call: ctypes' default restype is already c_int, so
-    # no attribute tells whether the pointers were declared 64-bit.
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, i, i, i, i, i, p, p, p, p]
-    fn.restype = ctypes.c_int
-    q, d = test_x.shape
-    dev = train_x.device
-    out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-    if q == 0:
-        return out_d, out_i
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits, rows_per_split = split_plan(n_valid, q, sm_count)
-    partial = torch.empty((n_splits, q, k), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(train_x.data_ptr(), n_valid, test_x.data_ptr(), q, d, k,
-                n_splits, rows_per_split, partial.data_ptr(),
-                out_d.data_ptr(), out_i.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise DeviceError(f"stripe_knn_exact launch failed: CUDA error {rc}")
-    knn_stripe_candidates.launches += 1
-    return out_d, out_i
-
-
-knn_stripe_candidates.launches = 0
+    n_valid = int(n_valid)
+    _check_kernel_inputs(train_x, test_x, n_valid, int(k))
+    sm_count = torch.cuda.get_device_properties(
+        train_x.device).multi_processor_count
+    n_splits, rows_per_split = split_plan(n_valid, test_x.shape[0], sm_count)
+    partial = knn_stripe_scan(train_x, test_x, n_valid, k, n_splits,
+                              rows_per_split)
+    return knn_stripe_merge(partial)
 
 
 def _memo(cache: Optional[dict], key: tuple, make):
@@ -255,27 +362,16 @@ def stripe_candidates_arrays(
     precision: str = "exact",
     device="cuda",
     cache: Optional[dict] = None,
-    chunk_rows: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Host entry: numpy in, unpadded ``([Q, k]`` float32 distances,
-    ``[Q, k]`` int32 indices``)`` out, queries in chunks of ``chunk_rows``.
-    ``cache`` (a ``Dataset.device_cache`` dict) memoizes the device-side
-    train matrix."""
+    ``[Q, k]`` int32 indices``)`` out. ``cache`` (a ``Dataset.device_cache``
+    dict) memoizes the device-side train matrix."""
     _resolve_stripe_precision(precision, train_x.shape[1])
     dev = resolve_device(device)
-    q = test_x.shape[0]
-    if q == 0:
-        return np.empty((0, k), np.float32), np.empty((0, k), np.int32)
     tx = _cached_stripe_train(train_x, dev, cache)
-    rows = chunk_rows or _QUERY_CHUNK
-    dists, idx = [], []
-    for s in range(0, q, rows):
-        d, i = knn_stripe_candidates(
-            tx, _to_device(test_x[s : s + rows], np.float32, dev),
-            train_x.shape[0], k)
-        dists.append(d.cpu().numpy())
-        idx.append(i.cpu().numpy())
-    return np.concatenate(dists), np.concatenate(idx)
+    d, i = knn_stripe_candidates(tx, _to_device(test_x, np.float32, dev),
+                                 train_x.shape[0], k)
+    return d.cpu().numpy(), i.cpu().numpy()
 
 
 def knn_stripe_classify(
@@ -301,25 +397,18 @@ def stripe_classify_arrays(
     num_classes: int,
     precision: str = "exact",
     device="cuda",
-    max_rows: Optional[int] = None,
     cache: Optional[dict] = None,
 ) -> np.ndarray:
     """Host entry for a full stripe classify: uploads (train memoized in
-    ``cache``), runs :func:`knn_stripe_classify` in query chunks of at most
-    ``max_rows``, and returns ``[Q]`` int32 predictions on the host — the
-    copy back waits for the device work."""
+    ``cache``), runs :func:`knn_stripe_classify`, and returns ``[Q]`` int32
+    predictions on the host — the copy back waits for the device work."""
     _resolve_stripe_precision(precision, train_x.shape[1])
     dev = resolve_device(device)
-    q = test_x.shape[0]
-    if q == 0:
+    if test_x.shape[0] == 0:
         return np.empty(0, np.int32)
     tx = _cached_stripe_train(train_x, dev, cache)
     ty = _memo(cache, ("stripe_labels", str(dev)),
                lambda: _to_device(train_y, np.int32, dev))
-    rows = min(max_rows or _QUERY_CHUNK, _QUERY_CHUNK)
-    parts = []
-    for s in range(0, q, rows):
-        qx = _to_device(test_x[s : s + rows], np.float32, dev)
-        preds = knn_stripe_classify(tx, ty, qx, train_x.shape[0], k, num_classes)
-        parts.append(preds.cpu().numpy())
-    return np.concatenate(parts)
+    qx = _to_device(test_x, np.float32, dev)
+    return knn_stripe_classify(tx, ty, qx, train_x.shape[0], k,
+                               num_classes).cpu().numpy()

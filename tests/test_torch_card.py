@@ -38,12 +38,29 @@ def test_kernel_equals_plain_version(card, d, k):
     rng = np.random.default_rng(d + k)
     train, test = _grid(rng, 2000, 300, d)
     t, q = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
-    before = cuda_knn.knn_stripe_candidates.launches
+    before = (cuda_knn.knn_stripe_scan.launches,
+              cuda_knn.knn_stripe_merge.launches)
     kd, ki = cuda_knn.knn_stripe_candidates(t, q, 1990, k)
     rd, ri = cuda_knn.knn_stripe_candidates_reference(t, q, 1990, k)
     torch.cuda.synchronize()
-    assert cuda_knn.knn_stripe_candidates.launches == before + 1
+    assert (cuda_knn.knn_stripe_scan.launches,
+            cuda_knn.knn_stripe_merge.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(ki, ri) and torch.equal(kd, rd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits,rows", [(1, 2000), (7, 320), (32, 64)])
+def test_scan_and_merge_equal_their_plain_versions(card, n_splits, rows):
+    rng = np.random.default_rng(n_splits)
+    train, test = _grid(rng, 2000, 300, 11)
+    t, q = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
+    n_valid = min(1990, n_splits * rows)
+    partial = cuda_knn.knn_stripe_scan(t, q, n_valid, 5, n_splits, rows)
+    want = cuda_knn.knn_stripe_scan_reference(t, q, n_valid, 5, n_splits, rows)
+    assert torch.equal(partial, want)
+    for got, ref in zip(cuda_knn.knn_stripe_merge(partial),
+                        cuda_knn.knn_stripe_merge_reference(partial)):
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda

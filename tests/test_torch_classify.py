@@ -52,18 +52,21 @@ def test_small_fixture_predictions_match_jax_and_oracle(small_port, k):
     np.testing.assert_array_equal(got, want)
     got = cuda_backend.predict_arrays(
         train.features, train.labels, test.features, k, train.num_classes,
-        device="cpu", query_batch=7)
+        device="cpu")
     np.testing.assert_array_equal(got, want)
 
 
 def test_candidates_arrays_chunked_equal_unchunked(small_port):
+    # Each query's answer depends on that query alone: slices of the
+    # queries, run one call each, give the rows of one call on them all.
     train, test = small_port
     whole = cuda_knn.stripe_candidates_arrays(
         train.features, test.features, 5, device="cpu")
-    chunked = cuda_knn.stripe_candidates_arrays(
-        train.features, test.features, 5, device="cpu", chunk_rows=9)
-    for a, b in zip(whole, chunked):
-        assert a.tobytes() == b.tobytes()
+    parts = [cuda_knn.stripe_candidates_arrays(
+        train.features, test.features[s : s + 9], 5, device="cpu")
+        for s in range(0, test.num_instances, 9)]
+    for j, a in enumerate(whole):
+        assert a.tobytes() == np.concatenate([p[j] for p in parts]).tobytes()
     assert whole[0].shape == (test.num_instances, 5)
 
 

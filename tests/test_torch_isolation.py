@@ -62,15 +62,21 @@ class _FakeCudaTensor:
 
 
 def test_wrapper_raises_when_library_is_missing(monkeypatch):
-    def missing(name):
+    def missing(name, signatures=None):
         raise CompileError(f"nvcc not found: cannot build {name}")
 
     monkeypatch.setattr(_build, "load_library", missing)
-    before = cuda_knn.knn_stripe_candidates.launches
+    before = (cuda_knn.knn_stripe_scan.launches,
+              cuda_knn.knn_stripe_merge.launches)
     with pytest.raises(CompileError, match="stripe_knn"):
-        cuda_knn.knn_stripe_candidates(
-            _FakeCudaTensor(50, 7), _FakeCudaTensor(4, 7), 50, 3)
-    assert cuda_knn.knn_stripe_candidates.launches == before
+        cuda_knn.knn_stripe_scan(
+            _FakeCudaTensor(50, 7), _FakeCudaTensor(4, 7), 50, 3, 1, 64)
+    partial = _FakeCudaTensor(4, 2, 3)
+    partial.dtype = torch.int64
+    with pytest.raises(CompileError, match="stripe_knn"):
+        cuda_knn.knn_stripe_merge(partial)
+    assert (cuda_knn.knn_stripe_scan.launches,
+            cuda_knn.knn_stripe_merge.launches) == before
 
 
 @pytest.mark.parametrize("train,test,n_valid,k", [
@@ -82,10 +88,40 @@ def test_wrapper_raises_when_library_is_missing(monkeypatch):
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(
         monkeypatch, train, test, n_valid, k):
-    monkeypatch.setattr(_build, "load_library", lambda name: types.SimpleNamespace())
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, signatures=None: types.SimpleNamespace())
     with pytest.raises(ValueError):
-        cuda_knn.knn_stripe_candidates(
-            _FakeCudaTensor(*train), _FakeCudaTensor(*test), n_valid, k)
+        cuda_knn.knn_stripe_scan(
+            _FakeCudaTensor(*train), _FakeCudaTensor(*test), n_valid, k, 1, 64)
+
+
+@pytest.mark.parametrize("n_valid,n_splits,rows", [
+    (50, 0, 64),      # no split
+    (50, 1, 32),      # rows past the last split
+    (50, 2, 64),      # an empty split
+    (50, 65536, 1),   # more splits than the grid takes
+])
+def test_scan_rejects_splits_that_do_not_cut_the_rows(
+        monkeypatch, n_valid, n_splits, rows):
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, signatures=None: types.SimpleNamespace())
+    with pytest.raises(ValueError, match="splits"):
+        cuda_knn.knn_stripe_scan(_FakeCudaTensor(50, 7), _FakeCudaTensor(4, 7),
+                                 n_valid, 3, n_splits, rows)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 2, 17), torch.int64),  # k > 16
+    ((4, 2, 3), torch.int32),   # not packed keys
+    ((4, 6), torch.int64),      # not [Q, splits, k]
+])
+def test_merge_rejects_what_the_kernel_does_not_take(monkeypatch, shape, dtype):
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, signatures=None: types.SimpleNamespace())
+    partial = _FakeCudaTensor(*shape)
+    partial.dtype = dtype
+    with pytest.raises(ValueError):
+        cuda_knn.knn_stripe_merge(partial)
 
 
 def test_build_without_nvcc_is_a_compile_error(monkeypatch, tmp_path):

@@ -201,3 +201,29 @@ def test_split_plan_covers_every_row(n_valid, q):
     assert 1 <= n_splits <= 65535 and rows % cuda_knn._TILE_ROWS == 0
     assert n_splits * rows >= n_valid > (n_splits - 1) * rows or n_valid == 0
 
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("n_valid,n_splits,rows", [
+    (N, 1, N), (N, 5, 64), (N - 45, 4, 64), (10, 1, 64), (0, 1, 64)])
+def test_scan_then_merge_equals_the_whole_scan(k, n_valid, n_splits, rows):
+    # The kernels' two steps, as their wrappers run them on CPU tensors:
+    # per-split lists hold only their own rows, and merging them gives
+    # what one scan over all rows gives, NaN rows and ties included.
+    rng = np.random.default_rng(k * 10 + n_splits)
+    train, test = int_grid(rng, 7)
+    train[rng.choice(N, 30, replace=False), 2] = np.nan
+    t, q = torch.from_numpy(train), torch.from_numpy(test)
+    partial = cuda_knn.knn_stripe_scan(t, q, n_valid, k, n_splits, rows)
+    assert partial.shape == (Q, n_splits, k) and partial.dtype == torch.int64
+    assert (partial[..., 1:] > partial[..., :-1]).logical_or(
+        partial[..., 1:] == cuda_knn._SENTINEL_KEY).all()
+    idx = (partial & 0xFFFFFFFF).numpy()
+    for s in range(n_splits):
+        lo, hi = s * rows, min((s + 1) * rows, n_valid)
+        own = idx[:, s]
+        assert ((own == INT_MAX) | ((own >= lo) & (own < hi))).all()
+    d_got, i_got = cuda_knn.knn_stripe_merge(partial)
+    d_want, i_want = cuda_knn.knn_stripe_candidates_reference(t, q, n_valid, k)
+    assert torch.equal(i_got, i_want)
+    assert d_got.numpy().tobytes() == d_want.numpy().tobytes()
