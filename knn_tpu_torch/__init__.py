@@ -7,10 +7,11 @@ relative path. It imports ``torch`` and numpy, never ``jax`` and never
 the caller asks for the host (``device="cpu"``).
 
 - ``knn_tpu_torch.data``     — ARFF ingest into dense ``float32 [N, D]``.
-- ``knn_tpu_torch.ops``      — the exact distance, the vote, and the stripe
-  KNN kernel (``csrc/stripe_knn.cu``, built with nvcc at first use) beside
-  its plain PyTorch version.
-- ``knn_tpu_torch.backends`` — ``cuda`` (the kernel) and ``oracle`` (numpy).
+- ``knn_tpu_torch.ops``      — the distance forms, the vote, and the stripe
+  and tile KNN kernels (``csrc/stripe_knn.cu``, ``csrc/tile_knn.cu``, built
+  with nvcc at first use) beside their plain PyTorch versions.
+- ``knn_tpu_torch.backends`` — ``cuda`` (the stripe route), ``cuda-tile``
+  (the wide-feature rung) and ``oracle`` (numpy).
 - ``knn_tpu_torch.cli``      — ``python -m knn_tpu_torch TRAIN TEST k``.
 - ``knn_tpu_torch.convert``  — a ``knn_tpu`` dataset's fields in, the
   port's :class:`Dataset` out.

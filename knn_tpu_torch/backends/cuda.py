@@ -1,14 +1,17 @@
-"""The ``cuda`` backend: classify through the exact stripe kernel.
+"""The ``cuda`` backend: classify through the stripe route's kernels.
 
 The port of ``knn_tpu/backends/tpu.py``'s stripe route. In the JAX package,
-``predict_arrays`` with engine ``auto`` sends exact euclidean problems with
-d <= 128 and k <= 16 to the stripe kernel and everything else to the XLA
-scans or the wide-feature Pallas kernel. Here the stripe route is the only
-route: an option it cannot honor raises a ``ValueError`` naming the ROADMAP
-item that will port it, and is never computed some other way.
+``predict_arrays`` with engine ``auto`` sends to the stripe kernel the
+problems ``stripe_route_ok`` admits — the exact form with d <= 128, the
+bf16 form at any width, the fast form with d > 128, each with k <= 16 — and
+everything else to the XLA scans. Here the stripe route is the only route:
+the exact form with d <= 128 runs the stripe kernel, the bf16 and wide fast
+forms the tile kernel (``ops/tile_knn.py``). An option the route cannot
+honor raises a ``ValueError`` naming the ROADMAP item that will port it,
+and is never computed some other way.
 
-``device`` defaults to ``"cuda"``; ``"cpu"`` runs the kernel's plain
-PyTorch version on the host. A CUDA device that is absent is a
+``device`` defaults to ``"cuda"``; ``"cpu"`` runs the kernels' plain
+PyTorch versions on the host. A CUDA device that is absent is a
 :class:`~knn_tpu_torch.resilience.errors.DeviceError`, never a fallback.
 """
 
@@ -19,16 +22,18 @@ import numpy as np
 from knn_tpu_torch.backends import register
 from knn_tpu_torch.data.dataset import Dataset
 from knn_tpu_torch.ops.cuda_knn import (
-    STRIPE_MAX_D,
     STRIPE_MAX_K,
     _resolve_stripe_precision,
     stripe_classify_arrays,
+    stripe_route_ok,
 )
 from knn_tpu_torch.ops.distance import resolve_form
 
 
 def _check_supported(d: int, k: int, precision: str, metric: str,
-                     engine: str, approx: bool) -> None:
+                     engine: str, approx: bool) -> str:
+    """The distance form to run, or a ``ValueError`` naming the ROADMAP
+    item for what the stripe route does not take."""
     if engine == "xla":
         raise ValueError("engine='xla' (the XLA tiled scan) is not ported "
                          "yet (ROADMAP A3); use engine='auto' or 'stripe'")
@@ -41,12 +46,15 @@ def _check_supported(d: int, k: int, precision: str, metric: str,
     if resolve_form(precision, metric) != precision:
         raise ValueError(f"metric {metric!r} is not ported yet (ROADMAP A3); "
                          "the cuda backend computes euclidean only")
-    _resolve_stripe_precision(precision, d)
-    if d > STRIPE_MAX_D:
-        raise ValueError(f"d={d} > {STRIPE_MAX_D}: the wide-feature kernel is "
-                         "not ported yet (ROADMAP B2)")
+    form = _resolve_stripe_precision(precision, d)
     if k > STRIPE_MAX_K:
         raise ValueError(f"k={k} > {STRIPE_MAX_K}: not ported yet (ROADMAP B1d)")
+    if not stripe_route_ok(form, d, k):
+        raise ValueError(
+            f"precision {form!r} with d={d} takes the XLA scans on the tpu "
+            "backend, which are not ported yet (ROADMAP A3); the cuda-tile "
+            "backend runs it")
+    return form
 
 
 def predict_arrays(
@@ -65,10 +73,11 @@ def predict_arrays(
     """Host-side entry: ``[Q]`` int32 predictions. ``device_cache``
     (normally the train ``Dataset.device_cache``) memoizes the device-side
     train arrays."""
-    _check_supported(train_x.shape[1], k, precision, metric, engine, approx)
+    form = _check_supported(train_x.shape[1], k, precision, metric, engine,
+                            approx)
     return stripe_classify_arrays(
-        train_x, train_y, test_x, k, num_classes, device=device,
-        cache=device_cache,
+        train_x, train_y, test_x, k, num_classes, precision=form,
+        device=device, cache=device_cache,
     )
 
 

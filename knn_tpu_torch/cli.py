@@ -7,9 +7,12 @@ against the train rows, and prints the reference's result line
 region ends after the predictions are back on the host, so it includes the
 device work.
 
-Flags: ``--backend {cuda,oracle}`` (default ``cuda``: the stripe kernel),
-``--device {cuda,cpu}`` (default ``cuda``; ``cpu`` runs the kernel's plain
-PyTorch version), ``--warmup`` (one untimed run first: kernel build and
+Flags: ``--backend {cuda,cuda-tile,oracle}`` (default ``cuda``: the stripe
+route; ``cuda-tile``: the wide-feature rung, the twin of ``tpu-pallas``),
+``--precision {exact,fast,bf16,auto}`` (default ``exact``; ``auto`` passes
+nothing, so the backend's own default applies, as in the JAX CLI),
+``--device {cuda,cpu}`` (default ``cuda``; ``cpu`` runs the kernels' plain
+PyTorch versions), ``--warmup`` (one untimed run first: kernel build and
 upload), ``--json`` (a structured line after the result line).
 
 Exit codes, as the JAX package's (knn_tpu/cli.py:45-54): 0 success; 2 the
@@ -52,8 +55,15 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("train", help="train ARFF file")
     c.add_argument("test", help="test ARFF file")
     c.add_argument("k", type=int, help="number of neighbors")
-    c.add_argument("--backend", choices=["cuda", "oracle"], default="cuda",
-                   help="cuda: the stripe kernel (default); oracle: numpy")
+    c.add_argument("--backend", choices=["cuda", "cuda-tile", "oracle"],
+                   default="cuda",
+                   help="cuda: the stripe route (default); cuda-tile: the "
+                   "wide-feature rung; oracle: numpy")
+    c.add_argument("--precision", choices=["exact", "fast", "bf16", "auto"],
+                   default="exact",
+                   help="distance form: exact (reference parity), fast "
+                   "(matmul expansion), bf16 (bfloat16 cross term), auto "
+                   "(defer to the backend's default)")
     c.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the cuda backend runs (cpu: its plain "
                    "PyTorch version)")
@@ -99,11 +109,14 @@ def _run_classify(args, stdout) -> int:
         return EXIT_USAGE
 
     predict = get_backend(args.backend)
+    opts = {"device": args.device}
+    if args.precision != "auto":
+        opts["precision"] = args.precision
     try:
         if args.warmup:
-            predict(train, test, args.k, device=args.device)
+            predict(train, test, args.k, **opts)
         with RegionTimer() as t:
-            predictions = predict(train, test, args.k, device=args.device)
+            predictions = predict(train, test, args.k, **opts)
     except ResilienceError as e:
         _error(f"{type(e).__name__}: {e}")
         return EXIT_RUNTIME

@@ -41,7 +41,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "stripe_knn.cuh"
 
@@ -164,18 +163,6 @@ cudaError_t launch_merge(const uint64_t* partial, int n_splits, int n_queries,
       <<<(n_queries + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0,
          stream>>>(partial, n_splits, n_queries, out_d, out_i);
   return cudaGetLastError();
-}
-
-// f(std::integral_constant<int, K>{}) for the K == k in 1..kMaxK, so the
-// register list's length is a compile-time constant.
-template <int K = 1, typename F>
-cudaError_t with_k(int k, F&& f) {
-  if constexpr (K > kMaxK) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (k == K) return f(std::integral_constant<int, K>{});
-    return with_k<K + 1>(k, static_cast<F&&>(f));
-  }
 }
 
 }  // namespace stripe_knn

@@ -1,4 +1,4 @@
-// Device helpers shared by the exact stripe-KNN kernels (stripe_knn.cu).
+// Helpers shared by the KNN kernels (stripe_knn.cu, tile_knn.cu).
 //
 // A candidate is one packed 64-bit key: (float bits of the distance << 32)
 // | train index. Distances are +0, positive or +inf once NaN has been mapped
@@ -7,7 +7,10 @@
 // winning a distance tie. One unsigned compare applies the whole tie rule.
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cstdint>
+#include <type_traits>
 
 namespace stripe_knn {
 
@@ -51,6 +54,18 @@ __device__ __forceinline__ void insert_key(uint64_t (&list)[K], uint64_t key) {
       list[j] = key < prev ? prev : (key < list[j] ? key : list[j]);
     }
     list[0] = key < list[0] ? key : list[0];
+  }
+}
+
+// f(std::integral_constant<int, K>{}) for the K == k in 1..kMaxK, so the
+// register list's length is a compile-time constant.
+template <int K = 1, typename F>
+cudaError_t with_k(int k, F&& f) {
+  if constexpr (K > kMaxK) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (k == K) return f(std::integral_constant<int, K>{});
+    return with_k<K + 1>(k, static_cast<F&&>(f));
   }
 }
 

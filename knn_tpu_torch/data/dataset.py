@@ -54,8 +54,9 @@ class Dataset:
     relation: str = ""
     attributes: Sequence[Attribute] = dataclasses.field(default_factory=list)
     raw_targets: Optional[np.ndarray] = None
-    # Device-side copies of features/labels, keyed by (kind, device) — e.g.
-    # ("stripe_train", "cuda:0") — populated lazily by the execution
+    # Device-side copies of features/labels, keyed by kind, device and
+    # stored dtype — e.g. ("train", "cuda:0", "torch.bfloat16") — populated
+    # lazily by the execution
     # backends so repeat predict calls skip the upload.
     # Staleness is ENFORCED (VERDICT r3 #8): the array attributes are
     # read-only views — in-place writes raise — and REBINDING an array

@@ -1,5 +1,5 @@
-"""Exact stripe KNN on the card: the kernel wrapper, its plain version, and
-the host entries of the classify path.
+"""Exact stripe KNN on the card: the kernel wrappers, their plain versions,
+and the host entries of the classify path.
 
 The port of ``knn_tpu/ops/pallas_knn.py``'s stripe route, exact form. The
 kernel (``csrc/stripe_knn.cu``) is written for the GPU, not translated from
@@ -13,6 +13,12 @@ Two kernels, each with its own wrapper, launch counter and plain version:
 and :func:`knn_stripe_merge` folds a query's split lists into its k best
 (the counterpart of the JAX package's XLA ``_merge_topk_rounds``).
 :func:`knn_stripe_candidates` plans the splits and runs both.
+
+The host entries (:func:`stripe_candidates_arrays`,
+:func:`stripe_classify_arrays`) take the JAX stripe route's three distance
+forms: the exact form with d <= 128 runs the stripe kernel; the matmul forms
+(and the exact form past 128 features) run the tile kernel of
+``ops/tile_knn.py``, with the train matrix stored as the JAX route stores it.
 
 Semantics, shared by the kernel and :func:`knn_stripe_candidates_reference`:
 per query, the k smallest ``(distance, train index)`` pairs over rows
@@ -31,8 +37,8 @@ import numpy as np
 import torch
 
 from knn_tpu_torch.ops import _build
-from knn_tpu_torch.ops.distance import pairwise_sq_dists
-from knn_tpu_torch.ops.vote import vote
+from knn_tpu_torch.ops.distance import DIST_FNS
+from knn_tpu_torch.ops.vote import vote_neighbors
 from knn_tpu_torch.resilience.errors import DeviceError
 
 STRIPE_MAX_D = 128
@@ -51,10 +57,19 @@ _REFERENCE_BLOCK = 1 << 26
 
 
 def stripe_route_ok(precision: str, d: int, k: int) -> bool:
-    """Which problems the stripe kernel takes: the exact form with narrow
-    features and small k. (The JAX package also routes ``fast``/``bf16``
-    here; those forms are ROADMAP B1c.)"""
-    return precision == "exact" and d <= STRIPE_MAX_D and k <= STRIPE_MAX_K
+    """The JAX package's rule for which problems take the stripe route:
+    the exact form with narrow features, the bf16 form at any width, the
+    fast form with wide features, each with k <= 16. JAX also declines the
+    matmul forms past ~24k (fast) or ~33k (bf16) features, where no block
+    fits a v5e's VMEM budget (``_wide_tile_fits``); that limit is a TPU's
+    and is left out: on the card both routes of a form compute the same
+    function."""
+    return (
+        (precision == "bf16"
+         or (precision == "fast" and d > STRIPE_MAX_D)
+         or (precision == "exact" and d <= STRIPE_MAX_D))
+        and k <= STRIPE_MAX_K
+    )
 
 
 def stripe_inputs_finite(*arrays: np.ndarray) -> bool:
@@ -81,17 +96,12 @@ def stripe_inputs_finite(*arrays: np.ndarray) -> bool:
 
 def _resolve_stripe_precision(precision: str, d: int) -> str:
     """``auto`` resolves as in the JAX package — exact for narrow features,
-    fast for wide — and only the exact form is ported."""
+    fast for wide; an unknown name is a ``ValueError``."""
     if precision == "auto":
-        precision = "exact" if d <= STRIPE_MAX_D else "fast"
-    if precision not in ("exact", "fast", "bf16"):
+        return "exact" if d <= STRIPE_MAX_D else "fast"
+    if precision not in DIST_FNS:
         raise ValueError(
             f"unknown precision {precision!r}; choose auto, exact, fast, or bf16"
-        )
-    if precision != "exact":
-        raise ValueError(
-            f"precision {precision!r} is not ported yet (ROADMAP B1c); "
-            "the stripe kernel computes the exact form only"
         )
     return precision
 
@@ -111,14 +121,17 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def split_plan(n_valid: int, n_queries: int, sm_count: int) -> Tuple[int, int]:
-    """``(n_splits, rows_per_split)`` for the scan kernel's grid: the train
-    rows are cut into contiguous splits of whole tiles, as many as it takes
-    to give the card about ``_BLOCKS_PER_SM`` blocks per SM."""
+def split_plan(n_valid: int, n_queries: int, sm_count: int,
+               tile_rows: int = _TILE_ROWS,
+               blocks_per_sm: int = _BLOCKS_PER_SM) -> Tuple[int, int]:
+    """``(n_splits, rows_per_split)`` for a scan kernel's grid of
+    128-query blocks: the train rows are cut into contiguous splits of whole
+    ``tile_rows`` tiles, as many as it takes to give the card about
+    ``blocks_per_sm`` blocks per SM."""
     q_blocks = max(1, -(-n_queries // _QUERIES_PER_BLOCK))
-    tiles = max(1, -(-n_valid // _TILE_ROWS))
-    want = max(1, sm_count * _BLOCKS_PER_SM // q_blocks)
-    rows_per_split = -(-tiles // min(want, tiles, 65535)) * _TILE_ROWS
+    tiles = max(1, -(-n_valid // tile_rows))
+    want = max(1, sm_count * blocks_per_sm // q_blocks)
+    rows_per_split = -(-tiles // min(want, tiles, 65535)) * tile_rows
     n_splits = max(1, -(-n_valid // rows_per_split))
     return n_splits, rows_per_split
 
@@ -137,12 +150,15 @@ def _unpack_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def knn_stripe_candidates_reference(
     train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
+    form: str = "exact",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of scan + merge, on whatever device the
-    tensors are on: the [rows, N] distance block of :func:`pairwise_sq_dists`,
-    rows ``>= n_valid`` masked to (+inf, INT32_MAX), packed into int64 keys,
-    the k smallest keys by ``torch.topk``, sorted, unpacked. The keys are
-    unique, so the order is fully determined."""
+    tensors are on: the [rows, N] distance block of ``DIST_FNS[form]``
+    (:func:`pairwise_sq_dists` for the exact form), rows ``>= n_valid``
+    masked to (+inf, INT32_MAX), packed into int64 keys, the k smallest keys
+    by ``torch.topk``, sorted, unpacked. The keys are unique, so the order
+    is fully determined."""
+    distances = DIST_FNS[form]
     n, q = train_x.shape[0], test_x.shape[0]
     dev = test_x.device
     index = torch.arange(n, dtype=torch.int64, device=dev)
@@ -152,7 +168,7 @@ def knn_stripe_candidates_reference(
     out = torch.full((q, k), _SENTINEL_KEY, dtype=torch.int64, device=dev)
     rows = max(1, _REFERENCE_BLOCK // max(n, 1))
     for s in range(0, q if kk else 0, rows):
-        d = pairwise_sq_dists(test_x[s : s + rows], train_x)
+        d = distances(test_x[s : s + rows], train_x)
         d = torch.where(valid, d, torch.inf)
         top = torch.topk(_pack_keys(d, index), kk, dim=1, largest=False).values
         out[s : s + rows, :kk] = torch.sort(top, dim=1).values
@@ -161,7 +177,7 @@ def knn_stripe_candidates_reference(
 
 def knn_stripe_scan_reference(
     train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
-    n_splits: int, rows_per_split: int,
+    n_splits: int, rows_per_split: int, form: str = "exact",
 ) -> torch.Tensor:
     """The scan kernel's plain version: ``[Q, n_splits, k]`` int64 keys,
     for each split ``s`` the k smallest keys over the train rows
@@ -174,7 +190,8 @@ def knn_stripe_scan_reference(
         lo = s * rows_per_split
         hi = min(lo + rows_per_split, n_valid)
         if hi > lo:
-            d, i = knn_stripe_candidates_reference(train_x[lo:hi], test_x, hi - lo, k)
+            d, i = knn_stripe_candidates_reference(train_x[lo:hi], test_x,
+                                                   hi - lo, k, form)
             out[:, s] = _pack_keys(d, torch.where(i == INT_MAX, i, i + lo))
     return out
 
@@ -208,13 +225,24 @@ def _check_kernel_inputs(train_x, test_x, n_valid: int, k: int) -> None:
         raise ValueError(f"train has {d} features but test has {test_x.shape[1]}")
     if d > STRIPE_MAX_D:
         raise ValueError(f"d={d} exceeds the stripe kernel's {STRIPE_MAX_D} "
-                         "(wide features are ROADMAP B2)")
+                         "(wide features take the tile kernel, ops/tile_knn.py)")
     if not 1 <= k <= STRIPE_MAX_K:
         raise ValueError(f"k={k} outside the stripe kernel's 1..{STRIPE_MAX_K} "
                          "(k > 16 is ROADMAP B1d)")
     if not 0 <= n_valid <= n or n >= INT_MAX:
         raise ValueError(f"n_valid={n_valid} must lie in [0, {n}] "
                          f"and N below {INT_MAX}")
+
+
+def check_splits(n_valid: int, n_splits: int, rows_per_split: int) -> None:
+    """Raise unless ``n_splits`` splits of ``rows_per_split`` rows cut
+    ``n_valid`` rows into non-empty splits that a kernel grid can hold."""
+    if not (1 <= n_splits <= 65535 and 1 <= rows_per_split
+            and (n_splits - 1) * rows_per_split < max(n_valid, 1)
+            <= n_splits * rows_per_split
+            and n_valid + rows_per_split <= INT_MAX):
+        raise ValueError(f"{n_splits} splits of {rows_per_split} rows do not "
+                         f"cut n_valid={n_valid} into non-empty splits")
 
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
@@ -245,12 +273,7 @@ def knn_stripe_scan(
         return knn_stripe_scan_reference(train_x, test_x, n_valid, k,
                                          n_splits, rows_per_split)
     _check_kernel_inputs(train_x, test_x, n_valid, k)
-    if not (1 <= n_splits <= 65535 and 1 <= rows_per_split
-            and (n_splits - 1) * rows_per_split < max(n_valid, 1)
-            <= n_splits * rows_per_split
-            and n_valid + rows_per_split <= INT_MAX):
-        raise ValueError(f"{n_splits} splits of {rows_per_split} rows do not "
-                         f"cut n_valid={n_valid} into non-empty splits")
+    check_splits(n_valid, n_splits, rows_per_split)
     fn = _library().stripe_knn_scan
     q, d = test_x.shape
     dev = train_x.device
@@ -330,7 +353,7 @@ def knn_stripe_candidates(
     return knn_stripe_merge(partial)
 
 
-def _memo(cache: Optional[dict], key: tuple, make):
+def memo(cache: Optional[dict], key: tuple, make):
     """Return ``cache[key]``, else ``make()`` it and store it when a cache
     dict (normally ``Dataset.device_cache``) was supplied."""
     if cache is not None and key in cache:
@@ -341,18 +364,49 @@ def _memo(cache: Optional[dict], key: tuple, make):
     return entry
 
 
-def _to_device(a: np.ndarray, dtype, dev: torch.device) -> torch.Tensor:
+def to_device(a: np.ndarray, dtype, dev: torch.device) -> torch.Tensor:
     """A copy of ``a`` on ``dev`` (a copy on the host too: Dataset arrays
     are read-only, and a tensor must not share their memory)."""
     return torch.tensor(np.ascontiguousarray(a, dtype), device=dev)
 
 
-def _cached_stripe_train(train_x: np.ndarray, dev: torch.device,
-                         cache: Optional[dict]) -> torch.Tensor:
-    """The device-resident ``[N, D]`` float32 train matrix, memoized per
-    device in ``cache`` so repeat calls skip the upload."""
-    return _memo(cache, ("stripe_train", str(dev)),
-                 lambda: _to_device(train_x, np.float32, dev))
+def cached_train(train_x: np.ndarray, dev: torch.device, cache: Optional[dict],
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The device-resident ``[N, D]`` train matrix stored as ``dtype``
+    (float32, or bfloat16 rounded to nearest even), memoized per device and
+    dtype in ``cache`` so repeat calls skip the upload."""
+    return memo(cache, ("train", str(dev), str(dtype)),
+                lambda: to_device(train_x, np.float32, dev).to(dtype))
+
+
+def cached_labels(train_y: np.ndarray, dev: torch.device,
+                  cache: Optional[dict]) -> torch.Tensor:
+    """The device-resident ``[N]`` int32 labels, memoized per device."""
+    return memo(cache, ("labels", str(dev)),
+                lambda: to_device(train_y, np.int32, dev))
+
+
+def stripe_store_dtype(form: str, d: int) -> torch.dtype:
+    """How the JAX stripe route stores the train matrix
+    (``pallas_knn.py::_cached_stripe_train``): bfloat16 for the bf16 form on
+    wide features, float32 otherwise. The norms of a matmul form are summed
+    from the stored values, so this choice is part of the function."""
+    return torch.bfloat16 if form == "bf16" and d > STRIPE_MAX_D else torch.float32
+
+
+def stripe_route_candidates(
+    train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
+    form: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stripe route on device tensors: the exact form with d <= 128 runs
+    the stripe kernel (:func:`knn_stripe_candidates`); every other form and
+    width runs the tile kernel (``tile_knn.knn_tile_candidates``), which
+    computes the same function as the JAX stripe kernel's form."""
+    if form == "exact" and train_x.shape[1] <= STRIPE_MAX_D:
+        return knn_stripe_candidates(train_x, test_x, n_valid, k)
+    from knn_tpu_torch.ops import tile_knn  # tile_knn imports this module
+
+    return tile_knn.knn_tile_candidates(train_x, test_x, n_valid, k, form)
 
 
 def stripe_candidates_arrays(
@@ -366,11 +420,12 @@ def stripe_candidates_arrays(
     """Host entry: numpy in, unpadded ``([Q, k]`` float32 distances,
     ``[Q, k]`` int32 indices``)`` out. ``cache`` (a ``Dataset.device_cache``
     dict) memoizes the device-side train matrix."""
-    _resolve_stripe_precision(precision, train_x.shape[1])
+    form = _resolve_stripe_precision(precision, train_x.shape[1])
     dev = resolve_device(device)
-    tx = _cached_stripe_train(train_x, dev, cache)
-    d, i = knn_stripe_candidates(tx, _to_device(test_x, np.float32, dev),
-                                 train_x.shape[0], k)
+    tx = cached_train(train_x, dev, cache,
+                      stripe_store_dtype(form, train_x.shape[1]))
+    d, i = stripe_route_candidates(tx, to_device(test_x, np.float32, dev),
+                                   train_x.shape[0], k, form)
     return d.cpu().numpy(), i.cpu().numpy()
 
 
@@ -381,12 +436,13 @@ def knn_stripe_classify(
     n_valid: int,
     k: int,
     num_classes: int,
+    form: str = "exact",
 ) -> torch.Tensor:
-    """Classify on device tensors: the stripe kernel, the label gather and
-    the vote. Returns ``[Q]`` int32 predictions on the same device."""
-    _, idx = knn_stripe_candidates(train_x, test_x, n_valid, k)
-    safe = idx.clamp(max=train_y.shape[0] - 1).long()
-    return vote(train_y[safe], num_classes)
+    """Classify on device tensors: the stripe route's kernels, the label
+    gather and the vote. Returns ``[Q]`` int32 predictions on the same
+    device."""
+    _, idx = stripe_route_candidates(train_x, test_x, n_valid, k, form)
+    return vote_neighbors(idx, train_y, num_classes)
 
 
 def stripe_classify_arrays(
@@ -399,16 +455,17 @@ def stripe_classify_arrays(
     device="cuda",
     cache: Optional[dict] = None,
 ) -> np.ndarray:
-    """Host entry for a full stripe classify: uploads (train memoized in
-    ``cache``), runs :func:`knn_stripe_classify`, and returns ``[Q]`` int32
-    predictions on the host — the copy back waits for the device work."""
-    _resolve_stripe_precision(precision, train_x.shape[1])
+    """Host entry for a full stripe-route classify: uploads (train memoized
+    in ``cache``, stored as :func:`stripe_store_dtype` says), runs
+    :func:`knn_stripe_classify`, and returns ``[Q]`` int32 predictions on
+    the host — the copy back waits for the device work."""
+    form = _resolve_stripe_precision(precision, train_x.shape[1])
     dev = resolve_device(device)
     if test_x.shape[0] == 0:
         return np.empty(0, np.int32)
-    tx = _cached_stripe_train(train_x, dev, cache)
-    ty = _memo(cache, ("stripe_labels", str(dev)),
-               lambda: _to_device(train_y, np.int32, dev))
-    qx = _to_device(test_x, np.float32, dev)
-    return knn_stripe_classify(tx, ty, qx, train_x.shape[0], k,
-                               num_classes).cpu().numpy()
+    tx = cached_train(train_x, dev, cache,
+                      stripe_store_dtype(form, train_x.shape[1]))
+    ty = cached_labels(train_y, dev, cache)
+    qx = to_device(test_x, np.float32, dev)
+    return knn_stripe_classify(tx, ty, qx, train_x.shape[0], k, num_classes,
+                               form).cpu().numpy()

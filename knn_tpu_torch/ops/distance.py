@@ -1,14 +1,24 @@
-"""Pairwise squared-Euclidean distance, exact subtraction form.
+"""Pairwise squared-Euclidean distance: the exact subtraction form and the
+two matmul forms (``knn_tpu/ops/distance.py``'s ``exact``, ``fast`` and
+``bf16``).
 
 The reference computes ``sum_i (a_i - b_i)^2`` over the feature columns in
 float32, one feature at a time in source order (main.cpp:14-23), rounding
 after the multiply and after the add. :func:`pairwise_sq_dists` does the
 same with one PyTorch op per step, so nothing is fused: identical rows give
-exactly 0, and the result is bit-equal to the hand-written kernel
-(``csrc/stripe_knn.cu``) on the card and to a numpy loop on the host.
+exactly 0, and the result is bit-equal to the hand-written kernels
+(``csrc/stripe_knn.cu``, ``csrc/tile_knn.cu``) on the card and to a numpy
+loop on the host.
 
-Of ``knn_tpu/ops/distance.py``'s six forms only ``exact`` is ported; the
-others (``fast``, ``bf16``, manhattan, chebyshev, cosine) are ROADMAP A3.
+The matmul forms are ``max((|q|^2 + |t|^2) - 2 q.t, 0)``, NaN -> +inf, in
+the JAX package's operation order. The norms are summed in float32 from the
+values as given (:func:`sq_norms`): a train matrix stored as bfloat16 gives
+the norms of its rounded values, and the query norms always come from the
+float32 queries. ``bf16`` rounds both operands of the cross term to bfloat16
+(round to nearest even) and accumulates in float32. These are the plain
+versions of the tile kernel's matmul forms.
+
+Manhattan, chebyshev and cosine are still to port (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -31,6 +41,54 @@ def pairwise_sq_dists(queries: torch.Tensor, train: torch.Tensor) -> torch.Tenso
         diff = queries[:, f : f + 1] - train[:, f]
         acc = acc + diff * diff
     return torch.where(torch.isnan(acc), torch.inf, acc)
+
+
+def sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """[R, D] (float32 or bfloat16) -> [R] float32 ``sum(x*x)`` over the
+    features, from the stored values. The tile kernel's wrapper and the
+    plain versions below share it, so on one device their norms agree."""
+    x = x.float()
+    return (x * x).sum(dim=1)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` in full float32: on the card TF32 would round the
+    operands to 10 mantissa bits, so it is switched off."""
+    if a.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return a @ b.T
+
+
+def _expand(q2, t2, cross) -> torch.Tensor:
+    d = (q2[:, None] + t2[None, :]) - 2.0 * cross
+    d = d.clamp_min(0.0)  # propagates NaN, as jnp.maximum does
+    return torch.where(torch.isnan(d), torch.inf, d)
+
+
+def pairwise_sq_dists_dot(queries: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
+    """[Q, D], [N, D] float32 -> [Q, N] ``max((q2 + t2) - 2 q.t, 0)``,
+    NaN -> +inf (the ``fast`` form)."""
+    return _expand(sq_norms(queries), sq_norms(train), _cross(queries, train))
+
+
+def pairwise_sq_dists_bf16(queries: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
+    """The ``bf16`` form: the cross term from bfloat16-rounded operands
+    with float32 accumulation (every product of two bfloat16 values is
+    exact in float32); ``train`` may be stored as float32 or bfloat16, and
+    its norms come from the stored values."""
+    def bf16(x):
+        return x.to(torch.bfloat16).float()
+
+    return _expand(sq_norms(queries), sq_norms(train),
+                   _cross(bf16(queries), bf16(train)))
+
+
+#: The squared-Euclidean forms by precision name.
+DIST_FNS = {
+    "exact": pairwise_sq_dists,
+    "fast": pairwise_sq_dists_dot,
+    "bf16": pairwise_sq_dists_bf16,
+}
 
 
 def resolve_form(precision: str, metric: str = "euclidean") -> str:

@@ -16,3 +16,12 @@ def vote(neighbor_labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     classes = torch.arange(num_classes, device=neighbor_labels.device)
     counts = (neighbor_labels[..., None] == classes).to(torch.int32).sum(dim=-2)
     return torch.argmax(counts, dim=-1).to(torch.int32)
+
+
+def vote_neighbors(idx: torch.Tensor, train_y: torch.Tensor,
+                   num_classes: int) -> torch.Tensor:
+    """[Q, k] int32 neighbor indices -> [Q] int32 votes over their train
+    labels. An INT32_MAX slot (fewer valid rows than k) is clamped to the
+    last row, as the JAX package does."""
+    safe = idx.clamp(max=train_y.shape[0] - 1).long()
+    return vote(train_y[safe], num_classes)

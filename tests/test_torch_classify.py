@@ -72,24 +72,26 @@ def test_candidates_arrays_chunked_equal_unchunked(small_port):
 
 def test_backend_registry_and_device_cache(small_port):
     train, test = small_port
-    assert available_backends() == ["cuda", "oracle"]
+    assert available_backends() == ["cuda", "cuda-tile", "oracle"]
     cache_train = load_arff(_paths("small")[0])
     first = get_backend("cuda")(cache_train, test, 3, device="cpu")
-    assert ("stripe_train", "cpu") in cache_train.device_cache
-    cached = cache_train.device_cache[("stripe_train", "cpu")]
+    key = ("train", "cpu", "torch.float32")
+    assert key in cache_train.device_cache
+    cached = cache_train.device_cache[key]
     again = get_backend("cuda")(cache_train, test, 3, device="cpu")
-    assert cache_train.device_cache[("stripe_train", "cpu")] is cached
+    assert cache_train.device_cache[key] is cached
     np.testing.assert_array_equal(first, again)
     np.testing.assert_array_equal(
         first, get_backend("oracle")(cache_train, test, 3))
 
 
 @pytest.mark.parametrize("option,value", [
-    ("precision", "fast"), ("precision", "bf16"), ("precision", "bogus"),
+    ("precision", "fast"), ("precision", "bogus"),
     ("metric", "manhattan"), ("engine", "xla"), ("engine", "merge"),
     ("approx", True),
 ])
 def test_unported_options_raise(small_port, option, value):
+    # fast with 7 features takes the XLA scans on the tpu backend (A3).
     train, test = small_port
     with pytest.raises(ValueError):
         cuda_backend.predict_arrays(
@@ -97,7 +99,21 @@ def test_unported_options_raise(small_port, option, value):
             train.num_classes, device="cpu", **{option: value})
 
 
-@pytest.mark.parametrize("d,k,item", [(129, 3, "B2"), (7, 17, "B1d")])
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_bf16_on_the_stripe_route_matches_jax(small_port, k):
+    # The tpu backend sends bf16 at any width to the stripe kernel; here it
+    # runs the tile kernel's plain version with a float32 train (d = 7).
+    train, test = small_port
+    want = jax_predict_arrays(train.features, train.labels, test.features, k,
+                              train.num_classes, engine="stripe",
+                              precision="bf16")
+    got = cuda_backend.predict_arrays(
+        train.features, train.labels, test.features, k, train.num_classes,
+        precision="bf16", device="cpu")
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("d,k,item", [(129, 3, "A3"), (7, 17, "B1d")])
 def test_outside_the_stripe_envelope_raises(d, k, item):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((40, d)).astype(np.float32)

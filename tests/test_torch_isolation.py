@@ -11,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from knn_tpu_torch.ops import _build, cuda_knn  # noqa: E402
+from knn_tpu_torch.ops import _build, cuda_knn, tile_knn  # noqa: E402
 from knn_tpu_torch.resilience.errors import CompileError, DeviceError  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -22,6 +22,7 @@ def test_import_leaves_jax_and_knn_tpu_out():
     code = (
         "import sys\n"
         "import knn_tpu_torch, knn_tpu_torch.cli, knn_tpu_torch.ops.cuda_knn\n"
+        "import knn_tpu_torch.ops.tile_knn, knn_tpu_torch.backends.tile\n"
         "import knn_tpu_torch.backends, knn_tpu_torch.convert\n"
         "knn_tpu_torch.backends.available_backends()\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -49,10 +50,10 @@ def test_source_imports_nothing_of_jax(path):
 class _FakeCudaTensor:
     """Stands in for a CUDA tensor on a host whose torch has no CUDA."""
 
-    def __init__(self, *shape):
+    def __init__(self, *shape, dtype=torch.float32):
         self.shape = torch.Size(shape)
         self.device = torch.device("cuda", 0)
-        self.dtype = torch.float32
+        self.dtype = dtype
 
     def dim(self):
         return len(self.shape)
@@ -124,12 +125,75 @@ def test_merge_rejects_what_the_kernel_does_not_take(monkeypatch, shape, dtype):
         cuda_knn.knn_stripe_merge(partial)
 
 
+def test_tile_wrapper_raises_when_library_is_missing(monkeypatch):
+    def missing(name, signatures=None):
+        raise CompileError(f"nvcc not found: cannot build {name}")
+
+    monkeypatch.setattr(_build, "load_library", missing)
+    before = dict(tile_knn.knn_tile_scan.launches)
+    for form in tile_knn.FORMS:
+        with pytest.raises(CompileError, match="tile_knn"):
+            tile_knn.knn_tile_scan(_FakeCudaTensor(50, 784),
+                                   _FakeCudaTensor(4, 784), 50, 3, form, 1, 128)
+    assert tile_knn.knn_tile_scan.launches == before
+
+
+@pytest.mark.parametrize("train,test,n_valid,k,form", [
+    ((50, 784), (4, 784), 50, 17, "fast"),      # k > 16
+    ((50, 784), (4, 784), 50, 0, "fast"),       # k < 1
+    ((50, 784, "bf16"), (4, 784), 50, 3, "exact"),  # bf16 train, exact form
+    ((50, 784, "bf16"), (4, 784), 50, 3, "fast"),   # bf16 train, fast form
+    ((50, 784), (4, 784, "bf16"), 50, 3, "bf16"),   # bf16 queries
+    ((50, 784), (4, 783), 50, 3, "bf16"),       # feature counts differ
+    ((50, 784), (4, 784), 51, 3, "exact"),      # n_valid past the rows
+    ((50, 784), (4, 784), 50, 3, "tf32"),       # no such form
+])
+def test_tile_wrapper_rejects_what_the_kernel_does_not_take(
+        monkeypatch, train, test, n_valid, k, form):
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, signatures=None: types.SimpleNamespace())
+
+    def fake(shape):
+        *dims, dtype = shape if shape[-1] == "bf16" else (*shape, "f32")
+        return _FakeCudaTensor(*dims, dtype=torch.bfloat16 if dtype == "bf16"
+                               else torch.float32)
+
+    before = dict(tile_knn.knn_tile_scan.launches)
+    with pytest.raises(ValueError):
+        tile_knn.knn_tile_scan(fake(train), fake(test), n_valid, k, form, 1, 128)
+    with pytest.raises(ValueError):
+        tile_knn.knn_tile_candidates(fake(train), fake(test), n_valid, k, form)
+    assert tile_knn.knn_tile_scan.launches == before
+
+
+@pytest.mark.parametrize("form", ["exact", "fast", "bf16"])
+def test_tile_wrapper_rejects_host_and_card_mix(monkeypatch, form):
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, signatures=None: types.SimpleNamespace())
+    with pytest.raises(ValueError, match="CUDA device"):
+        tile_knn.knn_tile_scan(torch.zeros(50, 7), _FakeCudaTensor(4, 7), 50,
+                               3, form, 1, 128)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tile_knn.knn_tile_candidates(_FakeCudaTensor(50, 7), torch.zeros(4, 7),
+                                     50, 3, form)
+
+
+def test_tile_scan_rejects_splits_that_do_not_cut_the_rows(monkeypatch):
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, signatures=None: types.SimpleNamespace())
+    with pytest.raises(ValueError, match="splits"):
+        tile_knn.knn_tile_scan(_FakeCudaTensor(300, 9), _FakeCudaTensor(4, 9),
+                               300, 3, "fast", 2, 128)
+
+
 def test_build_without_nvcc_is_a_compile_error(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "nvcc_path", lambda: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_loaded", {})
     with pytest.raises(CompileError, match="nvcc not found"):
         _build.load_library("stripe_knn")
+    with pytest.raises(CompileError, match="nvcc not found"):
+        _build.load_library("tile_knn")
     with pytest.raises(CompileError, match="nvcc not found"):
         _build.build_all()
 
@@ -138,6 +202,8 @@ def test_library_name_tracks_the_sources():
     lib = _build.library_path("stripe_knn")
     assert lib.parent == REPO / "build" / "knn_tpu_torch"
     assert re.fullmatch(r"libstripe_knn-[0-9a-f]{16}\.so", lib.name)
+    assert re.fullmatch(r"libtile_knn-[0-9a-f]{16}\.so",
+                        _build.library_path("tile_knn").name)
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 

@@ -187,11 +187,13 @@ def test_stripe_inputs_finite_matches_jax():
 
 
 def test_stripe_route_ok_matches_jax_on_the_exact_form():
-    for d in (1, 11, 128, 129, 784):
-        for k in (1, 16, 17):
-            assert cuda_knn.stripe_route_ok("exact", d, k) == \
-                pallas_knn.stripe_route_ok("exact", d, k)
-    assert not cuda_knn.stripe_route_ok("bf16", 11, 5)  # ROADMAP B1c
+    # Every form now: exact narrow, bf16 at any width, fast wide.
+    for form in ("exact", "fast", "bf16"):
+        for d in (1, 11, 128, 129, 784):
+            for k in (1, 16, 17):
+                assert cuda_knn.stripe_route_ok(form, d, k) == \
+                    pallas_knn.stripe_route_ok(form, d, k), (form, d, k)
+    assert cuda_knn.stripe_route_ok("bf16", 11, 5)
 
 
 @pytest.mark.parametrize("n_valid", [0, 1, 63, 64, 65, 30_803, 1_016_499])
