@@ -14,18 +14,43 @@ Phases, each printed as it runs; any failure exits non-zero:
                         plain version: bit-equal keys on integer grids (and
                         in the exact form on float rows), the stated
                         tolerance on float rows in the matmul forms.
-5. ``classify_large`` — the main path, ``knn_tpu_torch.cli.run``, on the
+5. ``kernel_parity_select`` — the stripe scan's selection variants (rounds,
+                        lite, nosel) against their plain versions, bit-equal
+                        keys, at split_plan's layout and at splits of
+                        several 64-row tiles; rounds and lite merged,
+                        bit-equal to the shipped knn_stripe_candidates.
+6. ``kernel_parity_matmul`` — the bf16 tensor-core matmul (P1) against its
+                        plain version: bit-equal on integer grids, the
+                        stated bound on float rows.
+7. ``kernel_parity_bigk`` — the stripe scan, the merge and the tile scan at
+                        k in (17, 32, 100, 256) against their plain versions.
+8. ``classify_large`` — the main path, ``knn_tpu_torch.cli.run``, on the
                         large-fixture shape written as ARFF under build/.
-6. ``classify_xl``    — the stripe kernels and their plain versions on
+9. ``classify_xl``    — the stripe kernels and their plain versions on
                         ~1.02 M train rows: equal results, timed.
-7. ``classify_wide``  — the wide-feature rung (bench.py's mnist784 shape):
+10. ``classify_wide`` — the wide-feature rung (bench.py's mnist784 shape):
                         ``cli.run --backend cuda-tile --precision auto``,
                         then the exact and bf16 forms through the backend,
                         each with the launch counters read around it; the
                         predictions against the plain versions and the
                         oracle; each form timed beside its plain version,
                         the bare cross-term matmul and its bound.
-8. ``kernels``        — one JSON line describing every kernel.
+11. ``classify_bigk`` — ``cli.run --backend cuda-tile`` at k = 32 on the
+                        large shape (the tile kernel's merge route), the
+                        counters read around it; predictions against the
+                        plain version and the oracle; scan and merge timed
+                        at k = 32 and 256.
+12. ``probe_selection`` — P2's entry point
+                        (``knn_tpu_torch.probes.tune_stripe_selection``) on
+                        the large shape, counters read around it; each
+                        selection's kernel, at that shape's layout, held
+                        bit-equal to its plain version and timed beside it.
+13. ``probe_wide``    — P1's entry point (``knn_tpu_torch.probes.
+                        probe_mnist_r3``) at 65,536 x 784 with 2,048 queries,
+                        the counter read around it; P1 timed beside its
+                        plain version and the library's bfloat16 matmul with
+                        float32 output.
+14. ``kernels``       — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -37,7 +62,6 @@ from __future__ import annotations
 import io
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -46,6 +70,15 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO))
+
+# Outside a checkout of the repository these imports fail: no result.
+from knn_tpu_torch.obs.bench_timing import cuda_ms  # noqa: E402
+from knn_tpu_torch.probes.data import (  # noqa: E402
+    large_fixture,
+    wide_data,
+    write_arff,
+)
 
 # H100 SXM peaks (NVIDIA data sheet). Its FP32 rate outside the tensor
 # cores, 67 TFLOP/s, counts a fused multiply-add as two operations; the
@@ -114,23 +147,6 @@ def tile_bound_ms(form: str, q: int, n_valid: int, d: int, k: int,
     return bound_ms(2 * q * n_valid * d, nbytes, rate)
 
 
-def cuda_ms(torch, fn, args_list, reps: int) -> float:
-    """Median CUDA-event time of ``fn(*args)`` over ``reps`` runs, cycling
-    through ``args_list`` (distinct buffers per run), after one warm run."""
-    fn(*args_list[0])
-    torch.cuda.synchronize()
-    times = []
-    for r in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args_list[r % len(args_list)])
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def parity_cases(rng):
     """(name, train, queries, n_valid, k): integer grids with duplicated
     rows (dist == 0 ties), float rows, NaN rows and n_valid < N, over
@@ -155,27 +171,6 @@ def parity_cases(rng):
     yield "few-finite d=7 k=16", few, few[:9].copy(), 40, 16
 
 
-def large_fixture(seed: int = 0):
-    """The large fixture's arrays, by the recipe of scripts/make_fixtures.py:
-    30,803 train x 1,718 test, 11 features, 10 classes; sentinel rows 0..9
-    pin num_classes; half the test rows duplicate train rows (dist == 0)."""
-    n_train, n_test, d = 30803, 1718, 11
-    rng = np.random.default_rng(seed)
-    centers = rng.normal(0, 5, size=(10, d))
-    labels = rng.integers(0, 10, size=n_train)
-    x = centers[labels] + rng.normal(0, 1.5, size=(n_train, d))
-    labels[:10] = np.arange(10)
-    x[:10] = centers[np.arange(10)] + rng.normal(0, 1.5, size=(10, d))
-    x = x.astype(np.float32)
-    n_dup = n_test // 2
-    dup_idx = rng.choice(n_train, size=n_dup, replace=False)
-    tl = rng.integers(0, 10, size=n_test - n_dup)
-    tx = np.concatenate([x[dup_idx], (centers[tl] + rng.normal(
-        0, 1.5, size=(n_test - n_dup, d))).astype(np.float32)])
-    ty = np.concatenate([labels[dup_idx], tl])
-    return x, labels.astype(np.int32), tx, ty.astype(np.int32)
-
-
 def tiled_large(x: np.ndarray, y: np.ndarray, reps: int):
     """The xl train set (bench.py::_tiled_large): ``x`` tiled ``reps`` times
     with 1e-3 float32 noise so the copies are not duplicates."""
@@ -183,18 +178,6 @@ def tiled_large(x: np.ndarray, y: np.ndarray, reps: int):
     feats = np.tile(x, (reps, 1))
     feats += 1e-3 * rng.standard_normal(feats.shape, dtype=np.float32)
     return feats, np.tile(y, reps)
-
-
-def write_arff(path: Path, x: np.ndarray, y: np.ndarray, relation: str) -> None:
-    """ARFF as scripts/make_fixtures.py writes it (``%.6g`` cells), one
-    ``np.savetxt`` format call per row: ~15 s for the wide train set."""
-    d = x.shape[1]
-    with open(path, "w") as fh:
-        fh.write("\n".join([f"@relation {relation}", ""]
-                           + [f"@attribute attr{i} NUMERIC" for i in range(d)]
-                           + ["@attribute class NUMERIC", "", "@data", ""]))
-        np.savetxt(fh, np.column_stack([x.astype(np.float64), y]),
-                   fmt=["%.6g"] * d + ["%d"], delimiter=",")
 
 
 def max_err(torch, got, want) -> float:
@@ -268,19 +251,6 @@ def check_near(what: str, torch, form, t, q, kd, ki, rd, ri) -> int:
         if ((da - db).abs() > 2 * tol[rows, cols]).any():
             raise SystemExit(f"{what}: an index differs outside a near tie")
     return int(rows.numel())
-
-
-def wide_data(seed: int = 0):
-    """bench.py's mnist784 shape: 65,536 x 784 uniform [0, 1) float32 train
-    rows, 2,048 queries, 10 random classes, from ``seed``."""
-    n, q, d, classes = 65536, 2048, 784, 10
-    rng = np.random.default_rng(seed)
-    x = rng.random((n, d), dtype=np.float32)
-    y = rng.integers(0, classes, n).astype(np.int32)
-    y[:classes] = np.arange(classes)  # pin num_classes
-    tx = rng.random((q, d), dtype=np.float32)
-    ty = rng.integers(0, classes, q).astype(np.int32)
-    return x, y, tx, ty
 
 
 def phase_kernel_parity_tile(torch, dev, tile_knn, cuda_knn) -> dict:
@@ -418,12 +388,12 @@ def phase_classify_wide(torch, dev, tile_knn, cuda_knn, vote_neighbors) -> dict:
            "shape": f"q={q} n={n} d={d} k={k} splits={plan[0]}"}
     for form in tile_knn.FORMS:
         t = stored[form]
-        res["ms"][form] = cuda_ms(torch, scan, [(t, qb, n, k, form, *plan)
+        res["ms"][form] = cuda_ms(scan, [(t, qb, n, k, form, *plan)
                                                 for qb in queries], reps=12)
         res["plain_ms"][form] = cuda_ms(
-            torch, tile_knn.knn_tile_scan_reference,
+            tile_knn.knn_tile_scan_reference,
             [(t, qb, n, k, form, *plan) for qb in queries[:3]], reps=3)
-        both = cuda_ms(torch, tile_knn.knn_tile_candidates,
+        both = cuda_ms(tile_knn.knn_tile_candidates,
                        [(t, qb, n, k, form) for qb in queries], reps=12)
         res["bound"][form] = tile_bound_ms(form, q, n, d, k, plan[0],
                                            t.element_size())
@@ -434,14 +404,403 @@ def phase_classify_wide(torch, dev, tile_knn, cuda_knn, vote_neighbors) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     q16 = [qb.to(torch.bfloat16) for qb in queries]
     res["matmul_ms"] = {
-        "float32": cuda_ms(torch, lambda qb: qb @ tx32.T,
+        "float32": cuda_ms(lambda qb: qb @ tx32.T,
                            [(qb,) for qb in queries], reps=12),
-        "bfloat16": cuda_ms(torch, lambda qb: qb @ stored["bf16"].T,
+        "bfloat16": cuda_ms(lambda qb: qb @ stored["bf16"].T,
                             [(qb,) for qb in q16], reps=12),
     }
     print(f"attribution: the bare cross term q @ t.T alone (torch.matmul, "
           f"TF32 off) {res['matmul_ms']['float32']} ms in float32, "
           f"{res['matmul_ms']['bfloat16']} ms in bfloat16 (median of 12)")
+    return res
+
+
+def matmul_bound_ms(q: int, n: int, d: int):
+    """P1: 2*Q*N*D flops at the dense bf16 tensor-core rate; the bfloat16
+    train and queries read once, the [Q, 8] float32 sums written once."""
+    return bound_ms(2 * q * n * d, (n + q) * d * 2 + q * 8 * 4,
+                    PEAK_BF16_FLOPS)
+
+
+def check_matmul_near(what: str, torch, probe_matmul, got, want, t, q,
+                      block_n: int) -> float:
+    """P1 against its plain version on float rows, the stated tolerance:
+    both sum the same exact products (bf16 x bf16 is exact in float32) in
+    other orders, the tensor cores possibly truncating where the plain
+    version rounds, so each is off the exact sum by at most (D + m) * 2^-23
+    * S, with m the rows of a slot and S the sum of the products'
+    magnitudes: atol = 2 * (D + m) * 2^-23 * S. Returns max |got - want|."""
+    n, d = t.shape
+    m = -(-n // block_n) * block_n // 8
+    mags = probe_matmul.pure_matmul_reference(t.abs(), q.abs(), block_n)
+    diff = (got - want).abs()
+    if not torch.isfinite(got).all() or (
+            diff > 2 * (d + m) * 2.0**-23 * mags).any():
+        raise SystemExit(f"{what}: outside atol = 2*(D+m)*2^-23*S")
+    return diff.max().item()
+
+
+def forced_plans(n_valid: int):
+    """Split layouts whose splits span several 64-row tiles, so a thread's
+    levels carry from tile to tile: 256-row splits (whole tiles) and
+    200-row splits (ending inside a tile)."""
+    return [(-(-n_valid // rows), rows) for rows in (256, 200)]
+
+
+def phase_kernel_parity_select(torch, dev, cuda_knn) -> dict:
+    """P2's three selections against their plain versions, bit-equal keys,
+    on parity_cases (k <= 16), each at split_plan's layout and at the
+    forced_plans layouts; rounds on every case, and lite where its gate
+    holds, merged and held against the shipped knn_stripe_candidates.
+    Returns the largest |kernel - plain| key distance per selection."""
+    rng = np.random.default_rng(2)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = dict.fromkeys(cuda_knn.SELECT_MODES, 0.0)
+    n_cases = merged = 0
+    for name, tx, qx, n_valid, k in parity_cases(rng):
+        t = torch.from_numpy(tx).to(dev)
+        qt = torch.from_numpy(qx).to(dev)
+        sd, si = cuda_knn.knn_stripe_candidates(t, qt, n_valid, k)
+        lite_ok = (cuda_knn.stripe_inputs_finite(tx[:n_valid], qx)
+                   and k <= n_valid)
+        for plan in [cuda_knn.split_plan(n_valid, qt.shape[0], sm_count),
+                     *forced_plans(n_valid)]:
+            what = f"kernel_parity_select {name} plan={plan}"
+            for mode in cuda_knn.SELECT_MODES:
+                got = cuda_knn.knn_stripe_scan_variant(t, qt, n_valid, k, mode,
+                                                       *plan)
+                want = cuda_knn.knn_stripe_scan_variant_reference(
+                    t, qt, n_valid, k, mode, *plan)
+                check_equal(f"{what} {mode} keys", torch, got, want)
+                err[mode] = max(err[mode], max_err(torch, *(
+                    cuda_knn._unpack_keys(x)[0] for x in (got, want))))
+                if mode == "rounds" or (mode == "lite" and lite_ok):
+                    md, mi = cuda_knn.knn_stripe_merge(got)
+                    check_equal(f"{what} {mode} merged indices", torch, mi, si)
+                    check_equal(f"{what} {mode} merged distances", torch, md, sd)
+                    merged += 1
+            n_cases += 1
+    print(f"{n_cases} (case, split layout) pairs x {len(err)} selections "
+          "(tolerance: bit-equal), layouts of split_plan and of 256- and "
+          "200-row splits: keys equal to the plain versions; "
+          f"{merged} merged lists (rounds on every pair, lite where "
+          "stripe_inputs_finite holds and k <= n_valid) equal to "
+          f"knn_stripe_candidates, distances bit-equal; max_abs_err {err}")
+    return err
+
+
+def phase_kernel_parity_matmul(torch, dev, probe_matmul) -> float:
+    """P1 against its plain version: bit-equal on integer grids whose
+    values differ by row and feature (every partial sum an integer below
+    2^24), and check_matmul_near on normal float rows. Returns the largest
+    |kernel - plain| on the float rows."""
+    rng = np.random.default_rng(3)
+    err = 0.0
+    cases = ((700, 100, 128, 200), (1000, 37, 8, 300), (3001, 129, 256, 77),
+             (8192, 784, 1024, 512))
+    for n, d, block_n, q in cases:
+        r, f = np.arange(n)[:, None], np.arange(d)[None, :]
+        grid = ((r * 7 + f * 3 + rng.integers(0, 3, (n, d))) % 5)
+        gq = rng.integers(0, 4, (q, d))
+        for kind, tx, qx in (
+                ("grid", grid, gq),
+                ("float", rng.standard_normal((n, d)),
+                 rng.standard_normal((q, d)))):
+            t = torch.from_numpy(tx.astype(np.float32)).to(dev, torch.bfloat16)
+            qt = torch.from_numpy(qx.astype(np.float32)).to(dev, torch.bfloat16)
+            got = probe_matmul.pure_matmul(t, qt, block_n)
+            want = probe_matmul.pure_matmul_reference(t, qt, block_n)
+            what = f"kernel_parity_matmul {kind} n={n} d={d} block_n={block_n}"
+            if kind == "grid":
+                if want.abs().max().item() >= 2**24:
+                    raise SystemExit(f"{what}: a sum reaches 2^24")
+                check_equal(what, torch, got, want)
+            else:
+                err = max(err, check_matmul_near(what, torch, probe_matmul,
+                                                 got, want, t, qt, block_n))
+    print(f"{len(cases)} shapes: integer grids bit-equal; normal float rows "
+          f"within atol = 2*(D+m)*2^-23*S; max_abs_err {err}")
+    return err
+
+
+def phase_kernel_parity_bigk(torch, dev, cuda_knn, tile_knn) -> dict:
+    """The bucketed lists (16 < k <= 256): the stripe scan and merge, and
+    the tile scan in its three forms, against their plain versions on an
+    integer grid (duplicated rows, NaN rows, n_valid < N) and on float rows:
+    bit-equal keys, except the tile scan's fast and bf16 forms on float
+    rows, held by check_near after the merge. Returns the largest
+    |kernel - plain| distance per kernel."""
+    rng = np.random.default_rng(4)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = {"scan": 0.0, "merge": 0.0, **dict.fromkeys(tile_knn.FORMS, 0.0)}
+    n_cases = swaps = 0
+    n, q = 3001, 300
+    for k in (17, 32, 100, 256):
+        for d in (11, 129):
+            grid = rng.integers(0, 4, (n, d)).astype(np.float32)
+            grid[1500:2000] = grid[:500]
+            gq = np.concatenate([grid[rng.choice(n, q // 2, replace=False)],
+                                 rng.integers(0, 4, (q - q // 2, d))
+                                 .astype(np.float32)])
+            grid[rng.choice(n, 40, replace=False), rng.integers(0, d, 40)] = np.nan
+            gq[:3, 0] = np.nan
+            fl = rng.standard_normal((n, d)).astype(np.float32)
+            fq = rng.standard_normal((q, d)).astype(np.float32)
+            for kind, tx, qx, n_valid in (("grid", grid, gq, n - 77),
+                                          ("float", fl, fq, n)):
+                name = f"{kind} d={d} k={k}"
+                t = torch.from_numpy(tx).to(dev)
+                qt = torch.from_numpy(qx).to(dev)
+                for plan in ([cuda_knn.split_plan(n_valid, q, sm_count),
+                              *forced_plans(n_valid)] if d <= 128 else []):
+                    partial = cuda_knn.knn_stripe_scan(t, qt, n_valid, k, *plan)
+                    want = cuda_knn.knn_stripe_scan_reference(t, qt, n_valid,
+                                                              k, *plan)
+                    check_equal(f"kernel_parity_bigk {name} plan={plan} "
+                                "stripe scan keys", torch, partial, want)
+                    err["scan"] = max(err["scan"], max_err(torch, *(
+                        cuda_knn._unpack_keys(x)[0] for x in (partial, want))))
+                    n_cases += 1
+                plan = cuda_knn.split_plan(n_valid, q, sm_count,
+                                           tile_rows=tile_knn._TILE_ROWS,
+                                           blocks_per_sm=tile_knn._BLOCKS_PER_SM)
+                for form in tile_knn.FORMS:
+                    tt = t.to(torch.bfloat16) if form == "bf16" and d > 128 else t
+                    partial = tile_knn.knn_tile_scan(tt, qt, n_valid, k, form,
+                                                     *plan)
+                    want = tile_knn.knn_tile_scan_reference(tt, qt, n_valid, k,
+                                                            form, *plan)
+                    md, mi = cuda_knn.knn_stripe_merge(partial)
+                    rd, ri = cuda_knn.knn_stripe_merge_reference(partial)
+                    check_equal(f"kernel_parity_bigk {name} merge indices",
+                                torch, mi, ri)
+                    check_equal(f"kernel_parity_bigk {name} merge distances",
+                                torch, md, rd)
+                    err["merge"] = max(err["merge"], max_err(torch, md, rd))
+                    wd, wi = cuda_knn.knn_stripe_merge_reference(want)
+                    if kind == "grid" or form == "exact":
+                        check_equal(f"kernel_parity_bigk {name} {form} tile "
+                                    "scan keys", torch, partial, want)
+                    else:
+                        swaps += check_near(f"kernel_parity_bigk {name} {form}",
+                                            torch, form, tt, qt, md, mi, wd, wi)
+                    err[form] = max(err[form], max_err(torch, md, wd))
+                    n_cases += 1
+    print(f"{n_cases} cases at k in (17, 32, 100, 256): stripe scan (at the "
+          "split_plan, 256- and 200-row layouts), merge and "
+          "tile scan (all forms on integer grids, exact on float rows) "
+          "bit-equal to the plain versions; fast and bf16 on float rows within "
+          f"the tile tolerance, {swaps} near-tie index swaps; max_abs_err {err}")
+    return err
+
+
+def phase_classify_bigk(torch, dev, cuda_knn, tile_knn, vote_neighbors,
+                        train_path, test_path) -> dict:
+    """``cli.run --backend cuda-tile`` at k = 32 on the large shape (the
+    merge route: k > 16 leaves the stripe route, as in predict_pallas),
+    with the counters read around it; predictions against the plain
+    version and the oracle; the tile scan and merge timed at k = 32 and
+    k = 256. Returns launches, times and bounds."""
+    from knn_tpu_torch import cli
+    from knn_tpu_torch.backends import get_backend
+    from knn_tpu_torch.backends.oracle import knn_oracle
+    from knn_tpu_torch.data.arff import load_arff
+
+    scan, merge = tile_knn.knn_tile_scan, cuda_knn.knn_stripe_merge
+
+    def reset():
+        for form in scan.launches:
+            scan.launches[form] = 0
+        merge.launches = 0
+
+    reset()
+    out = io.StringIO()
+    rc = cli.run([str(train_path), str(test_path), "32", "--backend",
+                  "cuda-tile", "--warmup", "--json"], stdout=out)
+    launches = {"exact": scan.launches["exact"], "merge": merge.launches}
+    if rc != 0:
+        raise SystemExit(f"classify_bigk: cli.run exited {rc}")
+    line, js = out.getvalue().splitlines()
+    print(line)
+    print(js)
+    print(f"launches on the path: {launches} (--warmup run + timed run), all "
+          f"tile forms {dict(scan.launches)}")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"classify_bigk: a kernel was never launched: {launches}")
+    train, test = load_arff(str(train_path)), load_arff(str(test_path))
+    n, d, q = train.num_instances, train.num_features, test.num_instances
+    tx = torch.from_numpy(train.features.copy()).to(dev)
+    ty = torch.from_numpy(train.labels.copy()).to(dev)
+    qx = torch.from_numpy(test.features.copy()).to(dev)
+    res = {"launches": launches, "ms": {}, "plain_ms": {}, "bound": {},
+           "library_ms": {}, "shape": {}}
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = cuda_knn.split_plan(n, q, sm_count, tile_rows=tile_knn._TILE_ROWS,
+                               blocks_per_sm=tile_knn._BLOCKS_PER_SM)
+    queries = [qx.clone() for _ in range(12)]
+    for k in (32, 256):
+        reset()
+        preds = get_backend("cuda-tile")(train, test, k)
+        if k == 256:
+            res["launches_256"] = {"exact": scan.launches["exact"],
+                                   "merge": merge.launches}
+        kd, ki = tile_knn.knn_tile_candidates(tx, qx, n, k, "exact")
+        rd, ri = tile_knn.knn_tile_candidates_reference(tx, qx, n, k, "exact")
+        check_equal(f"classify_bigk k={k} indices", torch, ki, ri)
+        check_equal(f"classify_bigk k={k} distances", torch, kd, rd)
+        plain = vote_neighbors(ri, ty, train.num_classes).cpu().numpy()
+        if not np.array_equal(preds, plain):
+            raise SystemExit(f"classify_bigk k={k}: predictions differ from "
+                             "the plain version's")
+        oracle = knn_oracle(train.features, train.labels, test.features[:128],
+                            k, train.num_classes)
+        if not np.array_equal(oracle, preds[:128]):
+            raise SystemExit(f"classify_bigk k={k}: disagrees with the oracle")
+        if k == 32:
+            acc = float((preds == test.labels).mean())
+            if f"Accuracy was {acc:.4f}" not in line:
+                raise SystemExit(f"classify_bigk: accuracy {acc:.4f} not in "
+                                 f"{line!r}")
+        partials = [scan(tx, qb, n, k, "exact", *plan) for qb in queries]
+        check_equal(f"classify_bigk k={k} scan keys", torch, partials[0],
+                    tile_knn.knn_tile_scan_reference(tx, queries[0], n, k,
+                                                     "exact", *plan))
+        res["ms"][k] = {
+            "scan": cuda_ms(scan, [(tx, qb, n, k, "exact", *plan)
+                                   for qb in queries], reps=12),
+            "merge": cuda_ms(merge, [(pb,) for pb in partials], reps=12)}
+        res["plain_ms"][k] = {
+            "scan": cuda_ms(tile_knn.knn_tile_scan_reference,
+                            [(tx, qb, n, k, "exact", *plan)
+                             for qb in queries[:3]], reps=3),
+            "merge": cuda_ms(cuda_knn.knn_stripe_merge_reference,
+                             [(pb,) for pb in partials], reps=12)}
+        res["library_ms"][k] = cuda_ms(lambda pb: torch.topk(
+            pb.view(q, -1), k, dim=1, largest=False, sorted=True),
+            [(pb,) for pb in partials], reps=12)
+        res["bound"][k] = {"scan": tile_bound_ms("exact", q, n, d, k, plan[0], 4),
+                           "merge": merge_bound_ms(q, k, plan[0])}
+        res["shape"][k] = f"q={q} n={n} d={d} k={k} splits={plan[0]}"
+        print(f"k={k}: predictions equal to the plain version's and, on 128 "
+              f"queries, the oracle's; keys, indices and distances bit-equal. "
+              f"Tile scan (exact, {plan[0]} splits of {plan[1]} rows) "
+              f"{res['ms'][k]['scan']} ms, plain {res['plain_ms'][k]['scan']} "
+              f"ms, bound {res['bound'][k]['scan'][0]} ms "
+              f"({res['bound'][k]['scan'][1]}); merge {res['ms'][k]['merge']} "
+              f"ms, plain {res['plain_ms'][k]['merge']} ms, torch.topk on the "
+              f"keys {res['library_ms'][k]} ms, bound "
+              f"{res['bound'][k]['merge'][0]} ms ({res['bound'][k]['merge'][1]})")
+    print(f"launches of one get_backend('cuda-tile') call at k=256: "
+          f"{res['launches_256']}")
+    return res
+
+
+def phase_probe_selection(torch, dev, cuda_knn) -> dict:
+    """P2's entry point, ``tune_stripe_selection.main``, on the large shape
+    (k = 5), with the counters read around it; then each selection's kernel
+    alone at the shipped plan, beside its plain version and the insertion
+    scan."""
+    from knn_tpu_torch.probes import tune_stripe_selection as probe
+    from knn_tpu_torch.probes.data import load_large
+
+    variant, scan = cuda_knn.knn_stripe_scan_variant, cuda_knn.knn_stripe_scan
+    for mode in variant.launches:
+        variant.launches[mode] = 0
+    scan.launches = 0
+    t0 = time.perf_counter()
+    rc = probe.main([])
+    launches = {**variant.launches, "insert": scan.launches}
+    print(f"tune_stripe_selection.main took {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    if rc != 0:
+        raise SystemExit("probe_selection: a parity check failed")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"probe_selection: a kernel was never launched: "
+                         f"{launches}")
+    train, test = load_large()
+    (n, d), q, k = train.features.shape, test.num_instances, probe.K
+    tx = torch.from_numpy(train.features.copy()).to(dev)
+    queries = [torch.from_numpy(test.features + np.float32(i) * np.float32(1e-7))
+               .to(dev) for i in range(12)]
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = cuda_knn.split_plan(n, q, sm_count)
+    res = {"launches": launches, "ms": {}, "plain_ms": {}, "max_abs_err": {},
+           "bound": scan_bound_ms(q, n, d, k, plan[0]),
+           "shape": f"q={q} n={n} d={d} k={k} splits={plan[0]}"}
+    check_equal("probe_selection insert keys", torch,
+                scan(tx, queries[0], n, k, *plan),
+                cuda_knn.knn_stripe_scan_reference(tx, queries[0], n, k, *plan))
+    res["ms"]["insert"] = cuda_ms(scan, [(tx, qb, n, k, *plan)
+                                         for qb in queries], reps=12)
+    for mode in cuda_knn.SELECT_MODES:
+        got = variant(tx, queries[0], n, k, mode, *plan)
+        want = cuda_knn.knn_stripe_scan_variant_reference(
+            tx, queries[0], n, k, mode, *plan)
+        check_equal(f"probe_selection {mode} keys", torch, got, want)
+        res["max_abs_err"][mode] = max_err(torch, *(
+            cuda_knn._unpack_keys(x)[0] for x in (got, want)))
+        res["ms"][mode] = cuda_ms(variant, [(tx, qb, n, k, mode, *plan)
+                                            for qb in queries], reps=12)
+        res["plain_ms"][mode] = cuda_ms(
+            cuda_knn.knn_stripe_scan_variant_reference,
+            [(tx, qb, n, k, mode, *plan) for qb in queries[:3]], reps=3)
+    print(f"at the shipped plan ({plan[0]} splits of {plan[1]} rows, each "
+          f"{plan[1] // cuda_knn._TILE_ROWS} tiles): insert and every "
+          "selection's keys bit-equal to their plain versions; median of 12 "
+          f"CUDA-event times: {res['ms']} ms; plain versions (median of 3) "
+          f"{res['plain_ms']} ms; bound {res['bound'][0]} ms "
+          f"({res['bound'][1]})")
+    return res
+
+
+def phase_probe_wide(torch, dev, probe_matmul) -> dict:
+    """P1's entry point, ``probe_mnist_r3.main``, at its shape (classify_wide's
+    65,536 x 784 train, 2,048 queries), with the counter read around it;
+    then P1 alone against its plain version (float rows) and timed beside
+    it and beside the library call computing the same function: the
+    bfloat16 product with float32 output (``torch.mm(..., out_dtype=
+    torch.float32)``, so the products are not rounded to bfloat16 before
+    the fold, as P1's are not), then the reshape-sum."""
+    from knn_tpu_torch.probes import probe_mnist_r3 as probe
+
+    pm = probe_matmul.pure_matmul
+    pm.launches = 0
+    t0 = time.perf_counter()
+    rc = probe.main([])
+    launches = pm.launches
+    print(f"probe_mnist_r3.main took {time.perf_counter() - t0:.1f} s; "
+          f"pure_matmul launches {launches}")
+    if rc != 0 or launches < 1:
+        raise SystemExit(f"probe_wide: exit {rc}, launches {launches}")
+    train, test = probe.make_data(probe.N, probe.Q)
+    n, q, d, block_n = probe.N, probe.Q, probe.D, probe.BLOCK_N
+    txb = torch.from_numpy(train).to(dev, torch.bfloat16)
+    bufs = [b.to(torch.bfloat16) for b in probe.query_buffers(test, dev)]
+    plain = probe_matmul.pure_matmul_reference(txb, bufs[0], block_n)
+    err = check_matmul_near("probe_wide", torch, probe_matmul,
+                            pm(txb, bufs[0], block_n), plain,
+                            txb, bufs[0], block_n)
+
+    def library(qb):
+        return torch.mm(qb, txb.T, out_dtype=torch.float32).reshape(
+            q, n // block_n, 8, block_n // 8).sum(3).sum(1)
+
+    check_matmul_near("probe_wide library call", torch, probe_matmul,
+                      library(bufs[0]), plain, txb, bufs[0], block_n)
+
+    res = {"launches": launches, "max_abs_err": err,
+           "ms": cuda_ms(pm, [(txb, qb, block_n) for qb in bufs], reps=12),
+           "plain_ms": cuda_ms(probe_matmul.pure_matmul_reference,
+                               [(txb, qb, block_n) for qb in bufs[:3]], reps=3),
+           "library_ms": cuda_ms(library, [(qb,) for qb in bufs], reps=12),
+           "bound": matmul_bound_ms(q, n, d),
+           "shape": f"q={q} n={n} d={d} block_n={block_n}"}
+    print(f"P1 at {res['shape']}: {res['ms']} ms (median of 12, CUDA events), "
+          f"plain {res['plain_ms']} ms (median of 3), library call "
+          f"(torch.mm bf16, float32 out, + reshape-sum) {res['library_ms']} "
+          "ms, bound "
+          f"{res['bound'][0]} ms ({res['bound'][1]}); max |kernel - plain| "
+          f"{err} within atol = 2*(D+m)*2^-23*S")
     return res
 
 
@@ -452,12 +811,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false: "
               "this script needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO))
     from knn_tpu_torch import cli
     from knn_tpu_torch.backends import get_backend
     from knn_tpu_torch.backends.oracle import knn_oracle
     from knn_tpu_torch.data.arff import load_arff
-    from knn_tpu_torch.ops import _build, cuda_knn, tile_knn
+    from knn_tpu_torch.ops import _build, cuda_knn, probe_matmul, tile_knn
     from knn_tpu_torch.ops.vote import vote, vote_neighbors
 
     dev = torch.device("cuda")
@@ -512,6 +870,15 @@ def main() -> int:
     phase("kernel_parity_tile")
     tile_err = phase_kernel_parity_tile(torch, dev, tile_knn, cuda_knn)
 
+    phase("kernel_parity_select")
+    select_err = phase_kernel_parity_select(torch, dev, cuda_knn)
+
+    phase("kernel_parity_matmul")
+    matmul_err = phase_kernel_parity_matmul(torch, dev, probe_matmul)
+
+    phase("kernel_parity_bigk")
+    bigk_err = phase_kernel_parity_bigk(torch, dev, cuda_knn, tile_knn)
+
     phase("classify_large")
     train_x, train_y, test_x, test_y = large_fixture(seed=0)
     data_dir = REPO / "build" / "chip_smoke"
@@ -554,7 +921,7 @@ def main() -> int:
     if not np.array_equal(oracle, preds[:128]):
         raise SystemExit("classify_large: kernel disagrees with the oracle")
     queries = [qx.clone() for _ in range(12)]
-    large_ms = cuda_ms(torch, wrapper, [(tx, qb, n, 5) for qb in queries], reps=12)
+    large_ms = cuda_ms(wrapper, [(tx, qb, n, 5) for qb in queries], reps=12)
     large_bound, _ = stripe_bound_ms(q, n, d, 5)
     print(f"predictions, indices and distances equal to the plain version on "
           f"the card (bit-equal), predictions equal to the oracle on 128 "
@@ -576,8 +943,8 @@ def main() -> int:
     check_equal("classify_xl indices", torch, ki, ri)
     check_equal("classify_xl predictions", torch, torch.from_numpy(preds),
                 plain.cpu())
-    ms = cuda_ms(torch, wrapper, [(tx, qb, n, k) for qb in queries], reps=12)
-    plain_ms = cuda_ms(torch, cuda_knn.knn_stripe_candidates_reference,
+    ms = cuda_ms(wrapper, [(tx, qb, n, k) for qb in queries], reps=12)
+    plain_ms = cuda_ms(cuda_knn.knn_stripe_candidates_reference,
                        [(tx, qb, n, k) for qb in queries[:3]], reps=3)
     b_ms, b_by = stripe_bound_ms(q, n, d, k)
     print(f"xl {n}x{d}, {q} queries, k={k}: indices and predictions equal to "
@@ -589,19 +956,19 @@ def main() -> int:
     check_equal("classify_xl scan keys", torch, partials[0],
                 cuda_knn.knn_stripe_scan_reference(tx, queries[0], n, k, *plan))
     times = {
-        "scan": cuda_ms(torch, scan, [(tx, qb, n, k, *plan) for qb in queries],
+        "scan": cuda_ms(scan, [(tx, qb, n, k, *plan) for qb in queries],
                         reps=12),
-        "merge": cuda_ms(torch, merge, [(pb,) for pb in partials], reps=12),
+        "merge": cuda_ms(merge, [(pb,) for pb in partials], reps=12),
     }
     plain_t = {
-        "scan": cuda_ms(torch, cuda_knn.knn_stripe_scan_reference,
+        "scan": cuda_ms(cuda_knn.knn_stripe_scan_reference,
                         [(tx, qb, n, k, *plan) for qb in queries[:3]], reps=3),
-        "merge": cuda_ms(torch, cuda_knn.knn_stripe_merge_reference,
+        "merge": cuda_ms(cuda_knn.knn_stripe_merge_reference,
                          [(pb,) for pb in partials], reps=12),
     }
     # The merge's library call: one torch.topk over a query's packed keys
     # gives its k best keys, sorted (the unpacking is a bit-cast).
-    library = cuda_ms(torch, lambda pb: torch.topk(
+    library = cuda_ms(lambda pb: torch.topk(
         pb.view(q, -1), k, dim=1, largest=False, sorted=True),
         [(pb,) for pb in partials], reps=12)
     bounds = {"scan": scan_bound_ms(q, n, d, k, plan[0]),
@@ -616,6 +983,16 @@ def main() -> int:
 
     phase("classify_wide")
     wide = phase_classify_wide(torch, dev, tile_knn, cuda_knn, vote_neighbors)
+
+    phase("classify_bigk")
+    bigk = phase_classify_bigk(torch, dev, cuda_knn, tile_knn, vote_neighbors,
+                               train_path, test_path)
+
+    phase("probe_selection")
+    sel = phase_probe_selection(torch, dev, cuda_knn)
+
+    phase("probe_wide")
+    p1 = phase_probe_wide(torch, dev, probe_matmul)
 
     phase("kernels")
     replaces = {"scan": "knn_tpu/ops/pallas_knn.py:279",
@@ -642,6 +1019,50 @@ def main() -> int:
                                        else "float32"],
         "shape": wide["shape"],
     } for form in tile_knn.FORMS]
+    extra_entries = [{
+        "name": f"stripe_knn_select_{mode}",
+        "route": "cuda",
+        "source": "knn_tpu_torch/csrc/stripe_knn.cu",
+        "replaces": "scripts/tune_stripe_selection.py:44",
+        "launches": sel["launches"][mode],
+        "max_abs_err": max(select_err[mode], sel["max_abs_err"][mode]),
+        "ms": sel["ms"][mode],
+        "plain_ms": sel["plain_ms"][mode],
+        "bound_ms": sel["bound"][0],
+        "bound_by": sel["bound"][1],
+        "library_ms": None,
+        "shape": sel["shape"],
+    } for mode in cuda_knn.SELECT_MODES] + [{
+        "name": "probe_matmul",
+        "route": "cuda",
+        "source": "knn_tpu_torch/csrc/probe_matmul.cu",
+        "replaces": "scripts/probe_mnist_r3.py:43",
+        "launches": p1["launches"],
+        "max_abs_err": max(matmul_err, p1["max_abs_err"]),
+        "ms": p1["ms"],
+        "plain_ms": p1["plain_ms"],
+        "bound_ms": p1["bound"][0],
+        "bound_by": p1["bound"][1],
+        "library_ms": p1["library_ms"],
+        "shape": p1["shape"],
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"knn_tpu_torch/csrc/{src}",
+        "replaces": rep,
+        "launches": bigk["launches"][key],
+        "max_abs_err": bigk_err[key if key == "merge" else "exact"],
+        "ms": bigk["ms"][32][part],
+        "plain_ms": bigk["plain_ms"][32][part],
+        "bound_ms": bigk["bound"][32][part][0],
+        "bound_by": bigk["bound"][32][part][1],
+        "library_ms": bigk["library_ms"][32] if part == "merge" else None,
+        "shape": bigk["shape"][32],
+    } for name, src, rep, key, part in (
+        ("tile_knn_exact_k32", "tile_knn.cu", "knn_tpu/ops/pallas_knn.py:127",
+         "exact", "scan"),
+        ("stripe_knn_merge_k32", "stripe_knn.cu",
+         "knn_tpu/ops/pallas_knn.py:105", "merge", "merge"))]
     print(json.dumps({"kernels": [{
         "name": f"stripe_knn_{name}",
         "route": "cuda",
@@ -655,7 +1076,7 @@ def main() -> int:
         "bound_by": bounds[name][1],
         "library_ms": library if name == "merge" else None,
         "shape": f"q={q} n={n} d={d} k={k} splits={plan[0]}",
-    } for name in ("scan", "merge")] + tile_entries}))
+    } for name in ("scan", "merge")] + tile_entries + extra_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

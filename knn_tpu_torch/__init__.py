@@ -7,9 +7,13 @@ relative path. It imports ``torch`` and numpy, never ``jax`` and never
 the caller asks for the host (``device="cpu"``).
 
 - ``knn_tpu_torch.data``     — ARFF ingest into dense ``float32 [N, D]``.
-- ``knn_tpu_torch.ops``      — the distance forms, the vote, and the stripe
-  and tile KNN kernels (``csrc/stripe_knn.cu``, ``csrc/tile_knn.cu``, built
-  with nvcc at first use) beside their plain PyTorch versions.
+- ``knn_tpu_torch.ops``      — the distance forms, the vote, the stripe
+  and tile KNN kernels (``csrc/stripe_knn.cu``, ``csrc/tile_knn.cu``) and
+  the bf16 matmul probe kernel (``csrc/probe_matmul.cu``), built with nvcc
+  at first use, beside their plain PyTorch versions.
+- ``knn_tpu_torch.probes``   — the diagnostic probes (selection variants,
+  the matmul floor) and the generated data they and ``chip_smoke.py`` read.
+- ``knn_tpu_torch.obs``      — the timing primitives (``bench_timing``).
 - ``knn_tpu_torch.backends`` — ``cuda`` (the stripe route), ``cuda-tile``
   (the wide-feature rung) and ``oracle`` (numpy).
 - ``knn_tpu_torch.cli``      — ``python -m knn_tpu_torch TRAIN TEST k``.

@@ -4,11 +4,15 @@ The port of ``knn_tpu/backends/tpu.py``'s stripe route. In the JAX package,
 ``predict_arrays`` with engine ``auto`` sends to the stripe kernel the
 problems ``stripe_route_ok`` admits — the exact form with d <= 128, the
 bf16 form at any width, the fast form with d > 128, each with k <= 16 — and
-everything else to the XLA scans. Here the stripe route is the only route:
-the exact form with d <= 128 runs the stripe kernel, the bf16 and wide fast
-forms the tile kernel (``ops/tile_knn.py``). An option the route cannot
-honor raises a ``ValueError`` naming the ROADMAP item that will port it,
-and is never computed some other way.
+everything else to the XLA scans; engine ``stripe`` sends every problem to
+the stripe kernel. Here the stripe route is the only route: the exact form
+with d <= 128 runs the stripe kernel, the bf16 and wide fast forms the tile
+kernel (``ops/tile_knn.py``), each with 1 <= k <= 256. So engine ``auto``
+with k > 16 (or a form and width outside ``stripe_route_ok``) raises a
+``ValueError`` naming ROADMAP A3, the XLA scans, and engine ``stripe``
+runs it on the kernels, as the JAX forced stripe engine does. An option the
+route cannot honor raises a ``ValueError`` naming the ROADMAP item that
+will port it, and is never computed some other way.
 
 ``device`` defaults to ``"cuda"``; ``"cpu"`` runs the kernels' plain
 PyTorch versions on the host. A CUDA device that is absent is a
@@ -24,6 +28,7 @@ from knn_tpu_torch.data.dataset import Dataset
 from knn_tpu_torch.ops.cuda_knn import (
     STRIPE_MAX_K,
     _resolve_stripe_precision,
+    check_k,
     stripe_classify_arrays,
     stripe_route_ok,
 )
@@ -47,9 +52,13 @@ def _check_supported(d: int, k: int, precision: str, metric: str,
         raise ValueError(f"metric {metric!r} is not ported yet (ROADMAP A3); "
                          "the cuda backend computes euclidean only")
     form = _resolve_stripe_precision(precision, d)
-    if k > STRIPE_MAX_K:
-        raise ValueError(f"k={k} > {STRIPE_MAX_K}: not ported yet (ROADMAP B1d)")
-    if not stripe_route_ok(form, d, k):
+    check_k(k)
+    if engine == "auto" and k > STRIPE_MAX_K:
+        raise ValueError(
+            f"k={k} > {STRIPE_MAX_K} with engine='auto' takes the XLA scans on "
+            "the tpu backend, which are not ported yet (ROADMAP A3); "
+            "engine='stripe' and the cuda-tile backend run it")
+    if engine == "auto" and not stripe_route_ok(form, d, k):
         raise ValueError(
             f"precision {form!r} with d={d} takes the XLA scans on the tpu "
             "backend, which are not ported yet (ROADMAP A3); the cuda-tile "

@@ -39,8 +39,9 @@
 // form), and each thread accumulates an 8x8 register tile of (query, row)
 // pairs from two float4 loads of each operand per feature. The 128x128
 // distances then go through shared memory to threads 0..127, one per query,
-// which insert them into a sorted register list of k packed keys
-// (stripe_knn.cuh). Each (query, split) list goes to [Q, splits, k] scratch.
+// which insert them into a sorted list of k packed keys (stripe_knn.cuh: in
+// registers for k <= 16, a local-memory bucket of 32..256 keys above). Each
+// (query, split) list goes to [Q, splits, k] scratch.
 //
 // Bound on this card (see chip_smoke.py): operations. exact: 3*d + 1 FP32
 // instructions per (query, valid row) at 33.5e12/s (no FMA); fast: 2*d
@@ -62,7 +63,8 @@
 
 namespace tile_knn {
 
-using stripe_knn::insert_key;
+using stripe_knn::list_insert;
+using stripe_knn::list_length;
 using stripe_knn::kSentinelKey;
 using stripe_knn::pack_key;
 
@@ -141,7 +143,7 @@ template <int F, typename T, int K>
 __global__ void __launch_bounds__(kThreads)
 tile_scan_kernel(const T* __restrict__ train, const float* __restrict__ t2,
                  int n_valid, const float* __restrict__ test,
-                 const float* __restrict__ q2, int n_queries, int d,
+                 const float* __restrict__ q2, int n_queries, int d, int k,
                  int rows_per_split, uint64_t* __restrict__ partial) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                       // [kChunk][kPitch]
@@ -156,6 +158,7 @@ tile_scan_kernel(const T* __restrict__ train, const float* __restrict__ t2,
   const int split = blockIdx.y;
   const int r_begin = split * rows_per_split;
   const int r_end = min(r_begin + rows_per_split, n_valid);
+  const int n = list_length<K>(k);
 
   float qn[8] = {};
   if constexpr (F != kExact) {
@@ -167,7 +170,7 @@ tile_scan_kernel(const T* __restrict__ train, const float* __restrict__ t2,
 
   uint64_t list[K];
 #pragma unroll
-  for (int j = 0; j < K; ++j) list[j] = kSentinelKey;
+  for (int j = 0; j < n; ++j) list[j] = kSentinelKey;
 
   for (int t0 = r_begin; t0 < r_end; t0 += kTile) {
     const int rows = min(kTile, r_end - t0);
@@ -222,22 +225,22 @@ tile_scan_kernel(const T* __restrict__ train, const float* __restrict__ t2,
       // Columns past `rows` hold the zero fill: never inserted.
       const float* row = dist_s + tid * kDistPitch;
       for (int r = 0; r < rows; ++r) {
-        insert_key<K>(list, pack_key(row[r], t0 + r));
+        list_insert<K>(list, k, pack_key(row[r], t0 + r));
       }
     }
   }
 
   if (tid < q_rows) {
-    uint64_t* out = partial + (size_t(q0 + tid) * gridDim.y + split) * K;
+    uint64_t* out = partial + (size_t(q0 + tid) * gridDim.y + split) * n;
 #pragma unroll
-    for (int j = 0; j < K; ++j) out[j] = list[j];
+    for (int j = 0; j < n; ++j) out[j] = list[j];
   }
 }
 
 template <int F, typename T, int K>
 cudaError_t launch_scan(const void* train, const float* t2, int n_valid,
                         const float* test, const float* q2, int n_queries,
-                        int d, int n_splits, int rows_per_split,
+                        int d, int k, int n_splits, int rows_per_split,
                         uint64_t* partial, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       tile_scan_kernel<F, T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -245,7 +248,7 @@ cudaError_t launch_scan(const void* train, const float* t2, int n_valid,
   if (err != cudaSuccess) return err;
   const dim3 grid((n_queries + kTile - 1) / kTile, n_splits);
   tile_scan_kernel<F, T, K><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(train), t2, n_valid, test, q2, n_queries, d,
+      static_cast<const T*>(train), t2, n_valid, test, q2, n_queries, d, k,
       rows_per_split, partial);
   return cudaGetLastError();
 }
@@ -255,7 +258,7 @@ cudaError_t launch_scan(const void* train, const float* t2, int n_valid,
 // Launch the tile scan on `stream`; returns the CUDA status (0 = launched).
 // `form` is 0 exact, 1 fast, 2 bf16; `train_bf16` says the train matrix is
 // stored as bfloat16 (bf16 form only), else float32. The caller validates
-// shapes (1 <= k <= 16, n_queries >= 1, 0 <= n_valid <= rows of train,
+// shapes (1 <= k <= 256, n_queries >= 1, 0 <= n_valid <= rows of train,
 // n_splits * rows_per_split >= n_valid), passes the [n_queries] and [N]
 // float32 norms for the fast and bf16 forms (null for exact), and allocates
 // `partial` as [n_queries, n_splits, k] uint64.
@@ -274,22 +277,22 @@ extern "C" int tile_knn_scan(int form, int train_bf16, const void* train,
     constexpr int K = decltype(kc)::value;
     if (form == kBf16 && train_bf16) {
       return launch_scan<kBf16, __nv_bfloat16, K>(train, t2f, n_valid, testf,
-                                                 q2f, n_queries, d, n_splits,
+                                                 q2f, n_queries, d, k, n_splits,
                                                  rows_per_split, out, s);
     }
     if (train_bf16) return cudaErrorInvalidValue;
     switch (form) {
       case kExact:
         return launch_scan<kExact, float, K>(train, t2f, n_valid, testf, q2f,
-                                             n_queries, d, n_splits,
+                                             n_queries, d, k, n_splits,
                                              rows_per_split, out, s);
       case kFast:
         return launch_scan<kFast, float, K>(train, t2f, n_valid, testf, q2f,
-                                            n_queries, d, n_splits,
+                                            n_queries, d, k, n_splits,
                                             rows_per_split, out, s);
       case kBf16:
         return launch_scan<kBf16, float, K>(train, t2f, n_valid, testf, q2f,
-                                            n_queries, d, n_splits,
+                                            n_queries, d, k, n_splits,
                                             rows_per_split, out, s);
       default:
         return cudaErrorInvalidValue;

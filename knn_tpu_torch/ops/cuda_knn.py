@@ -12,7 +12,14 @@ Two kernels, each with its own wrapper, launch counter and plain version:
 :func:`knn_stripe_scan` keeps the k best keys of each (query, train split),
 and :func:`knn_stripe_merge` folds a query's split lists into its k best
 (the counterpart of the JAX package's XLA ``_merge_topk_rounds``).
-:func:`knn_stripe_candidates` plans the splits and runs both.
+:func:`knn_stripe_candidates` plans the splits and runs both. Both take
+1 <= k <= 256 (:data:`KERNEL_MAX_K`); the JAX stripe route's own rule
+(:func:`stripe_route_ok`) still sends only k <= 16 to them by default.
+
+:func:`knn_stripe_scan_variant` is the scan with another selection, the
+port of ``scripts/tune_stripe_selection.py``'s ``make_variant_kernel``
+(``rounds``, ``lite``, ``nosel``; k <= 16): a tuning probe's kernel, on no
+classify path (``knn_tpu_torch/probes/tune_stripe_selection.py`` runs it).
 
 The host entries (:func:`stripe_candidates_arrays`,
 :func:`stripe_classify_arrays`) take the JAX stripe route's three distance
@@ -37,12 +44,13 @@ import numpy as np
 import torch
 
 from knn_tpu_torch.ops import _build
-from knn_tpu_torch.ops.distance import DIST_FNS
+from knn_tpu_torch.ops.distance import DIST_FNS, pairwise_sq_dists
 from knn_tpu_torch.ops.vote import vote_neighbors
 from knn_tpu_torch.resilience.errors import DeviceError
 
 STRIPE_MAX_D = 128
 STRIPE_MAX_K = 16
+KERNEL_MAX_K = 256  # csrc/stripe_knn.cuh::kMaxK
 INT_MAX = 2**31 - 1
 _SENTINEL_KEY = (0x7F800000 << 32) | INT_MAX  # (+inf, INT32_MAX)
 
@@ -123,12 +131,13 @@ def resolve_device(device) -> torch.device:
 
 def split_plan(n_valid: int, n_queries: int, sm_count: int,
                tile_rows: int = _TILE_ROWS,
-               blocks_per_sm: int = _BLOCKS_PER_SM) -> Tuple[int, int]:
-    """``(n_splits, rows_per_split)`` for a scan kernel's grid of
-    128-query blocks: the train rows are cut into contiguous splits of whole
-    ``tile_rows`` tiles, as many as it takes to give the card about
-    ``blocks_per_sm`` blocks per SM."""
-    q_blocks = max(1, -(-n_queries // _QUERIES_PER_BLOCK))
+               blocks_per_sm: int = _BLOCKS_PER_SM,
+               queries_per_block: int = _QUERIES_PER_BLOCK) -> Tuple[int, int]:
+    """``(n_splits, rows_per_split)`` for a kernel's grid of
+    ``queries_per_block``-query blocks: the train rows are cut into
+    contiguous splits of whole ``tile_rows`` tiles, as many as it takes to
+    give the card about ``blocks_per_sm`` blocks per SM."""
+    q_blocks = max(1, -(-n_queries // queries_per_block))
     tiles = max(1, -(-n_valid // tile_rows))
     want = max(1, sm_count * blocks_per_sm // q_blocks)
     rows_per_split = -(-tiles // min(want, tiles, 65535)) * tile_rows
@@ -226,12 +235,17 @@ def _check_kernel_inputs(train_x, test_x, n_valid: int, k: int) -> None:
     if d > STRIPE_MAX_D:
         raise ValueError(f"d={d} exceeds the stripe kernel's {STRIPE_MAX_D} "
                          "(wide features take the tile kernel, ops/tile_knn.py)")
-    if not 1 <= k <= STRIPE_MAX_K:
-        raise ValueError(f"k={k} outside the stripe kernel's 1..{STRIPE_MAX_K} "
-                         "(k > 16 is ROADMAP B1d)")
+    check_k(k)
     if not 0 <= n_valid <= n or n >= INT_MAX:
         raise ValueError(f"n_valid={n_valid} must lie in [0, {n}] "
                          f"and N below {INT_MAX}")
+
+
+def check_k(k: int) -> None:
+    """Raise a ``ValueError`` unless the kernels take ``k``: 1..256."""
+    if not 1 <= k <= KERNEL_MAX_K:
+        raise ValueError(f"k={k} outside the kernels' 1..{KERNEL_MAX_K} "
+                         f"(k > {KERNEL_MAX_K} is ROADMAP B1d)")
 
 
 def check_splits(n_valid: int, n_splits: int, rows_per_split: int) -> None:
@@ -250,6 +264,8 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "stripe_knn_scan": ([_p, _i, _p, _i, _i, _i, _i, _i, _p, _p], _i),
     "stripe_knn_merge": ([_p, _i, _i, _i, _p, _p, _p], _i),
+    "stripe_knn_scan_variant": ([_i, _p, _i, _p, _i, _i, _i, _i, _i, _p, _p],
+                                _i),
 }
 
 
@@ -308,9 +324,9 @@ def knn_stripe_merge(partial: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
             "partial must be a contiguous 3-D int64 CUDA tensor, got "
             f"{partial.dtype} {tuple(partial.shape)} on {partial.device}")
     q, n_splits, k = partial.shape
-    if not 1 <= k <= STRIPE_MAX_K or not 1 <= n_splits <= 65535:
-        raise ValueError(f"k={k} outside 1..{STRIPE_MAX_K} or "
-                         f"n_splits={n_splits} outside 1..65535")
+    check_k(k)
+    if not 1 <= n_splits <= 65535:
+        raise ValueError(f"n_splits={n_splits} outside 1..65535")
     fn = _library().stripe_knn_merge
     dev = partial.device
     out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
@@ -327,6 +343,124 @@ def knn_stripe_merge(partial: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
 
 
 knn_stripe_merge.launches = 0
+
+
+# The selection variants of the scan (csrc/stripe_knn.cu codes 1, 2, 3).
+SELECT_MODES = ("rounds", "lite", "nosel")
+
+
+def knn_stripe_scan_variant_reference(
+    train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
+    mode: str, n_splits: int, rows_per_split: int,
+) -> torch.Tensor:
+    """The plain version of :func:`knn_stripe_scan_variant`: ``[Q, n_splits,
+    k]`` int64 keys of the selection ``mode`` over the same split layout.
+
+    ``nosel``: slot 0 is (the split's smallest distance, INT32_MAX), a NaN
+    distance counting as +inf; the other slots are the sentinel.
+    ``rounds`` and ``lite``: the kernel's passes, replayed. A split's rows go
+    in groups of 4 from its first row, rows at or past the split's end or
+    ``n_valid`` being (+inf, INT32_MAX); each group and the k levels go
+    through k rounds (min distance, then min index at it; the taken entry's
+    distance retired to +inf, and for ``rounds`` its index to INT32_MAX)."""
+    _check_variant(mode, k)
+    q, dev = test_x.shape[0], test_x.device
+    total = n_splits * rows_per_split
+    dist = torch.full((q, total), torch.inf, dtype=torch.float32, device=dev)
+    if n_valid:
+        dist[:, :n_valid] = pairwise_sq_dists(test_x, train_x[:n_valid])
+    dist = dist.reshape(q, n_splits, rows_per_split)
+    out = torch.full((q, n_splits, k), _SENTINEL_KEY, dtype=torch.int64,
+                     device=dev)
+    if mode == "nosel":
+        out[..., 0] = _pack_keys(dist.min(dim=2).values,
+                                 torch.full((), INT_MAX, device=dev))
+        return out
+    groups = -(-rows_per_split // 4)
+    pad = groups * 4 - rows_per_split
+    dist = torch.nn.functional.pad(dist, (0, pad), value=torch.inf)
+    index = torch.arange(total, dtype=torch.int64, device=dev)
+    index = torch.where(index < n_valid, index, INT_MAX)
+    index = torch.nn.functional.pad(index.reshape(n_splits, rows_per_split),
+                                    (0, pad), value=INT_MAX)
+    fresh_d = dist.reshape(q, n_splits, groups, 4)
+    fresh_i = index.reshape(n_splits, groups, 4).expand(q, -1, -1, -1)
+    # A split's kernel thread runs the groups that hold its rows.
+    rows = (n_valid - torch.arange(n_splits, device=dev) * rows_per_split
+            ).clamp(0, rows_per_split)
+    lev_d = torch.full((q, n_splits, k), torch.inf, device=dev)
+    lev_i = torch.full((q, n_splits, k), INT_MAX, dtype=torch.int64,
+                       device=dev)
+    for g in range(groups):
+        active = (4 * g < rows)[None, :, None]
+        cd = torch.cat([fresh_d[:, :, g], lev_d], dim=2)
+        ci = torch.cat([fresh_i[:, :, g], lev_i], dim=2)
+        new_d, new_i = [], []
+        for level in range(k):
+            m_d = cd.min(dim=2, keepdim=True).values
+            m_i = torch.where(cd == m_d, ci, INT_MAX).min(dim=2,
+                                                          keepdim=True).values
+            new_d.append(m_d)
+            new_i.append(m_i)
+            if level + 1 < k:
+                taken = ci == m_i
+                cd = torch.where(taken, torch.inf, cd)
+                if mode == "rounds":
+                    ci = torch.where(taken, INT_MAX, ci)
+        lev_d = torch.where(active, torch.cat(new_d, dim=2), lev_d)
+        lev_i = torch.where(active, torch.cat(new_i, dim=2), lev_i)
+    return _pack_keys(lev_d, lev_i)
+
+
+def _check_variant(mode: str, k: int) -> None:
+    if mode not in SELECT_MODES:
+        raise ValueError(f"unknown selection {mode!r}; choose from "
+                         f"{SELECT_MODES}")
+    if not 1 <= k <= STRIPE_MAX_K:
+        raise ValueError(f"k={k} outside the selection variants' "
+                         f"1..{STRIPE_MAX_K}")
+
+
+def knn_stripe_scan_variant(
+    train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
+    mode: str, n_splits: int, rows_per_split: int,
+) -> torch.Tensor:
+    """The scan with selection ``mode`` (``rounds``, ``lite``, ``nosel``;
+    1 <= k <= 16): ``[Q, n_splits, k]`` int64 keys, as
+    :func:`knn_stripe_scan_variant_reference` gives them. ``rounds`` gives
+    :func:`knn_stripe_scan`'s keys; ``lite``'s merge
+    (:func:`knn_stripe_merge`) gives :func:`knn_stripe_candidates`' answer
+    when :func:`stripe_inputs_finite` holds and k <= n_valid.
+
+    CPU tensors take the plain version. CUDA tensors launch the scan kernel
+    with that selection on the current stream, or raise.
+    ``knn_stripe_scan_variant.launches[mode]`` counts the launches."""
+    n_valid, k = int(n_valid), int(k)
+    n_splits, rows_per_split = int(n_splits), int(rows_per_split)
+    _check_variant(mode, k)
+    if train_x.device.type == "cpu" and test_x.device.type == "cpu":
+        return knn_stripe_scan_variant_reference(
+            train_x, test_x, n_valid, k, mode, n_splits, rows_per_split)
+    _check_kernel_inputs(train_x, test_x, n_valid, k)
+    check_splits(n_valid, n_splits, rows_per_split)
+    fn = _library().stripe_knn_scan_variant
+    q, d = test_x.shape
+    dev = train_x.device
+    partial = torch.empty((q, n_splits, k), dtype=torch.int64, device=dev)
+    if q == 0:
+        return partial
+    with torch.cuda.device(dev):
+        rc = fn(SELECT_MODES.index(mode) + 1, train_x.data_ptr(), n_valid,
+                test_x.data_ptr(), q, d, k, n_splits, rows_per_split,
+                partial.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise DeviceError(f"stripe_knn_scan_variant launch failed: CUDA "
+                          f"error {rc}")
+    knn_stripe_scan_variant.launches[mode] += 1
+    return partial
+
+
+knn_stripe_scan_variant.launches = dict.fromkeys(SELECT_MODES, 0)
 
 
 def knn_stripe_candidates(

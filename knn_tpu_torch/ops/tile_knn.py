@@ -8,7 +8,9 @@ of ``predict_pallas``, the host entry of the ``tpu-pallas`` backend. One
 hand-written kernel, ``csrc/tile_knn.cu``, takes the form as a template
 parameter and any number of features; see its header for the design. Its
 per-split key lists are folded by the stripe kernel's merge
-(``cuda_knn.knn_stripe_merge``).
+(``cuda_knn.knn_stripe_merge``). Both take any k up to 256
+(``cuda_knn.KERNEL_MAX_K``), as the JAX tile-merge kernel takes any k; a
+larger k is a ``ValueError`` naming ROADMAP B1d.
 
 :func:`knn_tile_scan` is the wrapper (``knn_tile_scan.launches`` counts its
 launches per form); :func:`knn_tile_scan_reference` its plain version;
@@ -40,10 +42,10 @@ import torch
 from knn_tpu_torch.ops import _build
 from knn_tpu_torch.ops.cuda_knn import (
     INT_MAX,
-    STRIPE_MAX_K,
     _resolve_stripe_precision,
     cached_labels,
     cached_train,
+    check_k,
     check_splits,
     knn_stripe_candidates_reference,
     knn_stripe_merge,
@@ -58,7 +60,6 @@ from knn_tpu_torch.ops.distance import sq_norms
 from knn_tpu_torch.ops.vote import vote_neighbors
 from knn_tpu_torch.resilience.errors import DeviceError
 
-TILE_MAX_K = STRIPE_MAX_K
 FORMS = ("exact", "fast", "bf16")  # the kernel's form codes 0, 1, 2
 
 # Must match csrc/tile_knn.cu: train rows per tile (the split granule).
@@ -118,9 +119,7 @@ def _check_tile_inputs(train_x, test_x, n_valid: int, k: int, form: str) -> None
     n, d = train_x.shape
     if test_x.shape[1] != d:
         raise ValueError(f"train has {d} features but test has {test_x.shape[1]}")
-    if not 1 <= k <= TILE_MAX_K:
-        raise ValueError(f"k={k} outside the tile kernel's 1..{TILE_MAX_K} "
-                         "(k > 16 is ROADMAP B1d)")
+    check_k(k)
     if not 0 <= n_valid <= n or n >= INT_MAX:
         raise ValueError(f"n_valid={n_valid} must lie in [0, {n}] "
                          f"and N below {INT_MAX}")
@@ -222,22 +221,21 @@ def predict_tile(
 
     ``precision`` ``auto`` resolves to exact for d <= 128 and fast above.
     ``engine`` ``auto`` takes the stripe route where ``stripe_route_ok``
-    holds (exact with d <= 128, bf16 at any width, fast with d > 128:
-    ``cuda_knn.stripe_classify_arrays``) and the merge route otherwise (the
-    tile kernel, train stored as :func:`merge_store_dtype` says); ``stripe``
-    and ``merge`` force one. ``cache`` (a ``Dataset.device_cache`` dict)
+    holds (exact with d <= 128, bf16 at any width, fast with d > 128, each
+    with k <= 16: ``cuda_knn.stripe_classify_arrays``) and the merge route
+    otherwise (the tile kernel, train stored as :func:`merge_store_dtype`
+    says), k > 16 included; ``stripe`` and ``merge`` force one. Both routes
+    take 1 <= k <= 256; a larger k raises before any routing. ``cache`` (a ``Dataset.device_cache`` dict)
     memoizes the device-side train arrays. Nothing falls back: a route that
     fails raises."""
     d = train_x.shape[1]
     form = _resolve_stripe_precision(precision, d)
+    check_k(k)
     if engine == "auto":
         engine = "stripe" if stripe_route_ok(form, d, k) else "merge"
     if engine not in ("stripe", "merge"):
         raise ValueError(
             f"unknown engine {engine!r}; use 'auto', 'stripe', or 'merge'")
-    if k > TILE_MAX_K:
-        raise ValueError(f"k={k} > {TILE_MAX_K}: not ported yet on cuda-tile "
-                         "(ROADMAP B1d)")
     if engine == "stripe":
         return stripe_classify_arrays(train_x, train_y, test_x, k, num_classes,
                                       precision=form, device=device,

@@ -16,7 +16,7 @@ from knn_tpu_torch.backends import cuda as cuda_backend  # noqa: E402
 from knn_tpu_torch.backends import get_backend  # noqa: E402
 from knn_tpu_torch.backends.oracle import knn_oracle  # noqa: E402
 from knn_tpu_torch.convert import dataset_from_arrays  # noqa: E402
-from knn_tpu_torch.ops import cuda_knn, tile_knn  # noqa: E402
+from knn_tpu_torch.ops import cuda_knn, probe_matmul, tile_knn  # noqa: E402
 
 
 @pytest.fixture
@@ -142,3 +142,80 @@ def test_tile_wrapper_rejects_host_and_card_mix(card):
     with pytest.raises(ValueError):
         tile_knn.knn_tile_candidates(
             torch.zeros(10, 300, device=card), torch.zeros(2, 300), 10, 1, "fast")
+
+
+def _plan(rows):
+    """split_plan's layout (one 64-row tile per split at this size), or
+    splits of ``rows`` rows, which span several tiles."""
+    return (cuda_knn.split_plan(1990, 300, 132) if rows is None
+            else (-(-1990 // rows), rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, 256])
+@pytest.mark.parametrize("k", [17, 32, 100, 256])
+def test_big_k_stripe_kernels_equal_their_plain_versions(card, k, rows):
+    rng = np.random.default_rng(k)
+    train, test = _grid(rng, 2000, 300, 11)
+    t, q = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
+    plan = _plan(rows)
+    partial = cuda_knn.knn_stripe_scan(t, q, 1990, k, *plan)
+    assert torch.equal(partial, cuda_knn.knn_stripe_scan_reference(
+        t, q, 1990, k, *plan))
+    for got, ref in zip(cuda_knn.knn_stripe_merge(partial),
+                        cuda_knn.knn_stripe_merge_reference(partial)):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["exact", "fast", "bf16"])
+@pytest.mark.parametrize("k", [17, 256])
+def test_big_k_tile_kernel_equals_plain_version(card, form, k):
+    rng = np.random.default_rng(k)
+    train, test = _grid(rng, 2000, 300, 129)
+    t, q = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
+    kd, ki = tile_knn.knn_tile_candidates(t, q, 1990, k, form)
+    rd, ri = tile_knn.knn_tile_candidates_reference(t, q, 1990, k, form)
+    assert torch.equal(ki, ri) and torch.equal(kd, rd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, 256, 200])
+@pytest.mark.parametrize("mode", ["rounds", "lite", "nosel"])
+@pytest.mark.parametrize("d,k", [(1, 1), (11, 5), (64, 16)])
+def test_selection_variants_equal_their_plain_versions(card, mode, d, k, rows):
+    rng = np.random.default_rng(d + k)
+    train, test = _grid(rng, 2000, 300, d)
+    if mode == "lite":  # lite's gate: no NaN
+        train[5, 0] = 0.0
+    t, q = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
+    plan = _plan(rows)
+    before = cuda_knn.knn_stripe_scan_variant.launches[mode]
+    got = cuda_knn.knn_stripe_scan_variant(t, q, 1990, k, mode, *plan)
+    want = cuda_knn.knn_stripe_scan_variant_reference(t, q, 1990, k, mode,
+                                                      *plan)
+    torch.cuda.synchronize()
+    assert cuda_knn.knn_stripe_scan_variant.launches[mode] == before + 1
+    assert torch.equal(got, want)
+    if mode != "nosel":
+        md, mi = cuda_knn.knn_stripe_merge(got)
+        rd, ri = cuda_knn.knn_stripe_candidates(t, q, 1990, k)
+        assert torch.equal(mi, ri) and torch.equal(md, rd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,block_n", [(700, 100, 128), (4096, 784, 1024),
+                                         (1000, 37, 8)])
+def test_probe_matmul_equals_plain_version_on_integer_grids(card, n, d, block_n):
+    rng = np.random.default_rng(n)
+    r, f = np.arange(n)[:, None], np.arange(d)[None, :]
+    train = ((r * 7 + f * 3 + rng.integers(0, 3, (n, d))) % 5).astype(np.float32)
+    test = rng.integers(0, 4, (200, d)).astype(np.float32)
+    t = torch.from_numpy(train).to(card, torch.bfloat16)
+    q = torch.from_numpy(test).to(card, torch.bfloat16)
+    before = probe_matmul.pure_matmul.launches
+    got = probe_matmul.pure_matmul(t, q, block_n)
+    want = probe_matmul.pure_matmul_reference(t, q, block_n)
+    torch.cuda.synchronize()
+    assert probe_matmul.pure_matmul.launches == before + 1
+    assert torch.equal(got, want)

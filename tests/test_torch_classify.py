@@ -113,7 +113,8 @@ def test_bf16_on_the_stripe_route_matches_jax(small_port, k):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("d,k,item", [(129, 3, "A3"), (7, 17, "B1d")])
+@pytest.mark.parametrize("d,k,item", [(129, 3, "A3"), (7, 17, "A3"),
+                                      (7, 257, "B1d")])
 def test_outside_the_stripe_envelope_raises(d, k, item):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((40, d)).astype(np.float32)
@@ -198,3 +199,19 @@ class TestExitCodes:
         assert cli.run([tr, te, "1", "--device", "cuda"], stdout=out) == 1
         assert "DeviceError" in _one_line_error(capsys)
         assert out.getvalue() == ""
+
+
+def test_forced_stripe_takes_k_above_16_as_jax_does(small_port):
+    # engine="stripe" runs the stripe kernel at any k <= 256, as the tpu
+    # backend's forced stripe engine does; engine="auto" raises naming A3.
+    train, test = small_port
+    args = (train.features, train.labels, test.features, 20, train.num_classes)
+    want = jax_predict_arrays(*args, engine="stripe")
+    np.testing.assert_array_equal(want, knn_oracle(*args))
+    got = cuda_backend.predict_arrays(*args, engine="stripe", device="cpu")
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="A3"):
+        get_backend("cuda")(train, test, 20, device="cpu")
+    with pytest.raises(ValueError, match="B1d"):
+        cuda_backend.predict_arrays(*args[:3], 257, train.num_classes,
+                                    engine="stripe", device="cpu")

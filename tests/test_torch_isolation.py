@@ -11,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from knn_tpu_torch.ops import _build, cuda_knn, tile_knn  # noqa: E402
+from knn_tpu_torch.ops import _build, cuda_knn, probe_matmul, tile_knn  # noqa: E402
 from knn_tpu_torch.resilience.errors import CompileError, DeviceError  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -24,6 +24,9 @@ def test_import_leaves_jax_and_knn_tpu_out():
         "import knn_tpu_torch, knn_tpu_torch.cli, knn_tpu_torch.ops.cuda_knn\n"
         "import knn_tpu_torch.ops.tile_knn, knn_tpu_torch.backends.tile\n"
         "import knn_tpu_torch.backends, knn_tpu_torch.convert\n"
+        "import knn_tpu_torch.obs.bench_timing, knn_tpu_torch.ops.probe_matmul\n"
+        "import knn_tpu_torch.probes.data, knn_tpu_torch.probes.probe_mnist_r3\n"
+        "import knn_tpu_torch.probes.tune_stripe_selection\n"
         "knn_tpu_torch.backends.available_backends()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'knn_tpu', 'triton'))\n"
@@ -81,7 +84,7 @@ def test_wrapper_raises_when_library_is_missing(monkeypatch):
 
 
 @pytest.mark.parametrize("train,test,n_valid,k", [
-    ((50, 7), (4, 7), 50, 17),
+    ((50, 7), (4, 7), 50, 257),
     ((50, 7), (4, 7), 50, 0),
     ((50, 129), (4, 129), 50, 3),
     ((50, 7), (4, 8), 50, 3),
@@ -112,7 +115,7 @@ def test_scan_rejects_splits_that_do_not_cut_the_rows(
 
 
 @pytest.mark.parametrize("shape,dtype", [
-    ((4, 2, 17), torch.int64),  # k > 16
+    ((4, 2, 257), torch.int64),  # k > 256
     ((4, 2, 3), torch.int32),   # not packed keys
     ((4, 6), torch.int64),      # not [Q, splits, k]
 ])
@@ -139,7 +142,7 @@ def test_tile_wrapper_raises_when_library_is_missing(monkeypatch):
 
 
 @pytest.mark.parametrize("train,test,n_valid,k,form", [
-    ((50, 784), (4, 784), 50, 17, "fast"),      # k > 16
+    ((50, 784), (4, 784), 50, 257, "fast"),     # k > 256
     ((50, 784), (4, 784), 50, 0, "fast"),       # k < 1
     ((50, 784, "bf16"), (4, 784), 50, 3, "exact"),  # bf16 train, exact form
     ((50, 784, "bf16"), (4, 784), 50, 3, "fast"),   # bf16 train, fast form
@@ -186,6 +189,62 @@ def test_tile_scan_rejects_splits_that_do_not_cut_the_rows(monkeypatch):
                                300, 3, "fast", 2, 128)
 
 
+def test_new_wrappers_raise_when_library_is_missing(monkeypatch):
+    def missing(name, signatures=None):
+        raise CompileError(f"nvcc not found: cannot build {name}")
+
+    monkeypatch.setattr(_build, "load_library", missing)
+    before = (dict(cuda_knn.knn_stripe_scan_variant.launches),
+              probe_matmul.pure_matmul.launches)
+    for mode in cuda_knn.SELECT_MODES:
+        with pytest.raises(CompileError, match="stripe_knn"):
+            cuda_knn.knn_stripe_scan_variant(
+                _FakeCudaTensor(50, 7), _FakeCudaTensor(4, 7), 50, 3, mode, 1, 64)
+    with pytest.raises(CompileError, match="probe_matmul"):
+        probe_matmul.pure_matmul(_FakeCudaTensor(64, 784, dtype=torch.bfloat16),
+                                 _FakeCudaTensor(4, 784, dtype=torch.bfloat16),
+                                 1024)
+    assert (cuda_knn.knn_stripe_scan_variant.launches,
+            probe_matmul.pure_matmul.launches) == before
+
+
+@pytest.mark.parametrize("train,test,n_valid,k,mode", [
+    ((50, 7), (4, 7), 50, 17, "rounds"),   # the variants stop at k = 16
+    ((50, 7), (4, 7), 50, 0, "lite"),
+    ((50, 7), (4, 7), 50, 3, "insert"),    # not a variant
+    ((50, 129), (4, 129), 50, 3, "nosel"),
+    ((50, 7), (4, 7), 51, 3, "rounds"),
+])
+def test_variant_wrapper_rejects_what_the_kernel_does_not_take(
+        monkeypatch, train, test, n_valid, k, mode):
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, signatures=None: types.SimpleNamespace())
+    with pytest.raises(ValueError):
+        cuda_knn.knn_stripe_scan_variant(
+            _FakeCudaTensor(*train), _FakeCudaTensor(*test), n_valid, k, mode,
+            1, 64)
+
+
+@pytest.mark.parametrize("train,test,block_n", [
+    ((64, 784, torch.float32), (4, 784, torch.bfloat16), 1024),  # f32 train
+    ((64, 784, torch.bfloat16), (4, 784, torch.float32), 1024),  # f32 queries
+    ((64, 784, torch.bfloat16), (4, 783, torch.bfloat16), 1024),  # D differs
+    ((64, 0, torch.bfloat16), (4, 0, torch.bfloat16), 1024),      # no features
+    ((64, 784, torch.bfloat16), (4, 784, torch.bfloat16), 1020),  # not 8k
+])
+def test_matmul_wrapper_rejects_what_the_kernel_does_not_take(
+        monkeypatch, train, test, block_n):
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, signatures=None: types.SimpleNamespace())
+    with pytest.raises(ValueError):
+        probe_matmul.pure_matmul(_FakeCudaTensor(*train[:2], dtype=train[2]),
+                                 _FakeCudaTensor(*test[:2], dtype=test[2]),
+                                 block_n)
+    with pytest.raises(ValueError, match="CUDA device"):
+        probe_matmul.pure_matmul(torch.zeros(64, 8, dtype=torch.bfloat16),
+                                 _FakeCudaTensor(4, 8, dtype=torch.bfloat16), 64)
+
+
 def test_build_without_nvcc_is_a_compile_error(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "nvcc_path", lambda: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
@@ -194,6 +253,8 @@ def test_build_without_nvcc_is_a_compile_error(monkeypatch, tmp_path):
         _build.load_library("stripe_knn")
     with pytest.raises(CompileError, match="nvcc not found"):
         _build.load_library("tile_knn")
+    with pytest.raises(CompileError, match="nvcc not found"):
+        _build.load_library("probe_matmul")
     with pytest.raises(CompileError, match="nvcc not found"):
         _build.build_all()
 
@@ -204,6 +265,8 @@ def test_library_name_tracks_the_sources():
     assert re.fullmatch(r"libstripe_knn-[0-9a-f]{16}\.so", lib.name)
     assert re.fullmatch(r"libtile_knn-[0-9a-f]{16}\.so",
                         _build.library_path("tile_knn").name)
+    assert re.fullmatch(r"libprobe_matmul-[0-9a-f]{16}\.so",
+                        _build.library_path("probe_matmul").name)
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 

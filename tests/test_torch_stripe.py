@@ -205,7 +205,7 @@ def test_split_plan_covers_every_row(n_valid, q):
 
 
 
-@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("k", [1, 5, 16, 17, 32, 100, 256])
 @pytest.mark.parametrize("n_valid,n_splits,rows", [
     (N, 1, N), (N, 5, 64), (N - 45, 4, 64), (10, 1, 64), (0, 1, 64)])
 def test_scan_then_merge_equals_the_whole_scan(k, n_valid, n_splits, rows):
@@ -229,3 +229,19 @@ def test_scan_then_merge_equals_the_whole_scan(k, n_valid, n_splits, rows):
     d_want, i_want = cuda_knn.knn_stripe_candidates_reference(t, q, n_valid, k)
     assert torch.equal(i_got, i_want)
     assert d_got.numpy().tobytes() == d_want.numpy().tobytes()
+
+
+@pytest.mark.parametrize("k", [17, 32, 100, 256])
+def test_big_k_integer_grid_matches_jax_stripe_and_oracle(k):
+    # The JAX stripe kernel takes any k when forced; the port's plain
+    # version, the counterpart of the bucketed kernel lists, agrees.
+    rng = np.random.default_rng(k)
+    train, test = int_grid(rng, 7)
+    d_got, i_got = port_stripe(train, test, N - 20, k)
+    od, oi = oracle_kneighbors(train[: N - 20], test, k)
+    np.testing.assert_array_equal(i_got, oi)
+    np.testing.assert_array_equal(d_got, od)
+    if k == 17:
+        d_want, i_want = jax_stripe(train, test, N - 20, k)
+        np.testing.assert_array_equal(i_got, i_want)
+        assert d_got.tobytes() == d_want.tobytes()

@@ -219,7 +219,7 @@ def test_nan_rows_in_the_matmul_forms(route, form, k):
 
 
 @pytest.mark.parametrize("form", FORMS)
-@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("k", KS + (17, 100))
 def test_tile_scan_then_merge_equals_the_whole_scan(form, k):
     # The kernel's two steps, as their wrappers run them on CPU tensors:
     # per-split lists hold only their own rows, and the stripe merge of them
@@ -309,10 +309,54 @@ def test_predict_tile_narrow_matches_predict_pallas(precision):
     np.testing.assert_array_equal(got, want)
 
 
+@functools.lru_cache(maxsize=None)
+def pallas_big_k(d, k):
+    """``predict_pallas`` interpreted at k > 16 (its merge route, which
+    takes any k): (want, oracle) predictions."""
+    from knn_tpu.backends.oracle import knn_oracle
+
+    train, labels, test = labelled(d)
+    want = pallas_knn.predict_pallas(
+        train, labels, test, k, 6, block_q=8, block_n=128, interpret=True,
+        precision="exact")
+    return want, knn_oracle(train, labels, test, k, 6)
+
+
+@pytest.mark.parametrize("engine", ["auto", "merge", "stripe"])
+@pytest.mark.parametrize("k", [17, 32, 100, 256])
+@pytest.mark.parametrize("d", [9, 200])
+def test_predict_tile_big_k_matches_predict_pallas(d, k, engine):
+    # auto sends k > 16 to the merge route, as predict_pallas does; a forced
+    # stripe route runs the stripe kernel (d = 9) or the tile kernel's exact
+    # form (d = 200) with bucketed lists. All compute the same function.
+    train, labels, test = labelled(d)
+    want, oracle = pallas_big_k(d, k)
+    np.testing.assert_array_equal(want, oracle)
+    got = tile_knn.predict_tile(train, labels, test, k, 6, precision="exact",
+                                engine=engine, device="cpu")
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cli_medium_k20_matches_jax_tpu_pallas():
+    # The JAX tile-merge kernel takes any k: at k = 20 the port's cuda-tile
+    # prints the line of tpu-pallas (it raised for k > 16 before).
+    from tests import fixtures
+
+    d = fixtures.datasets_dir()
+    tr, te = str(d / "medium-train.arff"), str(d / "medium-test.arff")
+    want = _line(jcli.run, [tr, te, "20", "--backend", "tpu-pallas",
+                            "--platform", "cpu"])
+    assert want.startswith("The 20-NN classifier for 370 test instances on "
+                           "7354 train instances")
+    got = _line(cli.run, [tr, te, "20", "--backend", "cuda-tile", "--device",
+                          "cpu"])
+    assert got == want
+
+
 def test_predict_tile_rejects_what_it_does_not_take():
     train, labels, test = labelled(9)
     with pytest.raises(ValueError, match="B1d"):
-        tile_knn.predict_tile(train, labels, test, 17, 6, device="cpu")
+        tile_knn.predict_tile(train, labels, test, 257, 6, device="cpu")
     with pytest.raises(ValueError, match="engine"):
         tile_knn.predict_tile(train, labels, test, 3, 6, engine="xla",
                               device="cpu")
