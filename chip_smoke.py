@@ -22,8 +22,10 @@ Phases, each printed as it runs; any failure exits non-zero:
 6. ``kernel_parity_matmul`` — the bf16 tensor-core matmul (P1) against its
                         plain version: bit-equal on integer grids, the
                         stated bound on float rows.
-7. ``kernel_parity_bigk`` — the stripe scan, the merge and the tile scan at
-                        k in (17, 32, 100, 256) against their plain versions.
+7. ``kernel_parity_bigk`` — the merge and the tile scan's three forms at
+                        k in BIGK_PARITY (17 up to 4,096 and k = n_valid),
+                        at the tile kernel's split plan and at forced plans,
+                        against their plain versions.
 8. ``classify_large`` — the main path, ``knn_tpu_torch.cli.run``, on the
                         large-fixture shape written as ARFF under build/.
 9. ``classify_xl``    — the stripe kernels and their plain versions on
@@ -38,19 +40,25 @@ Phases, each printed as it runs; any failure exits non-zero:
 11. ``classify_bigk`` — ``cli.run --backend cuda-tile`` at k = 32 on the
                         large shape (the tile kernel's merge route), the
                         counters read around it; predictions against the
-                        plain version and the oracle; scan and merge timed
-                        at k = 32 and 256.
-12. ``probe_selection`` — P2's entry point
+                        plain version and the oracle; the tile scan, the
+                        merge and ``torch.topk`` timed at k = 32, 256, 1000.
+12. ``classify_xla``  — ``cli.run --backend cuda`` on the large shape
+                        through the XLA route (torch ops, no hand kernel):
+                        k = 32 (the tiled scan) in the euclidean and cosine
+                        metrics, ``--engine xla`` at k = 5; predictions against the
+                        oracle and ``cuda-tile``; the route timed beside
+                        ``cuda-tile``.
+13. ``probe_selection`` — P2's entry point
                         (``knn_tpu_torch.probes.tune_stripe_selection``) on
                         the large shape, counters read around it; each
                         selection's kernel, at that shape's layout, held
                         bit-equal to its plain version and timed beside it.
-13. ``probe_wide``    — P1's entry point (``knn_tpu_torch.probes.
+14. ``probe_wide``    — P1's entry point (``knn_tpu_torch.probes.
                         probe_mnist_r3``) at 65,536 x 784 with 2,048 queries,
                         the counter read around it; P1 timed beside its
                         plain version and the library's bfloat16 matmul with
                         float32 output.
-14. ``kernels``       — one JSON line describing every kernel.
+15. ``kernels``       — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -88,6 +96,10 @@ PEAK_FP32_INSTR = 67e12 / 2
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 PEAK_HBM_BYTES = 3.35e12
+# The k of kernel_parity_bigk ("n_valid": k equal to the valid rows) and the
+# k timed in classify_bigk.
+BIGK_PARITY = (17, 32, 100, 256, 257, 1000, 4096, "n_valid")
+BIGK_TIMED = (32, 256, 1000)
 
 
 def phase(name: str) -> None:
@@ -120,10 +132,11 @@ def scan_bound_ms(q: int, n_valid: int, d: int, k: int, splits: int):
 
 
 def merge_bound_ms(q: int, k: int, splits: int):
-    """The merge: the [Q, splits, k] keys read once, [Q, k] float32
-    distances and int32 indices written once; at least one compare per
-    (query, split) list."""
-    return bound_ms(q * splits, q * splits * k * 8 + q * k * 8)
+    """The merge of sorted split lists: per query, the head of each list and
+    then one key per output slot read (splits + k int64 keys, not the whole
+    [Q, splits, k] scratch), [Q, k] float32 distances and int32 indices
+    written once; one compare per key read."""
+    return bound_ms(q * (splits + k), q * (splits + k) * 8 + q * k * 8)
 
 
 def stripe_bound_ms(q: int, n_valid: int, d: int, k: int):
@@ -523,19 +536,29 @@ def phase_kernel_parity_matmul(torch, dev, probe_matmul) -> float:
     return err
 
 
+def bigk_plans(n_valid: int, q: int, sm_count: int, k: int, tile_knn):
+    """The tile kernel's own plan at k, and two forced ones: splits of one
+    128-row tile (shorter than k, so lists end in sentinels) and of 700 rows
+    (ending inside a tile)."""
+    return [tile_knn.tile_split_plan(n_valid, q, sm_count, k),
+            *[(-(-n_valid // rows), rows) for rows in (128, 700)]]
+
+
 def phase_kernel_parity_bigk(torch, dev, cuda_knn, tile_knn) -> dict:
-    """The bucketed lists (16 < k <= 256): the stripe scan and merge, and
-    the tile scan in its three forms, against their plain versions on an
-    integer grid (duplicated rows, NaN rows, n_valid < N) and on float rows:
-    bit-equal keys, except the tile scan's fast and bf16 forms on float
-    rows, held by check_near after the merge. Returns the largest
-    |kernel - plain| distance per kernel."""
+    """Any k: the merge and the tile scan in its three forms against their
+    plain versions at k in BIGK_PARITY (k = n_valid included, and k past
+    N), on an integer grid (duplicated rows, NaN rows, n_valid < N) and on
+    float rows, at the tile kernel's split plan and at forced plans (d = 11;
+    d = 129 at the kernel's plan): bit-equal keys, and the merge bit-equal
+    on every case; the fast and bf16 forms on float rows held by check_near
+    after the merge. Returns the largest |kernel - plain| distance per
+    kernel."""
     rng = np.random.default_rng(4)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    err = {"scan": 0.0, "merge": 0.0, **dict.fromkeys(tile_knn.FORMS, 0.0)}
+    err = {"merge": 0.0, **dict.fromkeys(tile_knn.FORMS, 0.0)}
     n_cases = swaps = 0
     n, q = 3001, 300
-    for k in (17, 32, 100, 256):
+    for k in BIGK_PARITY:
         for d in (11, 129):
             grid = rng.integers(0, 4, (n, d)).astype(np.float32)
             grid[1500:2000] = grid[:500]
@@ -548,48 +571,40 @@ def phase_kernel_parity_bigk(torch, dev, cuda_knn, tile_knn) -> dict:
             fq = rng.standard_normal((q, d)).astype(np.float32)
             for kind, tx, qx, n_valid in (("grid", grid, gq, n - 77),
                                           ("float", fl, fq, n)):
-                name = f"{kind} d={d} k={k}"
+                kk = n_valid if k == "n_valid" else k
                 t = torch.from_numpy(tx).to(dev)
                 qt = torch.from_numpy(qx).to(dev)
-                for plan in ([cuda_knn.split_plan(n_valid, q, sm_count),
-                              *forced_plans(n_valid)] if d <= 128 else []):
-                    partial = cuda_knn.knn_stripe_scan(t, qt, n_valid, k, *plan)
-                    want = cuda_knn.knn_stripe_scan_reference(t, qt, n_valid,
-                                                              k, *plan)
-                    check_equal(f"kernel_parity_bigk {name} plan={plan} "
-                                "stripe scan keys", torch, partial, want)
-                    err["scan"] = max(err["scan"], max_err(torch, *(
-                        cuda_knn._unpack_keys(x)[0] for x in (partial, want))))
-                    n_cases += 1
-                plan = cuda_knn.split_plan(n_valid, q, sm_count,
-                                           tile_rows=tile_knn._TILE_ROWS,
-                                           blocks_per_sm=tile_knn._BLOCKS_PER_SM)
-                for form in tile_knn.FORMS:
-                    tt = t.to(torch.bfloat16) if form == "bf16" and d > 128 else t
-                    partial = tile_knn.knn_tile_scan(tt, qt, n_valid, k, form,
-                                                     *plan)
-                    want = tile_knn.knn_tile_scan_reference(tt, qt, n_valid, k,
-                                                            form, *plan)
-                    md, mi = cuda_knn.knn_stripe_merge(partial)
-                    rd, ri = cuda_knn.knn_stripe_merge_reference(partial)
-                    check_equal(f"kernel_parity_bigk {name} merge indices",
-                                torch, mi, ri)
-                    check_equal(f"kernel_parity_bigk {name} merge distances",
-                                torch, md, rd)
-                    err["merge"] = max(err["merge"], max_err(torch, md, rd))
-                    wd, wi = cuda_knn.knn_stripe_merge_reference(want)
-                    if kind == "grid" or form == "exact":
-                        check_equal(f"kernel_parity_bigk {name} {form} tile "
-                                    "scan keys", torch, partial, want)
-                    else:
-                        swaps += check_near(f"kernel_parity_bigk {name} {form}",
-                                            torch, form, tt, qt, md, mi, wd, wi)
-                    err[form] = max(err[form], max_err(torch, md, wd))
-                    n_cases += 1
-    print(f"{n_cases} cases at k in (17, 32, 100, 256): stripe scan (at the "
-          "split_plan, 256- and 200-row layouts), merge and "
-          "tile scan (all forms on integer grids, exact on float rows) "
-          "bit-equal to the plain versions; fast and bf16 on float rows within "
+                plans = bigk_plans(n_valid, q, sm_count, kk, tile_knn)
+                for plan in plans if d <= 128 else plans[:1]:
+                    name = f"{kind} d={d} k={kk} plan={plan}"
+                    for form in tile_knn.FORMS:
+                        tt = (t.to(torch.bfloat16) if form == "bf16" and d > 128
+                              else t)
+                        partial = tile_knn.knn_tile_scan(tt, qt, n_valid, kk,
+                                                         form, *plan)
+                        want = tile_knn.knn_tile_scan_reference(
+                            tt, qt, n_valid, kk, form, *plan)
+                        md, mi = cuda_knn.knn_stripe_merge(partial)
+                        rd, ri = cuda_knn.knn_stripe_merge_reference(partial)
+                        check_equal(f"kernel_parity_bigk {name} {form} merge "
+                                    "indices", torch, mi, ri)
+                        check_equal(f"kernel_parity_bigk {name} {form} merge "
+                                    "distances", torch, md, rd)
+                        err["merge"] = max(err["merge"], max_err(torch, md, rd))
+                        wd, wi = cuda_knn.knn_stripe_merge_reference(want)
+                        if kind == "grid" or form == "exact":
+                            check_equal(f"kernel_parity_bigk {name} {form} "
+                                        "tile scan keys", torch, partial, want)
+                        else:
+                            swaps += check_near(
+                                f"kernel_parity_bigk {name} {form}", torch,
+                                form, tt, qt, md, mi, wd, wi)
+                        err[form] = max(err[form], max_err(torch, md, wd))
+                        n_cases += 1
+    print(f"{n_cases} cases at k in {BIGK_PARITY}: merge bit-equal to its "
+          "plain version on every case; tile scan keys bit-equal (all forms "
+          "on integer grids, exact on float rows) at the tile kernel's plan "
+          "and at 128- and 700-row splits; fast and bf16 on float rows within "
           f"the tile tolerance, {swaps} near-tie index swaps; max_abs_err {err}")
     return err
 
@@ -599,8 +614,10 @@ def phase_classify_bigk(torch, dev, cuda_knn, tile_knn, vote_neighbors,
     """``cli.run --backend cuda-tile`` at k = 32 on the large shape (the
     merge route: k > 16 leaves the stripe route, as in predict_pallas),
     with the counters read around it; predictions against the plain
-    version and the oracle; the tile scan and merge timed at k = 32 and
-    k = 256. Returns launches, times and bounds."""
+    version and the oracle; then at each k of BIGK_TIMED one
+    ``get_backend("cuda-tile")`` call (counters read around it), and the
+    tile scan (at its own split plan), the merge and ``torch.topk`` on the
+    same keys timed. Returns launches, times and bounds by k."""
     from knn_tpu_torch import cli
     from knn_tpu_torch.backends import get_backend
     from knn_tpu_torch.backends.oracle import knn_oracle
@@ -617,33 +634,32 @@ def phase_classify_bigk(torch, dev, cuda_knn, tile_knn, vote_neighbors,
     out = io.StringIO()
     rc = cli.run([str(train_path), str(test_path), "32", "--backend",
                   "cuda-tile", "--warmup", "--json"], stdout=out)
-    launches = {"exact": scan.launches["exact"], "merge": merge.launches}
+    cli_launches = {"exact": scan.launches["exact"], "merge": merge.launches}
     if rc != 0:
         raise SystemExit(f"classify_bigk: cli.run exited {rc}")
     line, js = out.getvalue().splitlines()
     print(line)
     print(js)
-    print(f"launches on the path: {launches} (--warmup run + timed run), all "
-          f"tile forms {dict(scan.launches)}")
-    if min(launches.values()) < 1:
-        raise SystemExit(f"classify_bigk: a kernel was never launched: {launches}")
+    print(f"launches on the path: {cli_launches} (--warmup run + timed run), "
+          f"all tile forms {dict(scan.launches)}")
+    if min(cli_launches.values()) < 1:
+        raise SystemExit(f"classify_bigk: a kernel was never launched: "
+                         f"{cli_launches}")
     train, test = load_arff(str(train_path)), load_arff(str(test_path))
     n, d, q = train.num_instances, train.num_features, test.num_instances
     tx = torch.from_numpy(train.features.copy()).to(dev)
     ty = torch.from_numpy(train.labels.copy()).to(dev)
     qx = torch.from_numpy(test.features.copy()).to(dev)
-    res = {"launches": launches, "ms": {}, "plain_ms": {}, "bound": {},
-           "library_ms": {}, "shape": {}}
+    res = {"launches": {}, "ms": {}, "plain_ms": {}, "bound": {},
+           "library_ms": {}, "shape": {}, "line": line}
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = cuda_knn.split_plan(n, q, sm_count, tile_rows=tile_knn._TILE_ROWS,
-                               blocks_per_sm=tile_knn._BLOCKS_PER_SM)
     queries = [qx.clone() for _ in range(12)]
-    for k in (32, 256):
+    for k in BIGK_TIMED:
         reset()
         preds = get_backend("cuda-tile")(train, test, k)
-        if k == 256:
-            res["launches_256"] = {"exact": scan.launches["exact"],
-                                   "merge": merge.launches}
+        res["launches"][k] = (cli_launches if k == 32 else
+                              {"exact": scan.launches["exact"],
+                               "merge": merge.launches})
         kd, ki = tile_knn.knn_tile_candidates(tx, qx, n, k, "exact")
         rd, ri = tile_knn.knn_tile_candidates_reference(tx, qx, n, k, "exact")
         check_equal(f"classify_bigk k={k} indices", torch, ki, ri)
@@ -661,6 +677,7 @@ def phase_classify_bigk(torch, dev, cuda_knn, tile_knn, vote_neighbors,
             if f"Accuracy was {acc:.4f}" not in line:
                 raise SystemExit(f"classify_bigk: accuracy {acc:.4f} not in "
                                  f"{line!r}")
+        plan = tile_knn.tile_split_plan(n, q, sm_count, k)
         partials = [scan(tx, qb, n, k, "exact", *plan) for qb in queries]
         check_equal(f"classify_bigk k={k} scan keys", torch, partials[0],
                     tile_knn.knn_tile_scan_reference(tx, queries[0], n, k,
@@ -675,24 +692,178 @@ def phase_classify_bigk(torch, dev, cuda_knn, tile_knn, vote_neighbors,
                              for qb in queries[:3]], reps=3),
             "merge": cuda_ms(cuda_knn.knn_stripe_merge_reference,
                              [(pb,) for pb in partials], reps=12)}
+        # The merge's library call: one torch.topk over a query's packed
+        # keys gives its k best keys, sorted (the unpacking is a bit-cast).
         res["library_ms"][k] = cuda_ms(lambda pb: torch.topk(
             pb.view(q, -1), k, dim=1, largest=False, sorted=True),
             [(pb,) for pb in partials], reps=12)
         res["bound"][k] = {"scan": tile_bound_ms("exact", q, n, d, k, plan[0], 4),
                            "merge": merge_bound_ms(q, k, plan[0])}
         res["shape"][k] = f"q={q} n={n} d={d} k={k} splits={plan[0]}"
+        del partials
         print(f"k={k}: predictions equal to the plain version's and, on 128 "
-              f"queries, the oracle's; keys, indices and distances bit-equal. "
-              f"Tile scan (exact, {plan[0]} splits of {plan[1]} rows) "
-              f"{res['ms'][k]['scan']} ms, plain {res['plain_ms'][k]['scan']} "
-              f"ms, bound {res['bound'][k]['scan'][0]} ms "
-              f"({res['bound'][k]['scan'][1]}); merge {res['ms'][k]['merge']} "
-              f"ms, plain {res['plain_ms'][k]['merge']} ms, torch.topk on the "
-              f"keys {res['library_ms'][k]} ms, bound "
-              f"{res['bound'][k]['merge'][0]} ms ({res['bound'][k]['merge'][1]})")
-    print(f"launches of one get_backend('cuda-tile') call at k=256: "
-          f"{res['launches_256']}")
+              f"queries, the oracle's; keys, indices and distances bit-equal; "
+              f"launches of one get_backend('cuda-tile') call "
+              f"{res['launches'][k]}. Tile scan (exact, {plan[0]} splits of "
+              f"{plan[1]} rows) {res['ms'][k]['scan']} ms, plain "
+              f"{res['plain_ms'][k]['scan']} ms, bound "
+              f"{res['bound'][k]['scan'][0]} ms ({res['bound'][k]['scan'][1]}); "
+              f"merge {res['ms'][k]['merge']} ms, plain "
+              f"{res['plain_ms'][k]['merge']} ms, torch.topk on the keys "
+              f"{res['library_ms'][k]} ms, bound {res['bound'][k]['merge'][0]} "
+              f"ms ({res['bound'][k]['merge'][1]})")
     return res
+
+
+def cosine_near_ties(what: str, train_x, test_x, got_i, want_i) -> int:
+    """Two cosine neighbor lists of the same queries may differ only at
+    near ties: where they differ, the float64 distances of the two lists'
+    rows, sorted, agree within ``4 * (d + 2) * 2^-24`` (twice the bound on
+    each side's float32 error). Returns the number of queries whose lists
+    differ."""
+    rows = np.nonzero((got_i != want_i).any(axis=1))[0]
+    tol = 4 * (train_x.shape[1] + 2) * 2.0**-24
+    for r in rows:
+        qv = test_x[r].astype(np.float64)
+
+        def dist(idx):
+            t = train_x[idx].astype(np.float64)
+            den = np.linalg.norm(t, axis=1) * np.linalg.norm(qv)
+            return np.sort(1 - np.where(den > 0, t @ qv / np.where(den > 0, den, 1),
+                                        0))
+
+        if np.abs(dist(got_i[r]) - dist(want_i[r])).max() > tol:
+            raise SystemExit(f"{what}: query {r}'s neighbors differ outside a "
+                             "near tie")
+    return int(rows.size)
+
+
+def phase_classify_xla(torch, dev, cuda_knn, tile_knn, vote_neighbors,
+                       train_path, test_path) -> dict:
+    """The XLA route of ``--backend cuda`` (torch ops on the card, no hand
+    kernel) on the large shape: ``cli.run`` at k = 32 (the tiled scan:
+    1,718 x 30,803 cells are past the 16 Mi full-matrix limit), with
+    ``--metric cosine``, and with ``--engine xla`` at k = 5, the kernels'
+    counters read around each (they stay 0). Predictions against the
+    oracle's (cosine: equal wherever the neighbor lists agree, the lists
+    differing only at near ties) and ``cuda-tile``'s; the route's device
+    time beside ``cuda-tile``'s on the same problem (CUDA events)."""
+    from knn_tpu_torch import cli
+    from knn_tpu_torch.backends import cuda as cuda_backend
+    from knn_tpu_torch.backends import get_backend
+    from knn_tpu_torch.backends.oracle import knn_oracle, oracle_kneighbors
+    from knn_tpu_torch.data.arff import load_arff
+
+    counters = (cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge)
+    tile_scan = tile_knn.knn_tile_scan
+
+    def launched():
+        return (sum(c.launches for c in counters)
+                + sum(tile_scan.launches.values()))
+
+    train, test = load_arff(str(train_path)), load_arff(str(test_path))
+    n, d, q = train.num_instances, train.num_features, test.num_instances
+    res = {"lines": {}}
+    for name, k, flags in (("k32", 32, []), ("cosine", 32, ["--metric", "cosine"]),
+                           ("engine-xla", 5, ["--engine", "xla"])):
+        for c in counters:
+            c.launches = 0
+        for form in tile_scan.launches:
+            tile_scan.launches[form] = 0
+        out = io.StringIO()
+        rc = cli.run([str(train_path), str(test_path), str(k), "--backend",
+                      "cuda", *flags, "--warmup", "--json"], stdout=out)
+        if rc != 0:
+            raise SystemExit(f"classify_xla {name}: cli.run exited {rc}")
+        line, js = out.getvalue().splitlines()
+        print(line)
+        print(js)
+        if launched():
+            raise SystemExit(f"classify_xla {name}: a hand kernel launched on "
+                             "the XLA route")
+        res["lines"][name] = line
+        metric = "cosine" if name == "cosine" else "euclidean"
+        preds = get_backend("cuda")(train, test, k, metric=metric,
+                                    engine="xla" if name == "engine-xla"
+                                    else "auto")
+        acc = float((preds == test.labels).mean())
+        if f"Accuracy was {acc:.4f}" not in line:
+            raise SystemExit(f"classify_xla {name}: accuracy {acc:.4f} not in "
+                             f"{line!r}")
+        if metric == "euclidean":
+            tile = get_backend("cuda-tile")(train, test, k)
+            if not np.array_equal(preds, tile):
+                raise SystemExit(f"classify_xla {name}: differs from cuda-tile")
+            oracle = knn_oracle(train.features, train.labels,
+                                test.features[:128], k, train.num_classes)
+            if not np.array_equal(oracle, preds[:128]):
+                raise SystemExit(f"classify_xla {name}: differs from the oracle")
+            print(f"{name}: predictions equal to cuda-tile's on {q} queries "
+                  "and the oracle's on 128")
+            continue
+        oracle = knn_oracle(train.features, train.labels, test.features, k,
+                            train.num_classes, metric="cosine")
+        tx = torch.from_numpy(train.features.copy()).to(dev)
+        ty = torch.from_numpy(train.labels.copy()).to(dev)
+        qx = torch.from_numpy(test.features.copy()).to(dev)
+        # The route's own tiles and padding, so every matmul has its shape.
+        pad = cuda_backend._pad_rows
+        _, got_i, _ = cuda_backend.forward_candidates_core(
+            pad(tx, 2048), pad(ty, 2048), pad(qx, 256), n, k, "cosine",
+            query_tile=256, train_tile=2048)
+        got_i = got_i[:q]
+        mine = vote_neighbors(got_i, ty, train.num_classes).cpu().numpy()
+        if not np.array_equal(mine, preds):
+            raise SystemExit("classify_xla cosine: the backend's predictions "
+                             "differ from its candidates' vote")
+        _, want_i = oracle_kneighbors(train.features, test.features, k, "cosine")
+        differ = cosine_near_ties("classify_xla cosine", train.features,
+                                  test.features, got_i.cpu().numpy(), want_i)
+        same = ~(got_i.cpu().numpy() != want_i).any(axis=1)
+        if not np.array_equal(preds[same], oracle[same]):
+            raise SystemExit("classify_xla cosine: predictions differ from the "
+                             "oracle's on equal neighbor lists")
+        print(f"cosine: predictions equal to the oracle's on "
+              f"{int((preds == oracle).sum())} of {q} queries; {differ} lists "
+              "differ from the oracle's, each only at near ties")
+
+    # The route's device time beside cuda-tile's, k = 32, the same inputs
+    # on the card: the tiled scan and its vote, against the tile kernel,
+    # the merge and the vote.
+    k, tile_rows = 32, 2048
+    tx = torch.from_numpy(train.features.copy()).to(dev)
+    ty = torch.from_numpy(train.labels.copy()).to(dev)
+    txp = cuda_backend._pad_rows(tx, tile_rows)
+    typ = cuda_backend._pad_rows(ty, tile_rows)
+    queries = [cuda_backend._pad_rows(
+        torch.from_numpy(test.features.copy()).to(dev), 256) for _ in range(6)]
+
+    def xla_route(qb):
+        return cuda_backend.forward_tiled_core(txp, typ, qb, n, k,
+                                               train.num_classes, "exact",
+                                               256, tile_rows)
+
+    def tile_route(qb):
+        _, idx = tile_knn.knn_tile_candidates(tx, qb[:q], n, k, "exact")
+        return vote_neighbors(idx, ty, train.num_classes)
+
+    if not torch.equal(xla_route(queries[0])[:q], tile_route(queries[0])):
+        raise SystemExit("classify_xla: the timed routes disagree")
+    res["ms"] = cuda_ms(xla_route, [(qb,) for qb in queries], reps=6)
+    res["tile_ms"] = cuda_ms(tile_route, [(qb,) for qb in queries], reps=6)
+    res["shape"] = f"q={q} n={n} d={d} k={k}"
+    print(f"XLA route (forward_tiled_core, query_tile 256, train_tile "
+          f"{tile_rows}; torch ops, no hand kernel) at {res['shape']}: "
+          f"{res['ms']} ms (median of 6, CUDA events); cuda-tile (tile scan, "
+          f"merge, vote) {res['tile_ms']} ms; result lines "
+          f"{[_ms_of(x) for x in res['lines'].values()]} ms "
+          f"(k32, cosine, engine-xla)")
+    return res
+
+
+def _ms_of(line: str) -> int:
+    """The ms field of a result line."""
+    return int(line.split(" required ")[1].split(" ms")[0])
 
 
 def phase_probe_selection(torch, dev, cuda_knn) -> dict:
@@ -988,6 +1159,10 @@ def main() -> int:
     bigk = phase_classify_bigk(torch, dev, cuda_knn, tile_knn, vote_neighbors,
                                train_path, test_path)
 
+    phase("classify_xla")
+    phase_classify_xla(torch, dev, cuda_knn, tile_knn, vote_neighbors,
+                       train_path, test_path)
+
     phase("probe_selection")
     sel = phase_probe_selection(torch, dev, cuda_knn)
 
@@ -1046,22 +1221,22 @@ def main() -> int:
         "library_ms": p1["library_ms"],
         "shape": p1["shape"],
     }] + [{
-        "name": name,
+        "name": f"{name}_k{k}",
         "route": "cuda",
         "source": f"knn_tpu_torch/csrc/{src}",
         "replaces": rep,
-        "launches": bigk["launches"][key],
-        "max_abs_err": bigk_err[key if key == "merge" else "exact"],
-        "ms": bigk["ms"][32][part],
-        "plain_ms": bigk["plain_ms"][32][part],
-        "bound_ms": bigk["bound"][32][part][0],
-        "bound_by": bigk["bound"][32][part][1],
-        "library_ms": bigk["library_ms"][32] if part == "merge" else None,
-        "shape": bigk["shape"][32],
-    } for name, src, rep, key, part in (
-        ("tile_knn_exact_k32", "tile_knn.cu", "knn_tpu/ops/pallas_knn.py:127",
+        "launches": bigk["launches"][k][key],
+        "max_abs_err": bigk_err[key],
+        "ms": bigk["ms"][k][part],
+        "plain_ms": bigk["plain_ms"][k][part],
+        "bound_ms": bigk["bound"][k][part][0],
+        "bound_by": bigk["bound"][k][part][1],
+        "library_ms": bigk["library_ms"][k] if part == "merge" else None,
+        "shape": bigk["shape"][k],
+    } for k in BIGK_TIMED for name, src, rep, key, part in (
+        ("tile_knn_exact", "tile_knn.cu", "knn_tpu/ops/pallas_knn.py:127",
          "exact", "scan"),
-        ("stripe_knn_merge_k32", "stripe_knn.cu",
+        ("stripe_knn_merge", "stripe_knn.cu",
          "knn_tpu/ops/pallas_knn.py:105", "merge", "merge"))]
     print(json.dumps({"kernels": [{
         "name": f"stripe_knn_{name}",

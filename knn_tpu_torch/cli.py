@@ -7,10 +7,14 @@ against the train rows, and prints the reference's result line
 region ends after the predictions are back on the host, so it includes the
 device work.
 
-Flags: ``--backend {cuda,cuda-tile,oracle}`` (default ``cuda``: the stripe
-route; ``cuda-tile``: the wide-feature rung, the twin of ``tpu-pallas``),
-``--precision {exact,fast,bf16,auto}`` (default ``exact``; ``auto`` passes
-nothing, so the backend's own default applies, as in the JAX CLI),
+Flags: ``--backend {cuda,cuda-tile,oracle}`` (default ``cuda``: the twin of
+``tpu``, the stripe route's kernels or the XLA scans; ``cuda-tile``: the
+wide-feature rung, the twin of ``tpu-pallas``), ``--precision
+{exact,fast,bf16,auto}`` (default ``exact``; ``auto`` passes nothing, so
+the backend's own default applies, as in the JAX CLI), ``--metric
+{euclidean,manhattan,chebyshev,cosine}``, ``--engine {auto,stripe,xla}``,
+``--query-tile`` (256), ``--train-tile`` (2048) and ``--query-batch``, with
+the JAX CLI's names and defaults (passed on as it passes them),
 ``--device {cuda,cpu}`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions), ``--warmup`` (one untimed run first: kernel build and
 upload), ``--json`` (a structured line after the result line).
@@ -57,13 +61,27 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("k", type=int, help="number of neighbors")
     c.add_argument("--backend", choices=["cuda", "cuda-tile", "oracle"],
                    default="cuda",
-                   help="cuda: the stripe route (default); cuda-tile: the "
-                   "wide-feature rung; oracle: numpy")
+                   help="cuda: the stripe kernels or the XLA scans, as tpu "
+                   "(default); cuda-tile: the wide-feature rung; oracle: numpy")
     c.add_argument("--precision", choices=["exact", "fast", "bf16", "auto"],
                    default="exact",
                    help="distance form: exact (reference parity), fast "
                    "(matmul expansion), bf16 (bfloat16 cross term), auto "
                    "(defer to the backend's default)")
+    c.add_argument("--metric",
+                   choices=["euclidean", "manhattan", "chebyshev", "cosine"],
+                   default="euclidean",
+                   help="distance metric (euclidean = reference semantics)")
+    c.add_argument("--engine", choices=["auto", "stripe", "xla"],
+                   default="auto",
+                   help="candidate route of the cuda backend: auto (the "
+                   "stripe kernels where the tpu backend takes them), stripe "
+                   "(the kernels at any k), xla (the tiled scan)")
+    c.add_argument("--query-tile", type=int, default=256)
+    c.add_argument("--train-tile", type=int, default=2048)
+    c.add_argument("--query-batch", type=int, default=None,
+                   help="stream queries through the device in chunks of this "
+                   "size (bounds device memory for huge query sets)")
     c.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the cuda backend runs (cpu: its plain "
                    "PyTorch version)")
@@ -109,9 +127,16 @@ def _run_classify(args, stdout) -> int:
         return EXIT_USAGE
 
     predict = get_backend(args.backend)
-    opts = {"device": args.device}
+    opts = {"device": args.device, "query_tile": args.query_tile,
+            "train_tile": args.train_tile}
+    if args.metric != "euclidean":
+        opts["metric"] = args.metric
+    if args.query_batch is not None:
+        opts["query_batch"] = args.query_batch
     if args.precision != "auto":
         opts["precision"] = args.precision
+    if args.engine != "auto":
+        opts["engine"] = args.engine
     try:
         if args.warmup:
             predict(train, test, args.k, **opts)

@@ -20,11 +20,11 @@
 // broadcast load per feature) and keeps a sorted register list of k packed
 // keys (stripe_knn.cuh). Splitting the train rows over gridDim.y fills the
 // card when there are few queries; each (query, split) list goes to a
-// [Q, splits, k] scratch buffer. stripe_merge_kernel: one thread per query
-// folds its sorted split lists into k keys, stopping each list at the first
-// key that cannot enter, and unpacks them. The merge runs even when there is
-// one split (it then only unpacks): one split happens only past ~270k
-// queries on a 132-SM card, where the merge is a small share of the scan.
+// [Q, splits, k] scratch buffer. stripe_merge_kernel folds a query's sorted
+// split lists into its k best and unpacks them (below). The merge runs even
+// when there is one split (it then only unpacks): one split happens only
+// past ~270k queries on a 132-SM card, where the merge is a small share of
+// the scan.
 //
 // Bound on this card (scan): 3*d FP32 instructions (sub, mul, add) per
 // (query, train row) plus one key compare for the selection. With FMA
@@ -35,10 +35,22 @@
 // per 128-query block (from L2 when they fit). The merge is bound by the
 // bytes of the keys it reads.
 //
-// k up to 16 keeps an exact-length register list; 16 < k <= 256 keeps a
-// bucket of 32, 64, 128 or 256 keys in local memory and fills its first k
-// (stripe_knn.cuh::with_k). A sorted list's first k keys are the k best, so
-// the [Q, splits, k] scratch and the merge's early break hold for every k.
+// The scan takes 1 <= k <= 16 (an exact-length register list); a larger k
+// on the stripe route runs tile_knn.cu's exact form, the same function.
+//
+// The merge takes any k. One warp per query, and the sorted split lists
+// are used as runs: each lane owns the runs s = lane, lane + 32, ... and
+// keeps their heads (and its position in each) in shared memory, and its
+// own smallest head in a register. A round takes the warp minimum of the
+// lanes' heads (a butterfly of 64-bit shuffles), writes it to the next
+// output slot, and advances the one run that held it (the lowest lane on a
+// tie): k rounds of one dependent key load each, with no list of k
+// anywhere. Once the minimum is the sentinel, every key left is the
+// sentinel (it is the largest key there is), so the rest of the row is
+// filled with it. Same multiset, same order: bit-equal to the plain
+// version's topk-then-sort. Outputs are written 32 slots at a time, one per
+// lane. Shared memory is 12 bytes per split per warp, so the warps per
+// block shrink as the splits grow (kMaxMergeSplits at one warp).
 //
 // Selection variants (stripe_knn_scan_variant; k <= 16). The port of
 // scripts/tune_stripe_selection.py::make_variant_kernel, the TPU probe that
@@ -59,8 +71,9 @@
 // The shipped scan (stripe_knn_scan) is the insertion list, unchanged.
 //
 // Left for later: TMA/cp.async staging with double buffering, larger query
-// tiles per thread (register blocking over queries as well as rows), and the
-// knn_tpu/ops/topk_net.py merge network in place of the insertion list.
+// tiles per thread (register blocking over queries as well as rows), the
+// knn_tpu/ops/topk_net.py merge network in place of the insertion list, and
+// a prefetched window of each run in the merge.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -130,7 +143,6 @@ stripe_scan_kernel(const float* __restrict__ train, int n_valid,
   const int split = blockIdx.y;
   const int r_begin = split * rows_per_split;
   const int r_end = min(r_begin + rows_per_split, n_valid);
-  const int n = list_length<K>(k);
 
   // Stage the query tile transposed; the global read is contiguous.
   for (int e = tid; e < kQueriesPerBlock * d; e += kQueriesPerBlock) {
@@ -145,7 +157,7 @@ stripe_scan_kernel(const float* __restrict__ train, int n_valid,
   int lev_i[K];
   float best = __uint_as_float(kInfBits);  // kNosel
 #pragma unroll
-  for (int j = 0; j < n; ++j) {
+  for (int j = 0; j < K; ++j) {
     list[j] = kSentinelKey;
     lev_d[j] = best;
     lev_i[j] = int(kIndexSentinel);
@@ -179,10 +191,10 @@ stripe_scan_kernel(const float* __restrict__ train, int n_valid,
       // Rows past `rows` are the tile's zero fill: never selected.
       const int base = t0 + r;
       if constexpr (Sel == kInsert) {
-        list_insert<K>(list, k, pack_key(acc0, base));
-        if (r + 1 < rows) list_insert<K>(list, k, pack_key(acc1, base + 1));
-        if (r + 2 < rows) list_insert<K>(list, k, pack_key(acc2, base + 2));
-        if (r + 3 < rows) list_insert<K>(list, k, pack_key(acc3, base + 3));
+        insert_key<K>(list, pack_key(acc0, base));
+        if (r + 1 < rows) insert_key<K>(list, pack_key(acc1, base + 1));
+        if (r + 2 < rows) insert_key<K>(list, pack_key(acc2, base + 2));
+        if (r + 3 < rows) insert_key<K>(list, pack_key(acc3, base + 3));
       } else if constexpr (Sel == kNosel) {
         // fminf drops a NaN operand: a NaN distance counts as +inf.
         best = fminf(best, acc0);
@@ -197,9 +209,9 @@ stripe_scan_kernel(const float* __restrict__ train, int n_valid,
   }
 
   if (q0 + tid < n_queries) {
-    uint64_t* out = partial + (size_t(q0 + tid) * gridDim.y + split) * n;
+    uint64_t* out = partial + (size_t(q0 + tid) * gridDim.y + split) * K;
 #pragma unroll
-    for (int j = 0; j < n; ++j) {
+    for (int j = 0; j < K; ++j) {
       if constexpr (Sel == kInsert) {
         out[j] = list[j];
       } else if constexpr (Sel == kNosel) {
@@ -212,30 +224,82 @@ stripe_scan_kernel(const float* __restrict__ train, int n_valid,
   }
 }
 
-template <int K>
+constexpr unsigned kFullMask = 0xffffffffu;
+// Past every key: the head of an exhausted run, and of a lane with no run.
+constexpr uint64_t kNoKey = ~uint64_t(0);
+// Shared memory of the merge: a head (8 bytes) and a position (4) per split
+// per warp. At one warp per block it holds this many splits.
+constexpr int kMaxMergeSplits = 16384;
+constexpr int kMergeSmemBytes = 48 * 1024;  // the default per block
+constexpr int kMergeMaxWarps = 8;
+
+__device__ __forceinline__ uint64_t warp_min(uint64_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const uint64_t other = __shfl_xor_sync(kFullMask, v, o);
+    v = other < v ? other : v;
+  }
+  return v;
+}
+
+__device__ __forceinline__ void write_key(float* out_d, int* out_i, size_t at,
+                                          uint64_t key) {
+  out_d[at] = key_distance(key);
+  out_i[at] = key_index(key);
+}
+
 __global__ void stripe_merge_kernel(const uint64_t* __restrict__ partial,
                                     int n_splits, int n_queries, int k,
                                     float* __restrict__ out_d,
                                     int* __restrict__ out_i) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n_queries) return;
-  const int n = list_length<K>(k);
-  uint64_t list[K];
-#pragma unroll
-  for (int j = 0; j < n; ++j) list[j] = kSentinelKey;
-  for (int s = 0; s < n_splits; ++s) {
-    const uint64_t* src = partial + (size_t(q) * n_splits + s) * n;
-    for (int j = 0; j < n; ++j) {
-      const uint64_t key = src[j];
-      if (!(key < list[n - 1])) break;  // src is sorted: nothing later enters
-      list_insert<K>(list, k, key);
+  extern __shared__ __align__(16) uint64_t merge_smem[];
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q = blockIdx.x * warps + warp;
+  if (q >= n_queries) return;  // the whole warp; the kernel never syncs the block
+  uint64_t* head = merge_smem + size_t(warp) * n_splits;
+  int* pos = reinterpret_cast<int*>(merge_smem + size_t(warps) * n_splits) +
+             size_t(warp) * n_splits;
+  const uint64_t* src = partial + size_t(q) * n_splits * k;
+
+  // Only this lane touches the heads and positions of its runs.
+  uint64_t best = kNoKey;
+  int best_s = 0;
+  for (int s = lane; s < n_splits; s += 32) {
+    const uint64_t key = src[size_t(s) * k];
+    head[s] = key;
+    pos[s] = 0;
+    if (key < best) {
+      best = key;
+      best_s = s;
     }
   }
-#pragma unroll
-  for (int j = 0; j < n; ++j) {
-    out_d[size_t(q) * n + j] = key_distance(list[j]);
-    out_i[size_t(q) * n + j] = key_index(list[j]);
+
+  const size_t row = size_t(q) * k;
+  uint64_t mine = kSentinelKey;  // this lane's slot of the current 32 rounds
+  int r = 0;
+  for (; r < k; ++r) {
+    const uint64_t m = warp_min(best);
+    if (m >= kSentinelKey) break;  // warp-uniform: only sentinels are left
+    if ((r & 31) == lane) mine = m;
+    if ((r & 31) == 31) write_key(out_d, out_i, row + r - 31 + lane, mine);
+    const unsigned holders = __ballot_sync(kFullMask, best == m);
+    if (lane == __ffs(holders) - 1) {
+      const int p = ++pos[best_s];
+      head[best_s] = p < k ? src[size_t(best_s) * k + p] : kNoKey;
+      best = kNoKey;
+      for (int s = lane; s < n_splits; s += 32) {
+        if (head[s] < best) {
+          best = head[s];
+          best_s = s;
+        }
+      }
+    }
   }
+  const int base = r & ~31;  // the rounds since the last full group of 32
+  if (base + lane < r) write_key(out_d, out_i, row + base + lane, mine);
+  for (int j = r + lane; j < k; j += 32) write_key(out_d, out_i, row + j, kSentinelKey);
 }
 
 template <int K, int Sel>
@@ -255,20 +319,31 @@ cudaError_t launch_scan(const float* train, int n_valid, const float* test,
   return cudaGetLastError();
 }
 
-template <int K>
 cudaError_t launch_merge(const uint64_t* partial, int n_splits, int n_queries,
                          int k, float* out_d, int* out_i, cudaStream_t stream) {
-  constexpr int kMergeThreads = 128;
-  stripe_merge_kernel<K>
-      <<<(n_queries + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0,
-         stream>>>(partial, n_splits, n_queries, k, out_d, out_i);
+  if (n_splits < 1 || n_splits > kMaxMergeSplits || k < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t per_warp = size_t(n_splits) * (sizeof(uint64_t) + sizeof(int));
+  int warps = kMergeMaxWarps;
+  while (warps > 1 && warps * per_warp > kMergeSmemBytes) warps /= 2;
+  const size_t smem = warps * per_warp;
+  if (smem > kMergeSmemBytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stripe_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return err;
+  }
+  stripe_merge_kernel<<<(n_queries + warps - 1) / warps, warps * 32, smem,
+                        stream>>>(partial, n_splits, n_queries, k, out_d,
+                                  out_i);
   return cudaGetLastError();
 }
 
 }  // namespace stripe_knn
 
 // Launch the scan on `stream`; returns the CUDA status (0 = launched). The
-// caller validates shapes (1 <= k <= 256, 0 <= d <= 128, n_queries >= 1,
+// caller validates shapes (1 <= k <= 16, 0 <= d <= 128, n_queries >= 1,
 // 0 <= n_valid <= rows of train, n_splits * rows_per_split >= n_valid) and
 // allocates `partial` as [n_queries, n_splits, k] uint64.
 extern "C" int stripe_knn_scan(const void* train, int n_valid,
@@ -276,7 +351,7 @@ extern "C" int stripe_knn_scan(const void* train, int n_valid,
                                int n_splits, int rows_per_split,
                                void* partial, void* stream) {
   using namespace stripe_knn;
-  return int(with_k(k, [&](auto kc) {
+  return int(with_register_k(k, [&](auto kc) {
     return launch_scan<decltype(kc)::value, kInsert>(
         static_cast<const float*>(train), n_valid,
         static_cast<const float*>(test), n_queries, d, k, n_splits,
@@ -317,14 +392,12 @@ extern "C" int stripe_knn_scan_variant(int select, const void* train,
 
 // Launch the merge of the scan's [n_queries, n_splits, k] keys into
 // [n_queries, k] distances and indices on `stream`; returns the CUDA status.
+// Any k >= 1; 1 <= n_splits <= 16384.
 extern "C" int stripe_knn_merge(const void* partial, int n_splits,
                                 int n_queries, int k, void* out_d, void* out_i,
                                 void* stream) {
-  using namespace stripe_knn;
-  return int(with_k(k, [&](auto kc) {
-    return launch_merge<decltype(kc)::value>(
-        static_cast<const uint64_t*>(partial), n_splits, n_queries, k,
-        static_cast<float*>(out_d), static_cast<int*>(out_i),
-        static_cast<cudaStream_t>(stream));
-  }));
+  return int(stripe_knn::launch_merge(
+      static_cast<const uint64_t*>(partial), n_splits, n_queries, k,
+      static_cast<float*>(out_d), static_cast<int*>(out_i),
+      static_cast<cudaStream_t>(stream)));
 }

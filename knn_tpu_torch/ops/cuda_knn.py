@@ -12,9 +12,12 @@ Two kernels, each with its own wrapper, launch counter and plain version:
 :func:`knn_stripe_scan` keeps the k best keys of each (query, train split),
 and :func:`knn_stripe_merge` folds a query's split lists into its k best
 (the counterpart of the JAX package's XLA ``_merge_topk_rounds``).
-:func:`knn_stripe_candidates` plans the splits and runs both. Both take
-1 <= k <= 256 (:data:`KERNEL_MAX_K`); the JAX stripe route's own rule
-(:func:`stripe_route_ok`) still sends only k <= 16 to them by default.
+:func:`knn_stripe_candidates` plans the splits and runs both. The scan
+keeps a register list, so it takes 1 <= k <= 16 (:data:`STRIPE_MAX_K`);
+the merge takes any k. At k > 16 :func:`knn_stripe_candidates` runs the
+tile kernel's exact form (``ops/tile_knn.py``), the same function: a
+zero-filled feature adds exactly 0. The JAX stripe route's own rule
+(:func:`stripe_route_ok`) sends only k <= 16 to it by default.
 
 :func:`knn_stripe_scan_variant` is the scan with another selection, the
 port of ``scripts/tune_stripe_selection.py``'s ``make_variant_kernel``
@@ -49,8 +52,8 @@ from knn_tpu_torch.ops.vote import vote_neighbors
 from knn_tpu_torch.resilience.errors import DeviceError
 
 STRIPE_MAX_D = 128
-STRIPE_MAX_K = 16
-KERNEL_MAX_K = 256  # csrc/stripe_knn.cuh::kMaxK
+STRIPE_MAX_K = 16  # csrc/stripe_knn.cuh::kMaxRegisterK
+MERGE_MAX_SPLITS = 16384  # csrc/stripe_knn.cu::kMaxMergeSplits
 INT_MAX = 2**31 - 1
 _SENTINEL_KEY = (0x7F800000 << 32) | INT_MAX  # (+inf, INT32_MAX)
 
@@ -107,7 +110,7 @@ def _resolve_stripe_precision(precision: str, d: int) -> str:
     fast for wide; an unknown name is a ``ValueError``."""
     if precision == "auto":
         return "exact" if d <= STRIPE_MAX_D else "fast"
-    if precision not in DIST_FNS:
+    if precision not in ("exact", "fast", "bf16"):
         raise ValueError(
             f"unknown precision {precision!r}; choose auto, exact, fast, or bf16"
         )
@@ -132,15 +135,19 @@ def resolve_device(device) -> torch.device:
 def split_plan(n_valid: int, n_queries: int, sm_count: int,
                tile_rows: int = _TILE_ROWS,
                blocks_per_sm: int = _BLOCKS_PER_SM,
-               queries_per_block: int = _QUERIES_PER_BLOCK) -> Tuple[int, int]:
+               queries_per_block: int = _QUERIES_PER_BLOCK,
+               min_rows: int = 0) -> Tuple[int, int]:
     """``(n_splits, rows_per_split)`` for a kernel's grid of
     ``queries_per_block``-query blocks: the train rows are cut into
     contiguous splits of whole ``tile_rows`` tiles, as many as it takes to
-    give the card about ``blocks_per_sm`` blocks per SM."""
+    give the card about ``blocks_per_sm`` blocks per SM, each split at
+    least ``min_rows`` rows (rounded up to whole tiles) where there are."""
     q_blocks = max(1, -(-n_queries // queries_per_block))
     tiles = max(1, -(-n_valid // tile_rows))
     want = max(1, sm_count * blocks_per_sm // q_blocks)
-    rows_per_split = -(-tiles // min(want, tiles, 65535)) * tile_rows
+    per_split = max(-(-tiles // min(want, tiles, 65535)),
+                    -(-min_rows // tile_rows))
+    rows_per_split = min(per_split, tiles) * tile_rows
     n_splits = max(1, -(-n_valid // rows_per_split))
     return n_splits, rows_per_split
 
@@ -235,17 +242,26 @@ def _check_kernel_inputs(train_x, test_x, n_valid: int, k: int) -> None:
     if d > STRIPE_MAX_D:
         raise ValueError(f"d={d} exceeds the stripe kernel's {STRIPE_MAX_D} "
                          "(wide features take the tile kernel, ops/tile_knn.py)")
-    check_k(k)
+    check_stripe_k(k)
     if not 0 <= n_valid <= n or n >= INT_MAX:
         raise ValueError(f"n_valid={n_valid} must lie in [0, {n}] "
                          f"and N below {INT_MAX}")
 
 
 def check_k(k: int) -> None:
-    """Raise a ``ValueError`` unless the kernels take ``k``: 1..256."""
-    if not 1 <= k <= KERNEL_MAX_K:
-        raise ValueError(f"k={k} outside the kernels' 1..{KERNEL_MAX_K} "
-                         f"(k > {KERNEL_MAX_K} is ROADMAP B1d)")
+    """Raise a ``ValueError`` unless ``k >= 1``: the merge and the tile scan
+    take any k (past the valid rows the slots are sentinels)."""
+    if k < 1:
+        raise ValueError(f"k={k}: k must be >= 1")
+
+
+def check_stripe_k(k: int) -> None:
+    """Raise a ``ValueError`` unless the stripe scan's register lists take
+    ``k``: 1..16 (a larger k runs the tile kernel's exact form)."""
+    if not 1 <= k <= STRIPE_MAX_K:
+        raise ValueError(f"k={k} outside the stripe scan's 1..{STRIPE_MAX_K}; "
+                         "knn_stripe_candidates runs a larger k on the tile "
+                         "kernel")
 
 
 def check_splits(n_valid: int, n_splits: int, rows_per_split: int) -> None:
@@ -278,13 +294,15 @@ def knn_stripe_scan(
     n_splits: int, rows_per_split: int,
 ) -> torch.Tensor:
     """``[N, D]`` train and ``[Q, D]`` queries (float32) -> ``[Q, n_splits,
-    k]`` int64 keys, as :func:`knn_stripe_scan_reference` gives them.
+    k]`` int64 keys, as :func:`knn_stripe_scan_reference` gives them;
+    1 <= k <= 16 on either device.
 
     CPU tensors take the plain version. CUDA tensors launch the scan kernel
     on the current stream, or raise. ``knn_stripe_scan.launches`` counts
     the launches."""
     n_valid, k = int(n_valid), int(k)
     n_splits, rows_per_split = int(n_splits), int(rows_per_split)
+    check_stripe_k(k)
     if train_x.device.type == "cpu" and test_x.device.type == "cpu":
         return knn_stripe_scan_reference(train_x, test_x, n_valid, k,
                                          n_splits, rows_per_split)
@@ -311,11 +329,14 @@ knn_stripe_scan.launches = 0
 
 def knn_stripe_merge(partial: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``[Q, n_splits, k]`` int64 keys, each split's list ascending ->
-    ``([Q, k]`` float32 distances, ``[Q, k]`` int32 indices``)``.
+    ``([Q, k]`` float32 distances, ``[Q, k]`` int32 indices``)``: any
+    k >= 1, 1 <= n_splits <= 16384.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the merge
     kernel on the current stream, or raises. ``knn_stripe_merge.launches``
     counts the launches."""
+    if partial.dim() == 3:
+        check_k(partial.shape[2])
     if partial.device.type == "cpu":
         return knn_stripe_merge_reference(partial)
     if (partial.dtype != torch.int64 or partial.dim() != 3
@@ -324,9 +345,8 @@ def knn_stripe_merge(partial: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
             "partial must be a contiguous 3-D int64 CUDA tensor, got "
             f"{partial.dtype} {tuple(partial.shape)} on {partial.device}")
     q, n_splits, k = partial.shape
-    check_k(k)
-    if not 1 <= n_splits <= 65535:
-        raise ValueError(f"n_splits={n_splits} outside 1..65535")
+    if not 1 <= n_splits <= MERGE_MAX_SPLITS:
+        raise ValueError(f"n_splits={n_splits} outside 1..{MERGE_MAX_SPLITS}")
     fn = _library().stripe_knn_merge
     dev = partial.device
     out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
@@ -468,15 +488,22 @@ def knn_stripe_candidates(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``[N, D]`` train and ``[Q, D]`` queries (float32) -> ``([Q, k]``
     float32 distances, ``[Q, k]`` int32 indices``)``, ascending by
-    (distance, index) over rows ``< n_valid``.
+    (distance, index) over rows ``< n_valid``; any k >= 1.
 
     CPU tensors take the plain version. CUDA tensors run
     :func:`knn_stripe_scan` over the splits of :func:`split_plan`, then
-    :func:`knn_stripe_merge`, or raise: a build failure is a
+    :func:`knn_stripe_merge` (k > 16: the tile kernel's exact form,
+    ``tile_knn.knn_tile_candidates``), or raise: a build failure is a
     :class:`CompileError`, a refused launch a :class:`DeviceError`, inputs
     the kernels do not take a ``ValueError``."""
+    check_k(int(k))
     if train_x.device.type == "cpu" and test_x.device.type == "cpu":
         return knn_stripe_candidates_reference(train_x, test_x, n_valid, k)
+    if k > STRIPE_MAX_K:
+        from knn_tpu_torch.ops import tile_knn  # tile_knn imports this module
+
+        return tile_knn.knn_tile_candidates(train_x, test_x, n_valid, k,
+                                            "exact")
     n_valid = int(n_valid)
     _check_kernel_inputs(train_x, test_x, n_valid, int(k))
     sm_count = torch.cuda.get_device_properties(

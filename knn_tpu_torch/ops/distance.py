@@ -1,6 +1,6 @@
-"""Pairwise squared-Euclidean distance: the exact subtraction form and the
-two matmul forms (``knn_tpu/ops/distance.py``'s ``exact``, ``fast`` and
-``bf16``).
+"""Pairwise distances: the three forms of squared Euclidean distance and the
+three other metrics of ``knn_tpu/ops/distance.py`` (``exact``, ``fast``,
+``bf16``; ``manhattan``, ``chebyshev``, ``cosine``).
 
 The reference computes ``sum_i (a_i - b_i)^2`` over the feature columns in
 float32, one feature at a time in source order (main.cpp:14-23), rounding
@@ -18,7 +18,12 @@ float32 queries. ``bf16`` rounds both operands of the cross term to bfloat16
 (round to nearest even) and accumulates in float32. These are the plain
 versions of the tile kernel's matmul forms.
 
-Manhattan, chebyshev and cosine are still to port (ROADMAP A3).
+Manhattan sums ``|q_f - t_f|`` one feature at a time in source order, and
+chebyshev takes their running maximum (zero features give 0); cosine is
+``1 - q.t / (|q| |t|)`` with the cross term a float32 matmul, a zero vector
+at distance 1. Each maps NaN to +inf as the JAX functions do. XLA sums the
+feature axis in its own order, so these agree with JAX bit for bit only
+where every partial sum is exact (integer grids).
 """
 
 from __future__ import annotations
@@ -83,11 +88,52 @@ def pairwise_sq_dists_bf16(queries: torch.Tensor, train: torch.Tensor) -> torch.
                    _cross(bf16(queries), bf16(train)))
 
 
-#: The squared-Euclidean forms by precision name.
+def pairwise_manhattan(queries: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
+    """[Q, D], [N, D] float32 -> [Q, N] L1 distances, summed one feature at
+    a time; NaN -> +inf."""
+    acc = torch.zeros((queries.shape[0], train.shape[0]), dtype=torch.float32,
+                      device=queries.device)
+    for f in range(queries.shape[1]):
+        acc = acc + (queries[:, f : f + 1] - train[:, f]).abs()
+    return torch.where(torch.isnan(acc), torch.inf, acc)
+
+
+def pairwise_chebyshev(queries: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
+    """[Q, D], [N, D] float32 -> [Q, N] L-inf distances (the largest
+    coordinate gap; 0 with no features); a NaN gap gives +inf."""
+    acc = torch.zeros((queries.shape[0], train.shape[0]), dtype=torch.float32,
+                      device=queries.device)
+    for f in range(queries.shape[1]):
+        acc = torch.maximum(acc, (queries[:, f : f + 1] - train[:, f]).abs())
+    return torch.where(torch.isnan(acc), torch.inf, acc)
+
+
+def pairwise_cosine(queries: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
+    """[Q, D], [N, D] float32 -> [Q, N] cosine distances ``1 - q.t/(|q||t|)``,
+    a zero vector at distance 1. A NaN in the cross term, the norms or the
+    result gives +inf (``denom > 0`` is false for NaN, so without the check
+    such a row would land at 1). May be slightly negative: ``q.t`` can
+    round above ``|q||t|``."""
+    qn = sq_norms(queries).sqrt()[:, None]
+    tn = sq_norms(train).sqrt()[None, :]
+    cross = _cross(queries, train)
+    denom = qn * tn
+    pos = denom > 0
+    sim = torch.where(pos, cross / torch.where(pos, denom, 1.0), 0.0)
+    d = 1.0 - sim
+    bad = torch.isnan(cross) | torch.isnan(denom) | torch.isnan(d)
+    return torch.where(bad, torch.inf, d)
+
+
+#: Every distance form by name: the three squared-Euclidean forms by
+#: precision, then the other metrics (``resolve_form`` maps onto these).
 DIST_FNS = {
     "exact": pairwise_sq_dists,
     "fast": pairwise_sq_dists_dot,
     "bf16": pairwise_sq_dists_bf16,
+    "manhattan": pairwise_manhattan,
+    "chebyshev": pairwise_chebyshev,
+    "cosine": pairwise_cosine,
 }
 
 

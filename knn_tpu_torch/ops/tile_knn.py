@@ -8,9 +8,10 @@ of ``predict_pallas``, the host entry of the ``tpu-pallas`` backend. One
 hand-written kernel, ``csrc/tile_knn.cu``, takes the form as a template
 parameter and any number of features; see its header for the design. Its
 per-split key lists are folded by the stripe kernel's merge
-(``cuda_knn.knn_stripe_merge``). Both take any k up to 256
-(``cuda_knn.KERNEL_MAX_K``), as the JAX tile-merge kernel takes any k; a
-larger k is a ``ValueError`` naming ROADMAP B1d.
+(``cuda_knn.knn_stripe_merge``). Both take any k >= 1, as the JAX
+tile-merge kernel does: up to 16 the scan keeps register lists, above it a
+threshold-filtered list in its output row, and :func:`tile_split_plan`
+makes each split at least 2k rows so that the list fills in its first half.
 
 :func:`knn_tile_scan` is the wrapper (``knn_tile_scan.launches`` counts its
 launches per form); :func:`knn_tile_scan_reference` its plain version;
@@ -42,6 +43,7 @@ import torch
 from knn_tpu_torch.ops import _build
 from knn_tpu_torch.ops.cuda_knn import (
     INT_MAX,
+    STRIPE_MAX_K,
     _resolve_stripe_precision,
     cached_labels,
     cached_train,
@@ -67,6 +69,22 @@ _TILE_ROWS = 128
 # Scan blocks to aim for per SM (256 threads and ~83 KB of shared memory
 # each): about two waves of resident blocks.
 _BLOCKS_PER_SM = 4
+# At k > 16, a split holds at least this many times k rows: longer splits
+# pass fewer rows per split through the list's fill, shorter ones give the
+# card more blocks (on an H100 at 30,803 rows and k = 1000, splits of 2k
+# rows took 0.6 times the time of splits of 4k rows; see PERF.md).
+_ROWS_PER_K = 2
+
+
+def tile_split_plan(n_valid: int, n_queries: int, sm_count: int,
+                    k: int) -> Tuple[int, int]:
+    """``(n_splits, rows_per_split)`` of the tile kernel: ``split_plan`` at
+    128-row tiles and about 4 blocks per SM, each split at least 2k rows
+    when k > 16 (the list in the output row then fills within the first
+    half of its split, and the threshold filters the rest)."""
+    return split_plan(n_valid, n_queries, sm_count, tile_rows=_TILE_ROWS,
+                      blocks_per_sm=_BLOCKS_PER_SM,
+                      min_rows=_ROWS_PER_K * k if k > STRIPE_MAX_K else 0)
 
 
 def merge_store_dtype(form: str) -> torch.dtype:
@@ -189,8 +207,8 @@ def knn_tile_candidates(
     form ``form``.
 
     CPU tensors take the plain version. CUDA tensors run
-    :func:`knn_tile_scan` over the splits of ``split_plan`` (tiles of 128
-    rows), then ``knn_stripe_merge``, or raise: a build failure is a
+    :func:`knn_tile_scan` over the splits of :func:`tile_split_plan`, then
+    ``knn_stripe_merge``, or raise: a build failure is a
     :class:`CompileError`, a refused launch a :class:`DeviceError`, inputs
     the kernels do not take a ``ValueError``."""
     if train_x.device.type == "cpu" and test_x.device.type == "cpu":
@@ -199,8 +217,7 @@ def knn_tile_candidates(
     _check_tile_inputs(train_x, test_x, n_valid, int(k), form)
     sm_count = torch.cuda.get_device_properties(
         train_x.device).multi_processor_count
-    plan = split_plan(n_valid, test_x.shape[0], sm_count,
-                      tile_rows=_TILE_ROWS, blocks_per_sm=_BLOCKS_PER_SM)
+    plan = tile_split_plan(n_valid, test_x.shape[0], sm_count, int(k))
     return knn_stripe_merge(knn_tile_scan(train_x, test_x, n_valid, k, form,
                                           *plan))
 
@@ -225,8 +242,7 @@ def predict_tile(
     with k <= 16: ``cuda_knn.stripe_classify_arrays``) and the merge route
     otherwise (the tile kernel, train stored as :func:`merge_store_dtype`
     says), k > 16 included; ``stripe`` and ``merge`` force one. Both routes
-    take 1 <= k <= 256; a larger k raises before any routing. ``cache`` (a ``Dataset.device_cache`` dict)
-    memoizes the device-side train arrays. Nothing falls back: a route that
+    take any k >= 1. ``cache`` (a ``Dataset.device_cache`` dict) memoizes the device-side train arrays. Nothing falls back: a route that
     fails raises."""
     d = train_x.shape[1]
     form = _resolve_stripe_precision(precision, d)

@@ -153,30 +153,66 @@ def _plan(rows):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [None, 256])
-@pytest.mark.parametrize("k", [17, 32, 100, 256])
+@pytest.mark.parametrize("k", [17, 32, 100, 256, 257, 1000, 1990])
 def test_big_k_stripe_kernels_equal_their_plain_versions(card, k, rows):
+    # The stripe route at k > 16: the tile kernel's exact form over the
+    # stripe scan's split layouts, then the merge; and the whole route.
     rng = np.random.default_rng(k)
     train, test = _grid(rng, 2000, 300, 11)
     t, q = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
     plan = _plan(rows)
-    partial = cuda_knn.knn_stripe_scan(t, q, 1990, k, *plan)
-    assert torch.equal(partial, cuda_knn.knn_stripe_scan_reference(
-        t, q, 1990, k, *plan))
+    partial = tile_knn.knn_tile_scan(t, q, 1990, k, "exact", *plan)
+    assert torch.equal(partial, tile_knn.knn_tile_scan_reference(
+        t, q, 1990, k, "exact", *plan))
     for got, ref in zip(cuda_knn.knn_stripe_merge(partial),
                         cuda_knn.knn_stripe_merge_reference(partial)):
         assert torch.equal(got, ref)
+    kd, ki = cuda_knn.knn_stripe_candidates(t, q, 1990, k)
+    rd, ri = cuda_knn.knn_stripe_candidates_reference(t, q, 1990, k)
+    assert torch.equal(ki, ri) and torch.equal(kd, rd)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None, (16, 128), (3, 700)])
 @pytest.mark.parametrize("form", ["exact", "fast", "bf16"])
-@pytest.mark.parametrize("k", [17, 256])
-def test_big_k_tile_kernel_equals_plain_version(card, form, k):
+@pytest.mark.parametrize("k", [17, 256, 257, 1000, 1990, 2000])
+def test_big_k_tile_kernel_equals_plain_version(card, form, k, plan):
+    # Splits shorter than k (16 of 128 rows), longer, and the wrapper's own
+    # plan; k past the valid rows leaves sentinels.
     rng = np.random.default_rng(k)
     train, test = _grid(rng, 2000, 300, 129)
     t, q = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
-    kd, ki = tile_knn.knn_tile_candidates(t, q, 1990, k, form)
+    if plan is None:
+        kd, ki = tile_knn.knn_tile_candidates(t, q, 1990, k, form)
+    else:
+        partial = tile_knn.knn_tile_scan(t, q, 1990, k, form, *plan)
+        assert torch.equal(partial, tile_knn.knn_tile_scan_reference(
+            t, q, 1990, k, form, *plan))
+        kd, ki = cuda_knn.knn_stripe_merge(partial)
     rd, ri = tile_knn.knn_tile_candidates_reference(t, q, 1990, k, form)
     assert torch.equal(ki, ri) and torch.equal(kd, rd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "xla"])
+@pytest.mark.parametrize("metric,precision,k", [
+    ("euclidean", "exact", 40), ("euclidean", "fast", 5),
+    ("manhattan", "exact", 5), ("chebyshev", "exact", 5),
+    ("cosine", "exact", 300)])
+def test_xla_route_on_the_card_predicts_like_the_host(card, metric, precision,
+                                                      k, engine):
+    rng = np.random.default_rng(k)
+    train, test = _grid(rng, 3000, 200, 7)
+    train[5, 0] = 0.0
+    labels = rng.integers(0, 5, 3000).astype(np.int32)
+    kw = dict(metric=metric, precision=precision, engine=engine)
+    for extra in ({}, {"force_tiled": True, "train_tile": 512},
+                  {"query_batch": 64}):
+        got = cuda_backend.predict_arrays(train, labels, test, k, 5, **kw,
+                                          **extra)
+        want = cuda_backend.predict_arrays(train, labels, test, k, 5, **kw,
+                                           **extra, device="cpu")
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda

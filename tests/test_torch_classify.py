@@ -86,17 +86,30 @@ def test_backend_registry_and_device_cache(small_port):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("precision", "fast"), ("precision", "bogus"),
-    ("metric", "manhattan"), ("engine", "xla"), ("engine", "merge"),
-    ("approx", True),
+    ("precision", "bogus"), ("engine", "merge"), ("approx", True),
 ])
 def test_unported_options_raise(small_port, option, value):
-    # fast with 7 features takes the XLA scans on the tpu backend (A3).
+    # approx top-k is ROADMAP B6; the others are not options of tpu either.
     train, test = small_port
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="B6" if option == "approx" else None):
         cuda_backend.predict_arrays(
             train.features, train.labels, test.features, 3,
             train.num_classes, device="cpu", **{option: value})
+
+
+@pytest.mark.parametrize("option,value", [
+    ("precision", "fast"), ("metric", "manhattan"), ("metric", "chebyshev"),
+    ("metric", "cosine"), ("engine", "xla"), ("query_batch", 7),
+])
+def test_xla_route_options_match_jax(small_port, option, value):
+    # Options the tpu backend sends to the XLA scans (fast with 7 features,
+    # every other metric, engine xla, query_batch streaming): the port runs
+    # them as torch ops and predicts what the JAX package predicts.
+    train, test = small_port
+    args = (train.features, train.labels, test.features, 3, train.num_classes)
+    want = jax_predict_arrays(*args, **{option: value})
+    got = cuda_backend.predict_arrays(*args, device="cpu", **{option: value})
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("k", [1, 5, 16])
@@ -113,14 +126,17 @@ def test_bf16_on_the_stripe_route_matches_jax(small_port, k):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("d,k,item", [(129, 3, "A3"), (7, 17, "A3"),
-                                      (7, 257, "B1d")])
-def test_outside_the_stripe_envelope_raises(d, k, item):
+@pytest.mark.parametrize("d,k", [(129, 3), (7, 17), (7, 257)])
+def test_outside_the_stripe_envelope_matches_jax(d, k):
+    # The exact form past 128 features and k > 16 take the XLA scans on
+    # both backends.
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((40, d)).astype(np.float32)
-    y = rng.integers(0, 3, 40).astype(np.int32)
-    with pytest.raises(ValueError, match=item):
-        cuda_backend.predict_arrays(x, y, x[:5], k, 3, device="cpu")
+    x = rng.integers(0, 3, (300, d)).astype(np.float32)
+    y = rng.integers(0, 3, 300).astype(np.int32)
+    want = jax_predict_arrays(x, y, x[:25], k, 3)
+    np.testing.assert_array_equal(want, knn_oracle(x, y, x[:25], k, 3))
+    np.testing.assert_array_equal(
+        cuda_backend.predict_arrays(x, y, x[:25], k, 3, device="cpu"), want)
 
 
 def test_cuda_without_a_card_is_a_device_error(small_port, monkeypatch):
@@ -202,16 +218,18 @@ class TestExitCodes:
 
 
 def test_forced_stripe_takes_k_above_16_as_jax_does(small_port):
-    # engine="stripe" runs the stripe kernel at any k <= 256, as the tpu
-    # backend's forced stripe engine does; engine="auto" raises naming A3.
+    # engine="stripe" runs the stripe route at any k, as the tpu backend's
+    # forced stripe engine does; engine="auto" takes the XLA scans there.
     train, test = small_port
     args = (train.features, train.labels, test.features, 20, train.num_classes)
     want = jax_predict_arrays(*args, engine="stripe")
     np.testing.assert_array_equal(want, knn_oracle(*args))
     got = cuda_backend.predict_arrays(*args, engine="stripe", device="cpu")
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(ValueError, match="A3"):
-        get_backend("cuda")(train, test, 20, device="cpu")
-    with pytest.raises(ValueError, match="B1d"):
-        cuda_backend.predict_arrays(*args[:3], 257, train.num_classes,
-                                    engine="stripe", device="cpu")
+    np.testing.assert_array_equal(
+        get_backend("cuda")(train, test, 20, device="cpu"),
+        jax_predict_arrays(*args))
+    args = (*args[:3], 257, train.num_classes)
+    np.testing.assert_array_equal(
+        cuda_backend.predict_arrays(*args, engine="stripe", device="cpu"),
+        knn_oracle(*args))

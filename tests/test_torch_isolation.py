@@ -22,6 +22,8 @@ def test_import_leaves_jax_and_knn_tpu_out():
     code = (
         "import sys\n"
         "import knn_tpu_torch, knn_tpu_torch.cli, knn_tpu_torch.ops.cuda_knn\n"
+        "import knn_tpu_torch.ops.topk, knn_tpu_torch.utils.windowed\n"
+        "import knn_tpu_torch.backends.cuda\n"
         "import knn_tpu_torch.ops.tile_knn, knn_tpu_torch.backends.tile\n"
         "import knn_tpu_torch.backends, knn_tpu_torch.convert\n"
         "import knn_tpu_torch.obs.bench_timing, knn_tpu_torch.ops.probe_matmul\n"
@@ -115,7 +117,7 @@ def test_scan_rejects_splits_that_do_not_cut_the_rows(
 
 
 @pytest.mark.parametrize("shape,dtype", [
-    ((4, 2, 257), torch.int64),  # k > 256
+    ((4, 2, 0), torch.int64),    # k < 1
     ((4, 2, 3), torch.int32),   # not packed keys
     ((4, 6), torch.int64),      # not [Q, splits, k]
 ])
@@ -142,7 +144,7 @@ def test_tile_wrapper_raises_when_library_is_missing(monkeypatch):
 
 
 @pytest.mark.parametrize("train,test,n_valid,k,form", [
-    ((50, 784), (4, 784), 50, 257, "fast"),     # k > 256
+    ((50, 784), (4, 784), 50, -1, "fast"),      # k < 1
     ((50, 784), (4, 784), 50, 0, "fast"),       # k < 1
     ((50, 784, "bf16"), (4, 784), 50, 3, "exact"),  # bf16 train, exact form
     ((50, 784, "bf16"), (4, 784), 50, 3, "fast"),   # bf16 train, fast form

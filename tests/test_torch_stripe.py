@@ -26,7 +26,7 @@ from knn_tpu.models import ordering as jordering  # noqa: E402
 from knn_tpu.ops import pallas_knn  # noqa: E402
 from knn_tpu.ops.vote import vote as jvote  # noqa: E402
 from knn_tpu_torch.models import ordering  # noqa: E402
-from knn_tpu_torch.ops import cuda_knn  # noqa: E402
+from knn_tpu_torch.ops import cuda_knn, tile_knn  # noqa: E402
 from knn_tpu_torch.ops.distance import pairwise_sq_dists  # noqa: E402
 from knn_tpu_torch.ops.vote import vote  # noqa: E402
 
@@ -205,18 +205,25 @@ def test_split_plan_covers_every_row(n_valid, q):
 
 
 
-@pytest.mark.parametrize("k", [1, 5, 16, 17, 32, 100, 256])
+@pytest.mark.parametrize("k", [1, 5, 16, 17, 32, 100, 256, 257, 1000, N])
 @pytest.mark.parametrize("n_valid,n_splits,rows", [
     (N, 1, N), (N, 5, 64), (N - 45, 4, 64), (10, 1, 64), (0, 1, 64)])
 def test_scan_then_merge_equals_the_whole_scan(k, n_valid, n_splits, rows):
     # The kernels' two steps, as their wrappers run them on CPU tensors:
     # per-split lists hold only their own rows, and merging them gives
-    # what one scan over all rows gives, NaN rows and ties included.
+    # what one scan over all rows gives, NaN rows and ties included. Past
+    # k = 16 the stripe route scans with the tile kernel's exact form.
     rng = np.random.default_rng(k * 10 + n_splits)
     train, test = int_grid(rng, 7)
     train[rng.choice(N, 30, replace=False), 2] = np.nan
     t, q = torch.from_numpy(train), torch.from_numpy(test)
-    partial = cuda_knn.knn_stripe_scan(t, q, n_valid, k, n_splits, rows)
+    if k <= cuda_knn.STRIPE_MAX_K:
+        partial = cuda_knn.knn_stripe_scan(t, q, n_valid, k, n_splits, rows)
+    else:
+        with pytest.raises(ValueError, match="1..16"):
+            cuda_knn.knn_stripe_scan(t, q, n_valid, k, n_splits, rows)
+        partial = tile_knn.knn_tile_scan(t, q, n_valid, k, "exact", n_splits,
+                                         rows)
     assert partial.shape == (Q, n_splits, k) and partial.dtype == torch.int64
     assert (partial[..., 1:] > partial[..., :-1]).logical_or(
         partial[..., 1:] == cuda_knn._SENTINEL_KEY).all()

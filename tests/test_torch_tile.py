@@ -28,6 +28,7 @@ candidates whose float64 distances lie within that bound may swap.
 
 import functools
 import io
+import json
 import re
 
 import numpy as np
@@ -219,7 +220,7 @@ def test_nan_rows_in_the_matmul_forms(route, form, k):
 
 
 @pytest.mark.parametrize("form", FORMS)
-@pytest.mark.parametrize("k", KS + (17, 100))
+@pytest.mark.parametrize("k", KS + (17, 100, 257, 1000, N))
 def test_tile_scan_then_merge_equals_the_whole_scan(form, k):
     # The kernel's two steps, as their wrappers run them on CPU tensors:
     # per-split lists hold only their own rows, and the stripe merge of them
@@ -240,6 +241,18 @@ def test_tile_scan_then_merge_equals_the_whole_scan(form, k):
     d_want, i_want = tile_knn.knn_tile_candidates_reference(t, q, N - 20, k, form)
     assert torch.equal(i_got, i_want)
     assert d_got.numpy().tobytes() == d_want.numpy().tobytes()
+
+
+@pytest.mark.parametrize("n_valid", [1, 3001, 30_803, 1_016_499])
+@pytest.mark.parametrize("k", [5, 16, 17, 256, 1000, 40_000])
+def test_tile_split_plan_makes_splits_of_2k_rows(n_valid, k):
+    # Whole 128-row tiles that cover every row; past k = 16 a split holds
+    # at least 2k rows where there are that many; the merge takes the count.
+    n_splits, rows = tile_knn.tile_split_plan(n_valid, 1718, 132, k)
+    assert rows % 128 == 0 and 1 <= n_splits <= cuda_knn.MERGE_MAX_SPLITS
+    assert n_splits * rows >= n_valid > (n_splits - 1) * rows
+    if k > 16:
+        assert rows >= 2 * k or n_splits == 1
 
 
 def test_matmul_forms_follow_the_jax_formulas():
@@ -355,8 +368,8 @@ def test_cli_medium_k20_matches_jax_tpu_pallas():
 
 def test_predict_tile_rejects_what_it_does_not_take():
     train, labels, test = labelled(9)
-    with pytest.raises(ValueError, match="B1d"):
-        tile_knn.predict_tile(train, labels, test, 257, 6, device="cpu")
+    with pytest.raises(ValueError, match="k must be >= 1"):
+        tile_knn.predict_tile(train, labels, test, 0, 6, device="cpu")
     with pytest.raises(ValueError, match="engine"):
         tile_knn.predict_tile(train, labels, test, 3, 6, engine="xla",
                               device="cpu")
@@ -419,3 +432,20 @@ def test_cli_result_line_matches_jax_tpu_pallas(tmp_path, precision):
     got = _line(cli.run, [tr, te, "5", "--backend", "cuda-tile",
                           "--device", "cpu", "--precision", precision])
     assert got == want
+
+
+def test_bigk_probe_main_at_a_reduced_size():
+    from knn_tpu_torch.probes import tile_bigk
+    out = io.StringIO()
+    assert tile_bigk.main(["--device", "cpu", "--rows", "700", "--queries",
+                           "9", "--ks", "17,300", "--factors", "1,2",
+                           "--reps", "1"], stdout=out) == 0
+    lines = out.getvalue().splitlines()
+    assert lines[0] == ("device: cpu (plain versions); 9 queries x 700 train "
+                        "x 11 feats, exact form")
+    rows = [json.loads(line) for line in lines[1:]]
+    assert [r["k"] for r in rows] == [17, 300]
+    for r in rows:
+        assert r["plan"] == list(tile_knn.tile_split_plan(700, 9, 132, r["k"]))
+        assert sorted(r["factors"]) == ["1", "2"]
+        assert all(ok is True for _, _, ok in r["factors"].values())
