@@ -10,18 +10,21 @@ Phases, each printed as it runs; any failure exits non-zero:
 3. ``kernel_parity``  — the stripe scan and merge kernels, and the two
                         together, against their plain PyTorch versions on
                         the card: bit-equal keys and distances, equal indices.
-4. ``kernel_parity_tile`` — the tile kernel in its three forms against its
-                        plain version: bit-equal keys on integer grids (and
-                        in the exact form on float rows), the stated
-                        tolerance on float rows in the matmul forms.
+4. ``kernel_parity_tile`` — the tile kernels in their three forms against
+                        their plain version: bit-equal keys on integer grids
+                        (and in the exact form on float rows), the stated
+                        tolerance on float rows in the matmul forms; the
+                        bf16 (wgmma) kernel at d from 1 to 1,000, k up to
+                        1,000, both train stores, two split layouts.
 5. ``kernel_parity_select`` — the stripe scan's selection variants (rounds,
                         lite, nosel) against their plain versions, bit-equal
                         keys, at split_plan's layout and at splits of
                         several 64-row tiles; rounds and lite merged,
                         bit-equal to the shipped knn_stripe_candidates.
-6. ``kernel_parity_matmul`` — the bf16 tensor-core matmul (P1) against its
-                        plain version: bit-equal on integer grids, the
-                        stated bound on float rows.
+6. ``kernel_parity_matmul`` — the bf16 tensor-core matmul (P1, wgmma)
+                        against its plain version: bit-equal on integer
+                        grids, the stated bound on float rows; block_n
+                        from 8 to 1,024, N and D off the tile sizes.
 7. ``kernel_parity_bigk`` — the merge and the tile scan's three forms at
                         k in BIGK_PARITY (17 up to 4,096 and k = n_valid),
                         at the tile kernel's split plan and at forced plans,
@@ -41,7 +44,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                         large shape (the tile kernel's merge route), the
                         counters read around it; predictions against the
                         plain version and the oracle; the tile scan, the
-                        merge and ``torch.topk`` timed at k = 32, 256, 1000.
+                        merge and ``torch.topk`` timed at k = 32, 256, 1000;
+                        the bf16 form through the backend at k = 32 and
+                        256, held to its plain version and timed.
 12. ``classify_xla``  — ``cli.run --backend cuda`` on the large shape
                         through the XLA route (torch ops, no hand kernel):
                         k = 32 (the tiled scan) in the euclidean and cosine
@@ -55,8 +60,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                         bit-equal to its plain version and timed beside it.
 14. ``probe_wide``    — P1's entry point (``knn_tpu_torch.probes.
                         probe_mnist_r3``) at 65,536 x 784 with 2,048 queries,
-                        the counter read around it; P1 timed beside its
-                        plain version and the library's bfloat16 matmul with
+                        the counter read around it; P1 held to its plain
+                        version at block_n 8, 256 and 1,024, and timed
+                        beside it and the library's bfloat16 matmul with
                         float32 output.
 15. ``kernels``       — one JSON line describing every kernel.
 
@@ -100,6 +106,8 @@ PEAK_HBM_BYTES = 3.35e12
 # k timed in classify_bigk.
 BIGK_PARITY = (17, 32, 100, 256, 257, 1000, 4096, "n_valid")
 BIGK_TIMED = (32, 256, 1000)
+# The k at which classify_bigk times the bf16 form.
+BF16_BIGK_TIMED = (32, 256)
 
 
 def phase(name: str) -> None:
@@ -205,15 +213,23 @@ def check_equal(what: str, torch, got, want) -> None:
                          f"{got.numel()} entries differ")
 
 
+# The bf16 kernel's parity cases: feature counts around its 64-feature
+# granule, and k on both selection paths.
+BF16_PARITY_D = (1, 11, 15, 64, 129, 784, 1000)
+BF16_PARITY_K = (1, 5, 16, 17, 256, 1000)
+
+
 def tile_parity_cases(rng):
-    """(name, form, train, queries, n_valid, k) for each form x d in {1, 11,
-    128, 129, 784, 1000} x k in {1, 5, 16}: an integer grid with duplicated
-    rows, NaN rows and n_valid < N, and float rows. The bf16 form takes a
-    float32 train up to 128 features and a bfloat16 one above (the stripe
-    route's store), so both of its kernel variants run."""
+    """(name, form, train, queries, n_valid, k): for the exact and fast forms
+    d in {1, 11, 128, 129, 784, 1000} x k in {1, 5, 16}, for the bf16 form d
+    in BF16_PARITY_D x k in BF16_PARITY_K; each an integer grid with
+    duplicated rows, NaN rows and n_valid < N, and float rows (N = 3,001
+    and Q = 300, neither a multiple of 128)."""
     for form in ("exact", "fast", "bf16"):
-        for d in (1, 11, 128, 129, 784, 1000):
-            for k in (1, 5, 16):
+        ds, ks = ((BF16_PARITY_D, BF16_PARITY_K) if form == "bf16"
+                  else ((1, 11, 128, 129, 784, 1000), (1, 5, 16)))
+        for d in ds:
+            for k in ks:
                 n, q = 3001, 300
                 grid = rng.integers(0, 4, (n, d)).astype(np.float32)
                 grid[1500:2000] = grid[:500]
@@ -267,36 +283,58 @@ def check_near(what: str, torch, form, t, q, kd, ki, rd, ri) -> int:
 
 
 def phase_kernel_parity_tile(torch, dev, tile_knn, cuda_knn) -> dict:
-    """Returns the largest |kernel - plain| distance per form."""
+    """The tile kernels against their plain version on tile_parity_cases:
+    the exact and fast forms at the CUDA-core kernel's split layout, the
+    bf16 form with the train stored as float32 and as bfloat16, each at the
+    bf16 kernel's plan and at 700-row splits (ending inside a 128-row
+    tile); then scan and merge through knn_tile_candidates. Returns the
+    largest |kernel - plain| distance per form."""
     rng = np.random.default_rng(1)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     err = dict.fromkeys(tile_knn.FORMS, 0.0)
     n_cases = swaps = 0
     for name, form, tx, qx, n_valid, k in tile_parity_cases(rng):
-        t = torch.from_numpy(tx).to(dev)
-        if form == "bf16" and tx.shape[1] > 128:
-            t = t.to(torch.bfloat16)
+        t32 = torch.from_numpy(tx).to(dev)
         qt = torch.from_numpy(qx).to(dev)
-        plan = cuda_knn.split_plan(n_valid, qt.shape[0], sm_count,
-                                   tile_rows=tile_knn._TILE_ROWS,
-                                   blocks_per_sm=tile_knn._BLOCKS_PER_SM)
-        partial = tile_knn.knn_tile_scan(t, qt, n_valid, k, form, *plan)
-        want = tile_knn.knn_tile_scan_reference(t, qt, n_valid, k, form, *plan)
-        kd, ki = tile_knn.knn_tile_candidates(t, qt, n_valid, k, form)
-        rd, ri = tile_knn.knn_tile_candidates_reference(t, qt, n_valid, k, form)
-        if "grid" in name or form == "exact":
-            check_equal(f"kernel_parity_tile {name} scan keys", torch,
-                        partial, want)
-            check_equal(f"kernel_parity_tile {name} indices", torch, ki, ri)
-            check_equal(f"kernel_parity_tile {name} distances", torch, kd, rd)
+        if form == "bf16":
+            stores = (t32, t32.to(torch.bfloat16))
+            plans = [tile_knn.tile_split_plan(n_valid, qt.shape[0], sm_count,
+                                              k, form),
+                     (-(-n_valid // 700), 700)]
         else:
-            swaps += check_near(f"kernel_parity_tile {name}", torch, form,
-                                t, qt, kd, ki, rd, ri)
-        err[form] = max(err[form], max_err(torch, kd, rd))
-        n_cases += 1
-    print(f"{n_cases} cases: integer grids (all forms) and float rows (exact "
-          "form) bit-equal keys, indices and distances; float rows in the "
-          "fast and bf16 forms within atol = 4*(d+2)*2^-24*(q2 + max t2), "
+            stores = (t32,)
+            plans = [cuda_knn.split_plan(n_valid, qt.shape[0], sm_count,
+                                         tile_rows=tile_knn._TILE_ROWS,
+                                         blocks_per_sm=tile_knn._BLOCKS_PER_SM)]
+        for t in stores:
+            what = f"kernel_parity_tile {name} store={t.dtype}"
+            for plan in plans:
+                partial = tile_knn.knn_tile_scan(t, qt, n_valid, k, form, *plan)
+                want = tile_knn.knn_tile_scan_reference(t, qt, n_valid, k,
+                                                        form, *plan)
+                if "grid" in name or form == "exact":
+                    check_equal(f"{what} plan={plan} scan keys", torch,
+                                partial, want)
+                else:
+                    md, mi = cuda_knn.knn_stripe_merge(partial)
+                    wd, wi = cuda_knn.knn_stripe_merge_reference(want)
+                    swaps += check_near(f"{what} plan={plan}", torch, form, t,
+                                        qt, md, mi, wd, wi)
+            kd, ki = tile_knn.knn_tile_candidates(t, qt, n_valid, k, form)
+            rd, ri = tile_knn.knn_tile_candidates_reference(t, qt, n_valid, k,
+                                                            form)
+            if "grid" in name or form == "exact":
+                check_equal(f"{what} indices", torch, ki, ri)
+                check_equal(f"{what} distances", torch, kd, rd)
+            else:
+                swaps += check_near(what, torch, form, t, qt, kd, ki, rd, ri)
+            err[form] = max(err[form], max_err(torch, kd, rd))
+            n_cases += 1
+    print(f"{n_cases} cases (bf16: both train stores, its plan and 700-row "
+          "splits, k up to 1000, d from 1 to 1000 around the 64-feature "
+          "granule): integer grids (all forms) and float rows (exact form) "
+          "bit-equal keys, indices and distances; float rows in the fast and "
+          "bf16 forms within atol = 4*(d+2)*2^-24*(q2 + max t2), "
           f"{swaps} near-tie index swaps; max_abs_err {err}")
     return err
 
@@ -394,15 +432,16 @@ def phase_classify_wide(torch, dev, tile_knn, cuda_knn, vote_neighbors) -> dict:
     print("exact form: predictions equal to the numpy oracle on 128 queries")
 
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = cuda_knn.split_plan(n, q, sm_count, tile_rows=tile_knn._TILE_ROWS,
-                               blocks_per_sm=tile_knn._BLOCKS_PER_SM)
     queries = [qx.clone() for _ in range(12)]
     res = {"launches": launches, "ms": {}, "plain_ms": {}, "bound": {},
-           "shape": f"q={q} n={n} d={d} k={k} splits={plan[0]}"}
+           "shape": {}}
+    flops = 2 * q * n * d
     for form in tile_knn.FORMS:
         t = stored[form]
+        plan = tile_knn.tile_split_plan(n, q, sm_count, k, form)
+        res["shape"][form] = f"q={q} n={n} d={d} k={k} splits={plan[0]}"
         res["ms"][form] = cuda_ms(scan, [(t, qb, n, k, form, *plan)
-                                                for qb in queries], reps=12)
+                                         for qb in queries], reps=12)
         res["plain_ms"][form] = cuda_ms(
             tile_knn.knn_tile_scan_reference,
             [(t, qb, n, k, form, *plan) for qb in queries[:3]], reps=3)
@@ -410,10 +449,18 @@ def phase_classify_wide(torch, dev, tile_knn, cuda_knn, vote_neighbors) -> dict:
                        [(t, qb, n, k, form) for qb in queries], reps=12)
         res["bound"][form] = tile_bound_ms(form, q, n, d, k, plan[0],
                                            t.element_size())
+        rate = flops / res["ms"][form] / 1e9
         print(f"wide {form} ({plan[0]} splits of {plan[1]} rows): tile scan "
               f"{res['ms'][form]} ms (median of 12, CUDA events), scan+merge "
               f"{both} ms, plain {res['plain_ms'][form]} ms (median of 3), "
-              f"bound {res['bound'][form][0]} ms ({res['bound'][form][1]})")
+              f"bound {res['bound'][form][0]} ms ({res['bound'][form][1]}); "
+              f"cross term at {rate} TFLOP/s, {100 * rate / 989} % of the "
+              "bf16 tensor-core peak (989 TFLOP/s)")
+    plan = tile_knn.tile_split_plan(n, q, sm_count, k, "bf16")
+    res["ms_f32_store"] = cuda_ms(scan, [(tx32, qb, n, k, "bf16", *plan)
+                                         for qb in queries], reps=12)
+    print(f"wide bf16 with the train stored as float32 (rounded once into "
+          f"the kernel's copy): {res['ms_f32_store']} ms")
     torch.backends.cuda.matmul.allow_tf32 = False
     q16 = [qb.to(torch.bfloat16) for qb in queries]
     res["matmul_ms"] = {
@@ -509,8 +556,11 @@ def phase_kernel_parity_matmul(torch, dev, probe_matmul) -> float:
     |kernel - plain| on the float rows."""
     rng = np.random.default_rng(3)
     err = 0.0
+    # N and Q around the 128-row tiles, D around the 64-feature chunks,
+    # block_n from one row per slot to slots spanning whole tiles.
     cases = ((700, 100, 128, 200), (1000, 37, 8, 300), (3001, 129, 256, 77),
-             (8192, 784, 1024, 512))
+             (8192, 784, 1024, 512), (5000, 784, 1024, 130),
+             (3001, 1000, 8, 200), (4099, 64, 256, 129), (130, 1, 8, 1))
     for n, d, block_n, q in cases:
         r, f = np.arange(n)[:, None], np.arange(d)[None, :]
         grid = ((r * 7 + f * 3 + rng.integers(0, 3, (n, d))) % 5)
@@ -536,11 +586,12 @@ def phase_kernel_parity_matmul(torch, dev, probe_matmul) -> float:
     return err
 
 
-def bigk_plans(n_valid: int, q: int, sm_count: int, k: int, tile_knn):
-    """The tile kernel's own plan at k, and two forced ones: splits of one
-    128-row tile (shorter than k, so lists end in sentinels) and of 700 rows
-    (ending inside a tile)."""
-    return [tile_knn.tile_split_plan(n_valid, q, sm_count, k),
+def bigk_plans(n_valid: int, q: int, sm_count: int, k: int, tile_knn,
+               form: str):
+    """The tile kernel's own plan for ``form`` at k, and two forced ones:
+    splits of one 128-row tile (shorter than k, so lists end in sentinels)
+    and of 700 rows (ending inside a tile)."""
+    return [tile_knn.tile_split_plan(n_valid, q, sm_count, k, form),
             *[(-(-n_valid // rows), rows) for rows in (128, 700)]]
 
 
@@ -548,9 +599,10 @@ def phase_kernel_parity_bigk(torch, dev, cuda_knn, tile_knn) -> dict:
     """Any k: the merge and the tile scan in its three forms against their
     plain versions at k in BIGK_PARITY (k = n_valid included, and k past
     N), on an integer grid (duplicated rows, NaN rows, n_valid < N) and on
-    float rows, at the tile kernel's split plan and at forced plans (d = 11;
-    d = 129 at the kernel's plan): bit-equal keys, and the merge bit-equal
-    on every case; the fast and bf16 forms on float rows held by check_near
+    float rows, at the tile kernels' split plans and at forced plans (d = 11;
+    d = 129 at the kernel's plan), the bf16 form with the train stored as
+    float32 and as bfloat16: bit-equal keys, and the merge bit-equal on
+    every case; the fast and bf16 forms on float rows held by check_near
     after the merge. Returns the largest |kernel - plain| distance per
     kernel."""
     rng = np.random.default_rng(4)
@@ -574,31 +626,28 @@ def phase_kernel_parity_bigk(torch, dev, cuda_knn, tile_knn) -> dict:
                 kk = n_valid if k == "n_valid" else k
                 t = torch.from_numpy(tx).to(dev)
                 qt = torch.from_numpy(qx).to(dev)
-                plans = bigk_plans(n_valid, q, sm_count, kk, tile_knn)
-                for plan in plans if d <= 128 else plans[:1]:
-                    name = f"{kind} d={d} k={kk} plan={plan}"
-                    for form in tile_knn.FORMS:
-                        tt = (t.to(torch.bfloat16) if form == "bf16" and d > 128
-                              else t)
+                for form, tt in (("exact", t), ("fast", t), ("bf16", t),
+                                 ("bf16", t.to(torch.bfloat16))):
+                    plans = bigk_plans(n_valid, q, sm_count, kk, tile_knn, form)
+                    for plan in plans if d <= 128 else plans[:1]:
+                        what = (f"kernel_parity_bigk {kind} d={d} k={kk} "
+                                f"plan={plan} {form} store={tt.dtype}")
                         partial = tile_knn.knn_tile_scan(tt, qt, n_valid, kk,
                                                          form, *plan)
                         want = tile_knn.knn_tile_scan_reference(
                             tt, qt, n_valid, kk, form, *plan)
                         md, mi = cuda_knn.knn_stripe_merge(partial)
                         rd, ri = cuda_knn.knn_stripe_merge_reference(partial)
-                        check_equal(f"kernel_parity_bigk {name} {form} merge "
-                                    "indices", torch, mi, ri)
-                        check_equal(f"kernel_parity_bigk {name} {form} merge "
-                                    "distances", torch, md, rd)
+                        check_equal(f"{what} merge indices", torch, mi, ri)
+                        check_equal(f"{what} merge distances", torch, md, rd)
                         err["merge"] = max(err["merge"], max_err(torch, md, rd))
                         wd, wi = cuda_knn.knn_stripe_merge_reference(want)
                         if kind == "grid" or form == "exact":
-                            check_equal(f"kernel_parity_bigk {name} {form} "
-                                        "tile scan keys", torch, partial, want)
+                            check_equal(f"{what} tile scan keys", torch,
+                                        partial, want)
                         else:
-                            swaps += check_near(
-                                f"kernel_parity_bigk {name} {form}", torch,
-                                form, tt, qt, md, mi, wd, wi)
+                            swaps += check_near(what, torch, form, tt, qt, md,
+                                                mi, wd, wi)
                         err[form] = max(err[form], max_err(torch, md, wd))
                         n_cases += 1
     print(f"{n_cases} cases at k in {BIGK_PARITY}: merge bit-equal to its "
@@ -712,6 +761,51 @@ def phase_classify_bigk(torch, dev, cuda_knn, tile_knn, vote_neighbors,
               f"{res['plain_ms'][k]['merge']} ms, torch.topk on the keys "
               f"{res['library_ms'][k]} ms, bound {res['bound'][k]['merge'][0]} "
               f"ms ({res['bound'][k]['merge'][1]})")
+
+    # The bf16 form on the same path: k > 16 takes the merge route, which
+    # stores the train as bfloat16.
+    txb = tx.to(torch.bfloat16)
+    res["bf16"] = {}
+    for k in BF16_BIGK_TIMED:
+        reset()
+        preds = get_backend("cuda-tile")(train, test, k, precision="bf16")
+        launches = {"bf16": scan.launches["bf16"], "merge": merge.launches}
+        if min(launches.values()) < 1:
+            raise SystemExit(f"classify_bigk bf16 k={k}: a kernel was never "
+                             f"launched: {launches}")
+        kd, ki = tile_knn.knn_tile_candidates(txb, qx, n, k, "bf16")
+        rd, ri = tile_knn.knn_tile_candidates_reference(txb, qx, n, k, "bf16")
+        swaps = check_near(f"classify_bigk bf16 k={k}", torch, "bf16", txb, qx,
+                           kd, ki, rd, ri)
+        mine = vote_neighbors(ki, ty, train.num_classes).cpu().numpy()
+        plain = vote_neighbors(ri, ty, train.num_classes).cpu().numpy()
+        same = (ki == ri).all(dim=1).cpu().numpy()
+        if not np.array_equal(preds, mine) or not np.array_equal(
+                mine[same], plain[same]):
+            raise SystemExit(f"classify_bigk bf16 k={k}: predictions differ "
+                             "from the kernel's or, on equal neighbor lists, "
+                             "the plain version's")
+        plan = tile_knn.tile_split_plan(n, q, sm_count, k, "bf16")
+        entry = {
+            "launches": launches,
+            "ms": cuda_ms(scan, [(txb, qb, n, k, "bf16", *plan)
+                                 for qb in queries], reps=12),
+            "plain_ms": cuda_ms(tile_knn.knn_tile_scan_reference,
+                                [(txb, qb, n, k, "bf16", *plan)
+                                 for qb in queries[:3]], reps=3),
+            "bound": tile_bound_ms("bf16", q, n, d, k, plan[0], 2),
+            "max_abs_err": max_err(torch, kd, rd),
+            "shape": f"q={q} n={n} d={d} k={k} splits={plan[0]}",
+        }
+        res["bf16"][k] = entry
+        print(f"bf16 k={k}: launches of one get_backend('cuda-tile', "
+              f"precision='bf16') call {launches}; distances within the tile "
+              f"tolerance of the plain version's, {swaps} near-tie index "
+              f"swaps, predictions equal on equal lists. Tile scan (bf16, "
+              f"{plan[0]} splits of {plan[1]} rows) {entry['ms']} ms, plain "
+              f"{entry['plain_ms']} ms, bound {entry['bound'][0]} ms "
+              f"({entry['bound'][1]}); the exact form's scan above "
+              f"{res['ms'][k]['scan']} ms")
     return res
 
 
@@ -958,6 +1052,13 @@ def phase_probe_wide(torch, dev, probe_matmul) -> dict:
 
     check_matmul_near("probe_wide library call", torch, probe_matmul,
                       library(bufs[0]), plain, txb, bufs[0], block_n)
+    # The other fold layouts, and a train set that ends inside a tile.
+    for bn, rows in ((8, n), (256, n), (block_n, n - 77)):
+        t = txb[:rows]
+        err = max(err, check_matmul_near(
+            f"probe_wide block_n={bn} n={rows}", torch, probe_matmul,
+            pm(t, bufs[1], bn), probe_matmul.pure_matmul_reference(
+                t, bufs[1], bn), t, bufs[1], bn))
 
     res = {"launches": launches, "max_abs_err": err,
            "ms": cuda_ms(pm, [(txb, qb, block_n) for qb in bufs], reps=12),
@@ -966,12 +1067,15 @@ def phase_probe_wide(torch, dev, probe_matmul) -> dict:
            "library_ms": cuda_ms(library, [(qb,) for qb in bufs], reps=12),
            "bound": matmul_bound_ms(q, n, d),
            "shape": f"q={q} n={n} d={d} block_n={block_n}"}
+    rate = 2 * q * n * d / res["ms"] / 1e9
     print(f"P1 at {res['shape']}: {res['ms']} ms (median of 12, CUDA events), "
-          f"plain {res['plain_ms']} ms (median of 3), library call "
-          f"(torch.mm bf16, float32 out, + reshape-sum) {res['library_ms']} "
-          "ms, bound "
-          f"{res['bound'][0]} ms ({res['bound'][1]}); max |kernel - plain| "
-          f"{err} within atol = 2*(D+m)*2^-23*S")
+          f"{rate} TFLOP/s, {100 * rate / 989} % of the bf16 tensor-core "
+          f"peak (989 TFLOP/s); plain {res['plain_ms']} ms (median of 3), "
+          "library call (torch.mm bf16, float32 out, + reshape-sum) "
+          f"{res['library_ms']} ms, bound {res['bound'][0]} ms "
+          f"({res['bound'][1]}); max |kernel - plain| {err} within atol = "
+          "2*(D+m)*2^-23*S at block_n 8, 256 and 1,024 and at "
+          f"n = {n - 77}")
     return res
 
 
@@ -1192,7 +1296,7 @@ def main() -> int:
         "library_ms": None,
         "matmul_ms": wide["matmul_ms"]["bfloat16" if form == "bf16"
                                        else "float32"],
-        "shape": wide["shape"],
+        "shape": wide["shape"][form],
     } for form in tile_knn.FORMS]
     extra_entries = [{
         "name": f"stripe_knn_select_{mode}",
@@ -1237,7 +1341,20 @@ def main() -> int:
         ("tile_knn_exact", "tile_knn.cu", "knn_tpu/ops/pallas_knn.py:127",
          "exact", "scan"),
         ("stripe_knn_merge", "stripe_knn.cu",
-         "knn_tpu/ops/pallas_knn.py:105", "merge", "merge"))]
+         "knn_tpu/ops/pallas_knn.py:105", "merge", "merge"))] + [{
+        "name": f"tile_knn_bf16_k{k}",
+        "route": "cuda",
+        "source": "knn_tpu_torch/csrc/tile_knn.cu",
+        "replaces": "knn_tpu/ops/pallas_knn.py:127",
+        "launches": e["launches"]["bf16"],
+        "max_abs_err": max(bigk_err["bf16"], e["max_abs_err"]),
+        "ms": e["ms"],
+        "plain_ms": e["plain_ms"],
+        "bound_ms": e["bound"][0],
+        "bound_by": e["bound"][1],
+        "library_ms": None,
+        "shape": e["shape"],
+    } for k, e in bigk["bf16"].items()]
     print(json.dumps({"kernels": [{
         "name": f"stripe_knn_{name}",
         "route": "cuda",

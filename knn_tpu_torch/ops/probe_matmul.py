@@ -11,8 +11,11 @@ pads N to a multiple of ``block_n``). The fold keeps the output at
 ``[Q, 8]`` so the product cannot be dropped.
 
 :func:`pure_matmul` is the wrapper (``pure_matmul.launches`` counts its
-launches) of ``csrc/probe_matmul.cu``, the port's first tensor-core kernel;
-:func:`pure_matmul_reference` its plain version.
+launches) of ``csrc/probe_matmul.cu``, ``wgmma`` fed by TMA over the
+mainloop of ``csrc/wgmma_tile.cuh`` that the tile kernel's bf16 form shares;
+:func:`pure_matmul_reference` its plain version. The kernel reads the
+operands' ``tile_knn.bf16_operand`` copies, zero-padded to a multiple of 64
+features (the train's kept with the train tensor).
 """
 
 from __future__ import annotations
@@ -22,15 +25,17 @@ import ctypes
 import torch
 
 from knn_tpu_torch.ops import _build, cuda_knn
+from knn_tpu_torch.ops.tile_knn import bf16_operand
 from knn_tpu_torch.resilience.errors import DeviceError
 
 SLOTS = 8
 
-# Must match csrc/probe_matmul.cu: queries per block, train rows per tile.
-_TILE_Q = 64
-_TILE_N = 64
-# Blocks to aim for per SM (128 threads and ~28 KB of shared memory each).
-_BLOCKS_PER_SM = 8
+# Must match csrc/wgmma_tile.cuh: queries per block, train rows per tile.
+_TILE_Q = 128
+_TILE_N = 128
+# Blocks to aim for per SM: one wave (288 threads and ~129 KB of shared
+# memory each, one resident block per SM).
+_BLOCKS_PER_SM = 1
 
 
 def pure_matmul_reference(train: torch.Tensor, test: torch.Tensor,
@@ -60,7 +65,7 @@ def _check_block_n(block_n: int) -> None:
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # The C entry of csrc/probe_matmul.cu; pointers and the stream are 64-bit.
 _SIGNATURES = {
-    "probe_matmul_fold": ([_p, _i, _p, _i, _i, _i, _i, _i, _i, _p, _p], _i),
+    "probe_matmul_fold": ([_p, _i, _p, _i, _i, _i, _i, _i, _p, _p], _i),
 }
 
 
@@ -96,11 +101,11 @@ def pure_matmul(train: torch.Tensor, test: torch.Tensor,
     n_splits, rows_per_split = cuda_knn.split_plan(
         n, q, sm_count, tile_rows=_TILE_N, blocks_per_sm=_BLOCKS_PER_SM,
         queries_per_block=_TILE_Q)
-    vec = d % 8 == 0 and train.data_ptr() % 16 == 0 and test.data_ptr() % 16 == 0
+    tb, qb = bf16_operand(train, cache=True), bf16_operand(test)
     out = torch.zeros((q, SLOTS), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(train.data_ptr(), n, test.data_ptr(), q, d, block_n, n_splits,
-                rows_per_split // _TILE_N, int(vec), out.data_ptr(),
+        rc = fn(tb.data_ptr(), n, qb.data_ptr(), q, tb.shape[1], block_n,
+                n_splits, rows_per_split // _TILE_N, out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise DeviceError(f"probe_matmul_fold launch failed: CUDA error {rc}")

@@ -4,10 +4,12 @@ version, and its host entry.
 The port of ``knn_tpu/ops/pallas_knn.py``'s tile-merge kernel
 (``_knn_kernel``, engine ``merge``, in its exact, fast and bf16 forms), of
 the fast and bf16 forms of its stripe kernel (``_knn_stripe_kernel``), and
-of ``predict_pallas``, the host entry of the ``tpu-pallas`` backend. One
-hand-written kernel, ``csrc/tile_knn.cu``, takes the form as a template
-parameter and any number of features; see its header for the design. Its
-per-split key lists are folded by the stripe kernel's merge
+of ``predict_pallas``, the host entry of the ``tpu-pallas`` backend. The
+hand-written kernels of ``csrc/tile_knn.cu`` take any number of features:
+one on the CUDA cores for the exact and fast forms (the form a template
+parameter), and one on the tensor cores for the bf16 form (``wgmma`` fed by
+TMA, ``csrc/wgmma_tile.cuh``); see the source's header for the design.
+Their per-split key lists are folded by the stripe kernel's merge
 (``cuda_knn.knn_stripe_merge``). Both take any k >= 1, as the JAX
 tile-merge kernel does: up to 16 the scan keeps register lists, above it a
 threshold-filtered list in its output row, and :func:`tile_split_plan`
@@ -24,7 +26,11 @@ of its rounded values, and the query norms come from the float32 queries.
 Which store a route uses is part of the function: the stripe route stores
 the bf16 form's train as bfloat16 only past 128 features
 (``cuda_knn.stripe_store_dtype``), the merge route always
-(:func:`merge_store_dtype`).
+(:func:`merge_store_dtype`). The bf16 kernel reads bfloat16 copies of both
+operands (:func:`bf16_operand`): rounded once to nearest even, as the plain
+version rounds them, and zero-padded to a multiple of 64 features; the
+train's copy is kept with the stored train tensor, so a train set in
+``Dataset.device_cache`` is copied once per device and store.
 
 Not carried: the v5e block tunings (``block_q``/``block_n``), the feature
 padding to 128 lanes, ``_wide_tile_fits``, and ``predict_pallas``'s
@@ -39,6 +45,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from knn_tpu_torch.ops import _build
 from knn_tpu_torch.ops.cuda_knn import (
@@ -62,29 +69,73 @@ from knn_tpu_torch.ops.distance import sq_norms
 from knn_tpu_torch.ops.vote import vote_neighbors
 from knn_tpu_torch.resilience.errors import DeviceError
 
-FORMS = ("exact", "fast", "bf16")  # the kernel's form codes 0, 1, 2
+FORMS = ("exact", "fast", "bf16")  # tile_knn_scan's form codes 0, 1
 
 # Must match csrc/tile_knn.cu: train rows per tile (the split granule).
 _TILE_ROWS = 128
-# Scan blocks to aim for per SM (256 threads and ~83 KB of shared memory
-# each): about two waves of resident blocks.
+# Scan blocks to aim for per SM: about two waves of the CUDA-core forms'
+# resident blocks (256 threads and ~83 KB of shared memory each), one wave
+# of the bf16 kernel's (one block per SM at ~200 KB).
 _BLOCKS_PER_SM = 4
+_BF16_BLOCKS_PER_SM = 1
 # At k > 16, a split holds at least this many times k rows: longer splits
 # pass fewer rows per split through the list's fill, shorter ones give the
 # card more blocks (on an H100 at 30,803 rows and k = 1000, splits of 2k
 # rows took 0.6 times the time of splits of 4k rows; see PERF.md).
 _ROWS_PER_K = 2
+# Must match csrc/wgmma_tile.cuh::kChunk: the bf16 operands' feature
+# granule (64 bfloat16, one 128-byte swizzled row).
+FEATURE_GRANULE = 64
 
 
 def tile_split_plan(n_valid: int, n_queries: int, sm_count: int,
-                    k: int) -> Tuple[int, int]:
-    """``(n_splits, rows_per_split)`` of the tile kernel: ``split_plan`` at
-    128-row tiles and about 4 blocks per SM, each split at least 2k rows
-    when k > 16 (the list in the output row then fills within the first
-    half of its split, and the threshold filters the rest)."""
+                    k: int, form: str = "exact") -> Tuple[int, int]:
+    """``(n_splits, rows_per_split)`` of the tile kernels: ``split_plan`` at
+    128-row tiles and about 4 blocks per SM (the bf16 kernel: 1), each split
+    at least 2k rows when k > 16 (the list in the output row then fills
+    within the first half of its split, and the threshold filters the
+    rest)."""
     return split_plan(n_valid, n_queries, sm_count, tile_rows=_TILE_ROWS,
-                      blocks_per_sm=_BLOCKS_PER_SM,
+                      blocks_per_sm=(_BF16_BLOCKS_PER_SM if form == "bf16"
+                                     else _BLOCKS_PER_SM),
                       min_rows=_ROWS_PER_K * k if k > STRIPE_MAX_K else 0)
+
+
+def padded_features(d: int) -> int:
+    """The bf16 operands' feature count: ``d`` rounded up to a multiple of
+    :data:`FEATURE_GRANULE`, at least one granule."""
+    return max(1, -(-d // FEATURE_GRANULE)) * FEATURE_GRANULE
+
+
+# x -> {name: (x._version, value)}: what is kept with a tensor, dropped
+# with it.
+_kept = WeakIdKeyDictionary()
+
+
+def _kept_with(x: torch.Tensor, name: str, make):
+    """``make()``, kept with ``x`` under ``name`` while ``x`` lives and is
+    not modified in place."""
+    entries = _kept.setdefault(x, {})
+    hit = entries.get(name)
+    if hit is None or hit[0] != x._version:
+        hit = entries[name] = (x._version, make())
+    return hit[1]
+
+
+def bf16_operand(x: torch.Tensor, cache: bool = False) -> torch.Tensor:
+    """``[R, D]`` float32 or bfloat16 -> the ``[max(R, 1), padded_features(D)]``
+    bfloat16 operand of the tensor-core kernels: ``x`` rounded once to
+    nearest even (a bfloat16 ``x`` is copied as it is), zeros past D and in
+    the one row of an empty ``x``. With ``cache`` the copy is kept with
+    ``x``."""
+    def make():
+        r, d = x.shape
+        out = torch.zeros((max(r, 1), padded_features(d)),
+                          dtype=torch.bfloat16, device=x.device)
+        out[:r, :d] = x
+        return out
+
+    return _kept_with(x, "bf16_operand", make) if cache else make()
 
 
 def merge_store_dtype(form: str) -> torch.dtype:
@@ -144,10 +195,11 @@ def _check_tile_inputs(train_x, test_x, n_valid: int, k: int, form: str) -> None
 
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-# The C entry of csrc/tile_knn.cu; pointers and the stream are 64-bit.
+# The C entries of csrc/tile_knn.cu; pointers and the stream are 64-bit.
 _SIGNATURES = {
-    "tile_knn_scan": ([_i, _i, _p, _p, _i, _p, _p, _i, _i, _i, _i, _i, _p, _p],
-                      _i),
+    "tile_knn_scan": ([_i, _p, _p, _i, _p, _p, _i, _i, _i, _i, _i, _p, _p], _i),
+    "tile_knn_scan_bf16": ([_p, _i, _p, _i, _p, _p, _i, _i, _i, _i, _i, _p, _p],
+                           _i),
 }
 
 
@@ -163,9 +215,25 @@ def knn_tile_scan(
     ``[Q, D]`` float32 queries -> ``[Q, n_splits, k]`` int64 keys, as
     :func:`knn_tile_scan_reference` gives them.
 
-    CPU tensors take the plain version. CUDA tensors launch the tile kernel
-    on the current stream, after the norms of the matmul forms, or raise.
-    ``knn_tile_scan.launches[form]`` counts the launches."""
+    CPU tensors take the plain version. CUDA tensors launch a tile kernel
+    on the current stream, after the norms of the matmul forms, or raise:
+    the exact and fast forms the CUDA-core kernel, the bf16 form the
+    tensor-core kernel over :func:`bf16_operand` copies (the train's copy
+    and norms kept with it). ``knn_tile_scan.launches[form]`` counts the
+    launches.
+
+    The bf16 kernel's tolerance: its operands are the plain version's
+    (rounded once, to nearest even; zero features add exactly 0) and so
+    are its norms; each product of two bfloat16 values is exact in float32,
+    and the tensor cores, summing in their own order, may truncate, so the
+    cross term is off its exact value by at most ``d * 2**-23 * S`` with
+    ``S = sum |q_f t_f| <= (q2 + t2) / 2`` (times ``1 + 2**-7`` for the
+    operands' rounding). With the finish's three roundings a distance is
+    off its formula's exact value by about ``2 * (d + 2) * 2**-24 * (q2 +
+    t2)``, inside the ``4 * (d + 2) * 2**-24 * (q2 + max t2)`` that
+    ``chip_smoke.py``'s ``check_near`` allows the kernel and the plain
+    version together. On integer grids every product and partial sum is an
+    exact integer, so the keys are bit-equal."""
     n_valid, k = int(n_valid), int(k)
     n_splits, rows_per_split = int(n_splits), int(rows_per_split)
     if train_x.device.type == "cpu" and test_x.device.type == "cpu":
@@ -173,24 +241,36 @@ def knn_tile_scan(
                                        n_splits, rows_per_split)
     _check_tile_inputs(train_x, test_x, n_valid, k, form)
     check_splits(n_valid, n_splits, rows_per_split)
-    fn = _library().tile_knn_scan
+    lib = _library()
     q, d = test_x.shape
     dev = train_x.device
     partial = torch.empty((q, n_splits, k), dtype=torch.int64, device=dev)
     if q == 0:
         return partial
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         q2 = t2 = None
-        if form != "exact":
+        if form == "fast":
             q2, t2 = sq_norms(test_x), sq_norms(train_x)
-        rc = fn(FORMS.index(form), int(train_x.dtype == torch.bfloat16),
-                train_x.data_ptr(), None if t2 is None else t2.data_ptr(),
-                n_valid, test_x.data_ptr(),
-                None if q2 is None else q2.data_ptr(), q, d, k, n_splits,
-                rows_per_split, partial.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+        if form == "bf16":
+            # The fast form's norms, the train's kept with it.
+            q2 = sq_norms(test_x)
+            t2 = _kept_with(train_x, "sq_norms", lambda: sq_norms(train_x))
+            tb = bf16_operand(train_x, cache=True)
+            qb = bf16_operand(test_x)
+            rc = lib.tile_knn_scan_bf16(
+                tb.data_ptr(), tb.shape[0], t2.data_ptr(), n_valid,
+                qb.data_ptr(), q2.data_ptr(), q, tb.shape[1], k, n_splits,
+                rows_per_split, partial.data_ptr(), stream)
+        else:
+            rc = lib.tile_knn_scan(
+                FORMS.index(form), train_x.data_ptr(),
+                None if t2 is None else t2.data_ptr(), n_valid,
+                test_x.data_ptr(), None if q2 is None else q2.data_ptr(), q,
+                d, k, n_splits, rows_per_split, partial.data_ptr(), stream)
     if rc != 0:
-        raise DeviceError(f"tile_knn_scan launch failed: CUDA error {rc}")
+        raise DeviceError(f"tile_knn_scan ({form}) launch failed: CUDA "
+                          f"error {rc}")
     knn_tile_scan.launches[form] += 1
     return partial
 
@@ -217,7 +297,7 @@ def knn_tile_candidates(
     _check_tile_inputs(train_x, test_x, n_valid, int(k), form)
     sm_count = torch.cuda.get_device_properties(
         train_x.device).multi_processor_count
-    plan = tile_split_plan(n_valid, test_x.shape[0], sm_count, int(k))
+    plan = tile_split_plan(n_valid, test_x.shape[0], sm_count, int(k), form)
     return knn_stripe_merge(knn_tile_scan(train_x, test_x, n_valid, k, form,
                                           *plan))
 

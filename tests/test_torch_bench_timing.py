@@ -6,7 +6,7 @@ must give the JAX package's answers on the same inputs, and the slope must
 recover a known per-step cost.
 """
 
-import time
+from types import SimpleNamespace
 
 import pytest
 
@@ -47,19 +47,23 @@ def test_peaks_are_the_h100s():
     assert (bt.PEAK_TF_BF16, bt.PEAK_TF_F32) == (989.0, 67.0)
 
 
-def test_pipelined_slope_recovers_a_known_step_cost():
+def test_pipelined_slope_recovers_a_known_step_cost(monkeypatch):
     # Each step costs 2 ms; the drain a fixed 20 ms. The slope sees the
-    # step, the intercept the drain.
+    # step, the intercept the drain. The costs advance a scripted clock, so
+    # the host's load cannot move the answer.
+    clock = [0.0]
+    monkeypatch.setattr(bt, "time", SimpleNamespace(monotonic=lambda: clock[0]))
+
     def step(_):
-        time.sleep(0.002)
+        clock[0] += 0.002
         return torch.zeros(1)
 
     def drain(_):
-        time.sleep(0.02)
+        clock[0] += 0.02
 
     per_step, fixed = bt.pipelined_slope(step, [None] * 3, 5, 25, block_fn=drain)
-    assert 0.0019 <= per_step <= 0.004
-    assert 0.015 <= fixed <= 0.04
+    assert per_step == pytest.approx(0.002)
+    assert fixed == pytest.approx(0.02)
 
 
 def test_timed_batch_cycles_the_distinct_buffers():

@@ -241,7 +241,9 @@ def test_selection_variants_equal_their_plain_versions(card, mode, d, k, rows):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,block_n", [(700, 100, 128), (4096, 784, 1024),
-                                         (1000, 37, 8)])
+                                         (1000, 37, 8), (5000, 784, 1024),
+                                         (4099, 64, 256), (130, 1, 8),
+                                         (3001, 1000, 8)])
 def test_probe_matmul_equals_plain_version_on_integer_grids(card, n, d, block_n):
     rng = np.random.default_rng(n)
     r, f = np.arange(n)[:, None], np.arange(d)[None, :]
@@ -255,3 +257,37 @@ def test_probe_matmul_equals_plain_version_on_integer_grids(card, n, d, block_n)
     torch.cuda.synchronize()
     assert probe_matmul.pure_matmul.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None, (3, 700)])
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,k", [(1, 1), (15, 16), (64, 17), (129, 5),
+                                 (784, 256), (1000, 16)])
+def test_bf16_wgmma_kernel_equals_plain_version(card, d, k, store, plan):
+    # The tensor-core bf16 kernel on integer grids (every product and
+    # partial sum exact): keys bit-equal at its own plan and at splits that
+    # end inside a 128-row tile, N and Q off the tile sizes.
+    rng = np.random.default_rng(d + k)
+    train, test = _grid(rng, 2000, 300, d)
+    t = torch.from_numpy(train).to(card, store)
+    q = torch.from_numpy(test).to(card)
+    if plan is None:
+        sm = torch.cuda.get_device_properties(card).multi_processor_count
+        plan = tile_knn.tile_split_plan(1990, 300, sm, k, "bf16")
+    before = tile_knn.knn_tile_scan.launches["bf16"]
+    got = tile_knn.knn_tile_scan(t, q, 1990, k, "bf16", *plan)
+    want = tile_knn.knn_tile_scan_reference(t, q, 1990, k, "bf16", *plan)
+    torch.cuda.synchronize()
+    assert tile_knn.knn_tile_scan.launches["bf16"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 64, 129, 784])
+def test_bf16_operand_on_the_card_equals_the_hosts(card, d):
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (300, d)).astype(np.float32))
+    got = tile_knn.bf16_operand(x.to(card), cache=True)
+    assert got.device.type == "cuda" and got.data_ptr() % 16 == 0
+    assert torch.equal(got.cpu(), tile_knn.bf16_operand(x))

@@ -135,18 +135,52 @@ def test_rejects_a_block_n_that_is_not_a_multiple_of_8(block_n):
 
 
 def test_split_plan_covers_every_tile():
-    # The split layout pure_matmul launches: whole 64-row tiles per split.
+    # The split layout pure_matmul launches: whole 128-row tiles per split,
+    # one block per SM.
     from knn_tpu_torch.ops import cuda_knn
 
-    for n in (1, 63, 64, 65, 65536, 1_000_000):
-        for q in (1, 64, 2048, 100_000):
+    tile = probe_matmul._TILE_N
+    for n in (1, 127, 128, 129, 65536, 1_000_000):
+        for q in (1, 128, 2048, 100_000):
             splits, rows = cuda_knn.split_plan(
-                n, q, 132, tile_rows=probe_matmul._TILE_N,
+                n, q, 132, tile_rows=tile,
                 blocks_per_sm=probe_matmul._BLOCKS_PER_SM,
                 queries_per_block=probe_matmul._TILE_Q)
-            per, tiles = rows // 64, -(-n // 64)
-            assert rows % 64 == 0
+            per, tiles = rows // tile, -(-n // tile)
+            assert rows % tile == 0
             assert 1 <= splits <= 65535 and (splits - 1) * per < tiles <= splits * per
+            assert splits == 1 or splits * -(-q // probe_matmul._TILE_Q) <= 132
+
+
+@pytest.mark.parametrize("kind", ["grid", "float"])
+@pytest.mark.parametrize("d", [1, 11, 64, 100, 129])
+def test_padded_operands_give_the_same_products(d, kind):
+    # What the kernel reads: the operands' bf16_operand copies, zero past D.
+    # A zero feature adds exactly 0, so the plain version over the padded
+    # copies gives the plain version's sums (bit for bit on integer grids,
+    # where every sum is exact; within one rounding per sum on floats).
+    from knn_tpu_torch.ops import tile_knn
+
+    rng = np.random.default_rng(d)
+    if kind == "grid":
+        train = rng.integers(0, 4, (300, d)).astype(np.float32)
+        test = rng.integers(0, 4, (Q, d)).astype(np.float32)
+    else:
+        train = rng.standard_normal((300, d)).astype(np.float32)
+        test = rng.standard_normal((Q, d)).astype(np.float32)
+    t = torch.from_numpy(train).to(torch.bfloat16)
+    q = torch.from_numpy(test).to(torch.bfloat16)
+    tb, qb = tile_knn.bf16_operand(t, cache=True), tile_knn.bf16_operand(q)
+    assert tb.shape == (300, -(-d // 64) * 64) and torch.equal(tb[:, :d], t)
+    assert tile_knn.bf16_operand(t, cache=True) is tb
+    for block_n in (8, 256, 1024):
+        got = probe_matmul.pure_matmul_reference(tb, qb, block_n)
+        want = probe_matmul.pure_matmul_reference(t, q, block_n)
+        if kind == "grid":
+            assert got.numpy().tobytes() == want.numpy().tobytes()
+        else:
+            mags = probe_matmul.pure_matmul_reference(t.abs(), q.abs(), block_n)
+            assert ((got - want).abs() <= 2 * (d + 300) * 2.0**-24 * mags).all()
 
 
 def test_probe_main_at_a_reduced_size():

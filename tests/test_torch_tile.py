@@ -449,3 +449,132 @@ def test_bigk_probe_main_at_a_reduced_size():
         assert r["plan"] == list(tile_knn.tile_split_plan(700, 9, 132, r["k"]))
         assert sorted(r["factors"]) == ["1", "2"]
         assert all(ok is True for _, _, ok in r["factors"].values())
+
+
+# The bf16 kernel's host-side operands: bfloat16 copies rounded once and
+# zero-padded to a multiple of 64 features, the train's kept with it, the
+# norms those of the stored values.
+
+OPERAND_DS = (1, 11, 64, 129)
+
+
+def operand_keys(t, q, n_valid, k, n_splits, rows):
+    """``[Q, n_splits, k]`` keys computed from what the bf16 kernel is
+    given: the padded bfloat16 copies for the cross term and the norms of
+    the stored train and the float32 queries."""
+    from knn_tpu_torch.ops.distance import _expand, sq_norms
+
+    tb, qb = tile_knn.bf16_operand(t, cache=True), tile_knn.bf16_operand(q)
+    dist = _expand(sq_norms(q), sq_norms(t),
+                   qb.float() @ tb[: t.shape[0]].float().T)
+    out = torch.full((q.shape[0], n_splits, k), cuda_knn._SENTINEL_KEY,
+                     dtype=torch.int64)
+    for s in range(n_splits):
+        lo, hi = s * rows, min((s + 1) * rows, n_valid)
+        if hi <= lo:
+            continue
+        keys = cuda_knn._pack_keys(dist[:, lo:hi],
+                                   torch.arange(lo, hi, dtype=torch.int64))
+        top = torch.topk(keys, min(k, hi - lo), dim=1, largest=False).values
+        out[:, s, : top.shape[1]] = torch.sort(top, dim=1).values
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", OPERAND_DS + (784,))
+def test_bf16_operand_pads_and_rounds_once(d, dtype):
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((37, d)).astype(np.float32)
+                         ).to(dtype)
+    op = tile_knn.bf16_operand(x)
+    assert op.dtype == torch.bfloat16 and op.is_contiguous()
+    assert op.shape == (37, -(-d // 64) * 64)
+    assert torch.equal(op[:, :d], x.to(torch.bfloat16))
+    assert not op[:, d:].any()
+
+
+def test_bf16_operand_of_an_empty_matrix_is_one_zero_row():
+    op = tile_knn.bf16_operand(torch.zeros((0, 5)))
+    assert op.shape == (1, 64) and not op.any()
+
+
+def test_bf16_operand_is_kept_with_its_tensor():
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (20, 70)).astype(np.float32))
+    first = tile_knn.bf16_operand(x, cache=True)
+    assert tile_knn.bf16_operand(x, cache=True) is first
+    assert tile_knn.bf16_operand(x) is not first  # uncached: a new copy
+    x.mul_(2)  # an in-place change makes a new copy
+    again = tile_knn.bf16_operand(x, cache=True)
+    assert again is not first
+    assert torch.equal(again[:, :70], x.to(torch.bfloat16))
+    assert torch.equal(tile_knn.bf16_operand(x.clone(), cache=True), again)
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["grid", "float"])
+@pytest.mark.parametrize("d", OPERAND_DS)
+def test_bf16_operands_give_the_plain_versions_keys(d, kind, store):
+    # Bit for bit, at the split layout of the bf16 kernel's plan and at
+    # splits ending inside a tile; the norms are those of the stored values.
+    train, test = problem(kind, d, seed=d + 11)
+    train[7, 0] = np.nan
+    t, q = torch.from_numpy(train).to(store), torch.from_numpy(test)
+    for k in (1, 5, 17):
+        for plan in (tile_knn.tile_split_plan(N - 9, Q, 132, k, "bf16"),
+                     (3, 100)):
+            got = operand_keys(t, q, N - 9, k, *plan)
+            want = tile_knn.knn_tile_scan_reference(t, q, N - 9, k, "bf16",
+                                                    *plan)
+            assert torch.equal(got, want), (k, plan)
+
+
+@pytest.mark.parametrize("kind", ["grid", "float"])
+@pytest.mark.parametrize("d", OPERAND_DS)
+@pytest.mark.parametrize("route", ["merge", "stripe"])
+def test_bf16_operands_match_the_jax_bf16_kernels(route, d, kind):
+    # The keys from the kernel's operands against knn_tpu's interpreted bf16
+    # kernels, each fed its route's store: equal indices and bit-equal
+    # distances on integer grids, the module's tolerance on float rows.
+    train, test = problem(kind, d, seed=d * 7 + FORMS.index("bf16"))
+    store = torch.bfloat16 if (merge_store("bf16") if route == "merge"
+                               else stripe_store("bf16", d)) == jnp.bfloat16 \
+        else torch.float32
+    d_want, i_want = jax_answer(route, "bf16", d, kind)
+    t, q = torch.from_numpy(train).to(store), torch.from_numpy(test)
+    d_got, i_got = cuda_knn.knn_stripe_merge(operand_keys(t, q, N, 16, 1, N))
+    d_got, i_got = d_got.numpy(), i_got.numpy()
+    if kind == "grid":
+        np.testing.assert_array_equal(i_got, i_want)
+        assert d_got.tobytes() == d_want.tobytes()
+    else:
+        assert_agree(train, test, "bf16", store, d_got, i_got, d_want, i_want)
+
+
+@pytest.mark.parametrize("n_valid", [1, 3001, 65_536])
+@pytest.mark.parametrize("k", [5, 17, 256])
+def test_bf16_split_plan_is_one_wave(n_valid, k):
+    # The bf16 kernel runs one block per SM: its plan aims at one block per
+    # SM, keeps k > 16's 2k-row minimum, and covers every row.
+    n_splits, rows = tile_knn.tile_split_plan(n_valid, 2048, 132, k, "bf16")
+    assert rows % 128 == 0 and n_splits * rows >= n_valid > (n_splits - 1) * rows
+    assert n_splits * 16 <= 132 or rows == 128
+    if k > 16:
+        assert rows >= 2 * k or n_splits == 1
+
+
+def test_tile_forms_probe_main_at_a_reduced_size():
+    from knn_tpu_torch.probes import tile_forms
+    out = io.StringIO()
+    assert tile_forms.main(["--device", "cpu", "--rows", "300", "--queries",
+                            "7", "--reps", "1", "--tag", "t"], stdout=out) == 0
+    line = json.loads(out.getvalue())
+    assert line["device"] == "cpu (plain versions)" and line["tag"] == "t"
+    assert sorted(line["ms"]) == sorted([
+        "wide exact k=5 f32 store", "wide fast k=5 f32 store",
+        "wide bf16 k=5 bf16 store", "wide bf16 k=32 bf16 store",
+        "wide bf16 k=256 bf16 store", "wide bf16 k=5 f32 store",
+        "wide P1 block_n=1024", "large bf16 k=5 f32 store",
+        "large bf16 k=32 bf16 store", "large bf16 k=256 bf16 store",
+        "large exact k=32 f32 store", "large exact k=256 f32 store"])
+    assert all(ms > 0 for ms in line["ms"].values())
