@@ -49,10 +49,15 @@ Phases, each printed as it runs; any failure exits non-zero:
                         256, held to its plain version and timed.
 12. ``classify_xla``  — ``cli.run --backend cuda`` on the large shape
                         through the XLA route (torch ops, no hand kernel):
-                        k = 32 (the tiled scan) in the euclidean and cosine
-                        metrics, ``--engine xla`` at k = 5; predictions against the
-                        oracle and ``cuda-tile``; the route timed beside
-                        ``cuda-tile``.
+                        ``--engine xla`` at k = 32 (the tiled scan) and
+                        k = 5, ``--metric cosine`` at k = 32; predictions
+                        against the oracle and ``cuda-tile``; the route
+                        timed beside ``cuda-tile``. Then ``--backend cuda``
+                        at k = 32 with the default engine, which sends
+                        euclidean problems to the kernels: the tile kernel's
+                        counters move, predictions equal ``cuda-tile``'s
+                        and the oracle's, and its result line is no slower
+                        than ``cuda-tile``'s.
 13. ``probe_selection`` — P2's entry point
                         (``knn_tpu_torch.probes.tune_stripe_selection``) on
                         the large shape, counters read around it; each
@@ -90,6 +95,7 @@ sys.path.insert(0, str(REPO))
 from knn_tpu_torch.obs.bench_timing import cuda_ms  # noqa: E402
 from knn_tpu_torch.probes.data import (  # noqa: E402
     large_fixture,
+    tiled_large,
     wide_data,
     write_arff,
 )
@@ -190,15 +196,6 @@ def parity_cases(rng):
     few = rng.standard_normal((40, 7)).astype(np.float32)
     few[5:, 3] = np.nan
     yield "few-finite d=7 k=16", few, few[:9].copy(), 40, 16
-
-
-def tiled_large(x: np.ndarray, y: np.ndarray, reps: int):
-    """The xl train set (bench.py::_tiled_large): ``x`` tiled ``reps`` times
-    with 1e-3 float32 noise so the copies are not duplicates."""
-    rng = np.random.default_rng(0)
-    feats = np.tile(x, (reps, 1))
-    feats += 1e-3 * rng.standard_normal(feats.shape, dtype=np.float32)
-    return feats, np.tile(y, reps)
 
 
 def max_err(torch, got, want) -> float:
@@ -835,13 +832,18 @@ def cosine_near_ties(what: str, train_x, test_x, got_i, want_i) -> int:
 def phase_classify_xla(torch, dev, cuda_knn, tile_knn, vote_neighbors,
                        train_path, test_path) -> dict:
     """The XLA route of ``--backend cuda`` (torch ops on the card, no hand
-    kernel) on the large shape: ``cli.run`` at k = 32 (the tiled scan:
-    1,718 x 30,803 cells are past the 16 Mi full-matrix limit), with
-    ``--metric cosine``, and with ``--engine xla`` at k = 5, the kernels'
-    counters read around each (they stay 0). Predictions against the
-    oracle's (cosine: equal wherever the neighbor lists agree, the lists
-    differing only at near ties) and ``cuda-tile``'s; the route's device
-    time beside ``cuda-tile``'s on the same problem (CUDA events)."""
+    kernel) on the large shape: ``cli.run --engine xla`` at k = 32 (the
+    tiled scan: 1,718 x 30,803 cells are past the 16 Mi full-matrix limit)
+    and k = 5, and ``--metric cosine`` at k = 32, the kernels' counters read
+    around each (they stay 0). Predictions against the oracle's (cosine:
+    equal wherever the neighbor lists agree, the lists differing only at
+    near ties) and ``cuda-tile``'s; the route's device time beside
+    ``cuda-tile``'s on the same problem (CUDA events). Then the default
+    engine at k = 32 (``auto-k32``), which sends the euclidean problem to
+    the kernels: the tile scan's and the merge's counters must move, the
+    predictions equal ``cuda-tile``'s and the oracle's, and the result line
+    be no slower than ``cuda-tile``'s run just after it (the ms field's
+    resolution, 1 ms, allowed)."""
     from knn_tpu_torch import cli
     from knn_tpu_torch.backends import cuda as cuda_backend
     from knn_tpu_torch.backends import get_backend
@@ -855,31 +857,38 @@ def phase_classify_xla(torch, dev, cuda_knn, tile_knn, vote_neighbors,
         return (sum(c.launches for c in counters)
                 + sum(tile_scan.launches.values()))
 
-    train, test = load_arff(str(train_path)), load_arff(str(test_path))
-    n, d, q = train.num_instances, train.num_features, test.num_instances
-    res = {"lines": {}}
-    for name, k, flags in (("k32", 32, []), ("cosine", 32, ["--metric", "cosine"]),
-                           ("engine-xla", 5, ["--engine", "xla"])):
+    def reset():
         for c in counters:
             c.launches = 0
         for form in tile_scan.launches:
             tile_scan.launches[form] = 0
+
+    def line_of(k, *flags):
         out = io.StringIO()
-        rc = cli.run([str(train_path), str(test_path), str(k), "--backend",
-                      "cuda", *flags, "--warmup", "--json"], stdout=out)
+        rc = cli.run([str(train_path), str(test_path), str(k), *flags,
+                      "--warmup", "--json"], stdout=out)
         if rc != 0:
-            raise SystemExit(f"classify_xla {name}: cli.run exited {rc}")
+            raise SystemExit(f"classify_xla {flags}: cli.run exited {rc}")
         line, js = out.getvalue().splitlines()
         print(line)
         print(js)
+        return line
+
+    train, test = load_arff(str(train_path)), load_arff(str(test_path))
+    n, d, q = train.num_instances, train.num_features, test.num_instances
+    res = {"lines": {}}
+    for name, k, metric, engine in (("k32", 32, "euclidean", "xla"),
+                                    ("cosine", 32, "cosine", "auto"),
+                                    ("engine-xla", 5, "euclidean", "xla")):
+        reset()
+        line = line_of(k, "--backend", "cuda", "--metric", metric,
+                       "--engine", engine)
         if launched():
             raise SystemExit(f"classify_xla {name}: a hand kernel launched on "
                              "the XLA route")
         res["lines"][name] = line
-        metric = "cosine" if name == "cosine" else "euclidean"
         preds = get_backend("cuda")(train, test, k, metric=metric,
-                                    engine="xla" if name == "engine-xla"
-                                    else "auto")
+                                    engine=engine)
         acc = float((preds == test.labels).mean())
         if f"Accuracy was {acc:.4f}" not in line:
             raise SystemExit(f"classify_xla {name}: accuracy {acc:.4f} not in "
@@ -952,6 +961,38 @@ def phase_classify_xla(torch, dev, cuda_knn, tile_knn, vote_neighbors,
           f"merge, vote) {res['tile_ms']} ms; result lines "
           f"{[_ms_of(x) for x in res['lines'].values()]} ms "
           f"(k32, cosine, engine-xla)")
+
+    # The default engine sends the euclidean k = 32 problem to the kernels.
+    reset()
+    auto_line = line_of(32, "--backend", "cuda")
+    launches = {"exact": tile_scan.launches["exact"],
+                "merge": cuda_knn.knn_stripe_merge.launches}
+    if min(launches.values()) < 1:
+        raise SystemExit(f"classify_xla auto-k32: the tile kernel was never "
+                         f"launched: {launches}")
+    tile_line = line_of(32, "--backend", "cuda-tile")
+    preds = get_backend("cuda")(train, test, 32)
+    tile = get_backend("cuda-tile")(train, test, 32)
+    oracle = knn_oracle(train.features, train.labels, test.features[:128], 32,
+                        train.num_classes)
+    if not np.array_equal(preds, tile) or not np.array_equal(oracle,
+                                                             preds[:128]):
+        raise SystemExit("classify_xla auto-k32: predictions differ from "
+                         "cuda-tile's or the oracle's")
+    acc = float((preds == test.labels).mean())
+    if f"Accuracy was {acc:.4f}" not in auto_line:
+        raise SystemExit(f"classify_xla auto-k32: accuracy {acc:.4f} not in "
+                         f"{auto_line!r}")
+    if _ms_of(auto_line) > _ms_of(tile_line) + 1:
+        raise SystemExit(f"classify_xla auto-k32: {_ms_of(auto_line)} ms, "
+                         f"slower than cuda-tile's {_ms_of(tile_line)} ms")
+    res["lines"]["auto-k32"] = auto_line
+    res["auto_launches"] = launches
+    print(f"auto-k32: launches {launches} (--warmup run + timed run); "
+          f"predictions equal to cuda-tile's on {q} queries and the oracle's "
+          f"on 128; result line {_ms_of(auto_line)} ms against cuda-tile's "
+          f"{_ms_of(tile_line)} ms (XLA route's line above: "
+          f"{_ms_of(res['lines']['k32'])} ms)")
     return res
 
 
@@ -987,8 +1028,7 @@ def phase_probe_selection(torch, dev, cuda_knn) -> dict:
     tx = torch.from_numpy(train.features.copy()).to(dev)
     queries = [torch.from_numpy(test.features + np.float32(i) * np.float32(1e-7))
                .to(dev) for i in range(12)]
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = cuda_knn.split_plan(n, q, sm_count)
+    plan = cuda_knn.stripe_split_plan(n, q, dev, d, k)
     res = {"launches": launches, "ms": {}, "plain_ms": {}, "max_abs_err": {},
            "bound": scan_bound_ms(q, n, d, k, plan[0]),
            "shape": f"q={q} n={n} d={d} k={k} splits={plan[0]}"}
@@ -1009,8 +1049,8 @@ def phase_probe_selection(torch, dev, cuda_knn) -> dict:
         res["plain_ms"][mode] = cuda_ms(
             cuda_knn.knn_stripe_scan_variant_reference,
             [(tx, qb, n, k, mode, *plan) for qb in queries[:3]], reps=3)
-    print(f"at the shipped plan ({plan[0]} splits of {plan[1]} rows, each "
-          f"{plan[1] // cuda_knn._TILE_ROWS} tiles): insert and every "
+    print(f"at the shipped scan's plan ({plan[0]} splits of {plan[1]} rows, "
+          f"each {plan[1] // cuda_knn._TILE_ROWS} tiles): insert and every "
           "selection's keys bit-equal to their plain versions; median of 12 "
           f"CUDA-event times: {res['ms']} ms; plain versions (median of 3) "
           f"{res['plain_ms']} ms; bound {res['bound'][0]} ms "
@@ -1201,7 +1241,7 @@ def main() -> int:
     print(f"predictions, indices and distances equal to the plain version on "
           f"the card (bit-equal), predictions equal to the oracle on 128 "
           f"queries; scan+merge at {n}x{d}, {q} queries, k=5, "
-          f"{cuda_knn.split_plan(n, q, sm_count)[0]} splits: "
+          f"{cuda_knn.stripe_split_plan(n, q, dev, d, 5)[0]} splits: "
           f"{large_ms} ms (bound {large_bound} ms)")
 
     phase("classify_xl")
@@ -1226,7 +1266,7 @@ def main() -> int:
           f"the plain version; scan+merge {ms} ms (median of 12, CUDA events), "
           f"plain {plain_ms} ms (median of 3), bound {b_ms} ms ({b_by})")
 
-    plan = cuda_knn.split_plan(n, q, sm_count)
+    plan = cuda_knn.stripe_split_plan(n, q, dev, d, k)
     partials = [scan(tx, qb, n, k, *plan) for qb in queries]
     check_equal("classify_xl scan keys", torch, partials[0],
                 cuda_knn.knn_stripe_scan_reference(tx, queries[0], n, k, *plan))

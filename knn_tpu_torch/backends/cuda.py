@@ -5,14 +5,18 @@ Two routes, chosen as the JAX ``predict_arrays`` chooses them:
 - The stripe route (``ops/cuda_knn.py::stripe_classify_arrays``), the
   hand-written kernels: the stripe kernel for the exact form with
   d <= 128 and k <= 16, the tile kernel otherwise. Engine ``stripe`` sends
-  every euclidean problem there, at any k; engine ``auto`` sends the
-  problems ``stripe_route_ok`` admits (the exact form with d <= 128, the
-  bf16 form at any width, the fast form with d > 128, each with k <= 16).
-  JAX admits them only on a real TPU; here on either device, since both
-  routes compute the same function.
-- The XLA route, everything else (engine ``xla`` forces it): the JAX
-  package's XLA scans as PyTorch ops on the tensors' device, each under its
-  JAX name. :func:`_predict_query_batched` streams ``query_batch`` chunks;
+  every euclidean problem there, at any k. Engine ``auto`` sends every
+  euclidean problem there too, at any k and form, unless ``force_tiled``
+  is set; with ``query_batch`` only the problems that ``stripe_route_ok``
+  admits (the exact form with d <= 128, the bf16 form at any width, the
+  fast form with d > 128, each with k <= 16). JAX sends the euclidean
+  problems outside ``stripe_route_ok`` to its XLA scans, and admits the
+  rest only on a real TPU; here both routes compute the same function on
+  either device, so the card's euclidean problems take the kernels.
+- The XLA route, everything else (engine ``xla`` forces it; the manhattan,
+  chebyshev and cosine metrics, ``force_tiled``, and ``query_batch``
+  outside ``stripe_route_ok`` take it): the JAX package's XLA scans as
+  PyTorch ops on the tensors' device, each under its JAX name. :func:`_predict_query_batched` streams ``query_batch`` chunks;
   otherwise :func:`knn_forward` takes the whole ``[Q, N]`` distance matrix
   when it has at most ``_FULL_MATRIX_CELL_LIMIT`` cells (and not
   ``force_tiled``), else :func:`forward_tiled_core` scans train tiles with
@@ -257,7 +261,7 @@ def predict_arrays(
         return np.empty(0, np.int32)
     if engine == "stripe" or (
             engine == "auto" and not force_tiled and metric == "euclidean"
-            and stripe_route_ok(form, d, k)):
+            and (query_batch is None or stripe_route_ok(form, d, k))):
         return stripe_classify_arrays(
             train_x, train_y, test_x, k, num_classes, precision=form,
             device=device, cache=device_cache,

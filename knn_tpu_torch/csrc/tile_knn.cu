@@ -41,10 +41,22 @@
 // contiguous split of the train rows (gridDim.y splits, planned by
 // ops/tile_knn.py::tile_split_plan). It walks its split in tiles of 128
 // rows. For each tile it loops over the features in chunks of 16 in source
-// order: the chunk of the 128 queries and of the 128 rows is staged
-// transposed in shared memory (zero past d and past the last row: a zero
-// feature adds exactly 0), and each thread accumulates an 8x8 register tile
-// of (query, row) pairs from two float4 loads of each operand per feature.
+// order, and each thread accumulates an 8x8 register tile of (query, row)
+// pairs from two float4 loads of each operand per feature. Both operands
+// are feature-major copies (ops/cuda_knn.py::feature_major: the train's
+// kept with the train tensor, the queries' made per call), so a chunk of
+// the 128 queries or of the tile's 128 rows is 16 runs of 512 contiguous,
+// 16-byte aligned bytes: cp.async copies them into a ring of two stages
+// (16 bytes a copy, no index arithmetic per element, zero-filled past d and
+// past the split's rows: a zero feature adds exactly 0). The block walks
+// its (tile, chunk) steps in order with one barrier a step: at step s it
+// waits for its own copies of s, syncs, issues the copies of s + 1 into
+// the stage that step s - 1 read, and multiplies s. So chunk c + 1 is in
+// flight while chunk c is multiplied. The ring shares its 32 KB with the
+// distance tile (a block needs 66 KB, 75 KB at k > 16, where the old
+// synchronous staging needed 83 and 92), so two blocks per SM leave more of
+// the SM's memory to L1; a tile's first chunk is issued after the previous
+// tile's selection.
 //
 // Design, bf16. A block of two consumer warpgroups and a producer warp owns
 // 128 queries and one split, in tiles of 128 rows; each warpgroup's 64x128
@@ -59,7 +71,9 @@
 // k packed keys goes to [Q, splits, k] scratch.
 //
 // Selection, k <= 16: threads 0..127, one per query, insert the tile's
-// distances into a sorted register list of exactly k keys (stripe_knn.cuh).
+// distances into a sorted register list of exactly k keys
+// (stripe_knn.cuh::insert_row, as the stripe scan does: a query's rows
+// arrive in ascending index order).
 //
 // Selection, k > 16 (K == kLargeK), any k: the list is the query's output
 // row partial[q, split, :k] itself, sentinel-filled at the start and kept
@@ -82,10 +96,9 @@
 // Queries and rows are re-read from L2 for every (query block, row tile)
 // pair, in every form.
 //
-// Left for later: cp.async/TMA double buffering of the CUDA-core forms'
-// chunks, all 256 threads on the k <= 16 selection, a list in shared
-// memory for moderate k, and a bf16 tile wider than 128 rows (fewer query
-// re-reads per row).
+// Left for later: all 256 threads on the k <= 16 selection, a list in
+// shared memory for moderate k, and a bf16 tile wider than 128 rows (fewer
+// query re-reads per row).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,22 +110,40 @@
 
 namespace tile_knn {
 
-using stripe_knn::insert_key;
+using stripe_knn::cp_async16;
+using stripe_knn::cp_async_commit;
+using stripe_knn::cp_async_wait;
+using stripe_knn::insert_row;
+using stripe_knn::kScanSentinelKey;
 using stripe_knn::kSentinelKey;
 using stripe_knn::pack_key;
+using stripe_knn::scan_key;
 
 enum Form { kExact = 0, kFast = 1, kBf16 = 2 };
 
 constexpr int kThreads = 256;
 constexpr int kTile = 128;   // queries per block, and train rows per tile
 constexpr int kChunk = 16;   // features staged per step (exact and fast)
-// Pitch of a staged feature row, in floats: 16-byte aligned for the float4
-// loads, and off a multiple of 32 so the transposed stores spread over banks.
-constexpr int kPitch = kTile + 4;
+// A chunk of one operand in shared memory: [kChunk][kTile] floats, each
+// feature's 128 queries or rows one contiguous 512-byte run, as cp.async
+// copies it from the feature-major operand. The float4 loads of the inner
+// loop read it without bank conflicts (see the kernel).
+constexpr int kChunkFloats = kChunk * kTile;
+// Stages of the ring: chunk c + 1 is copied while chunk c is multiplied.
+constexpr int kStages = 2;
+constexpr size_t kRingBytes = size_t(kStages) * 2 * kChunkFloats * sizeof(float);
+// 16-byte copies of one operand's chunk per thread.
+constexpr int kCopiesPerThread = kChunkFloats / 4 / kThreads;
+static_assert(kCopiesPerThread * 4 * kThreads == kChunkFloats,
+              "the threads copy a chunk in whole rounds");
 // Pitch of the distance tile: odd, so one query per thread reads one bank.
 constexpr int kDistPitch = kTile + 1;
 constexpr size_t kDistBytes = kTile * kDistPitch * sizeof(float);
-constexpr size_t kSmemBytes = 2 * kChunk * kPitch * sizeof(float) + kDistBytes;
+// The ring and the distance tile share their shared memory: the ring holds
+// a tile's chunks while it is multiplied, the distance tile its finished
+// distances while they are selected.
+constexpr size_t kSmemBytes = kDistBytes;
+static_assert(kRingBytes <= kDistBytes, "the ring fits in the distance tile");
 // The K of the k > 16 selection, and its extra shared memory: a candidate
 // buffer of kTile keys per warp and a threshold key per query.
 constexpr int kLargeK = 0;
@@ -131,19 +162,6 @@ static_assert(wgmma_tile::kConsumerThreads == kThreads &&
 // float4s without bank conflicts.
 __device__ __forceinline__ int slot(int a, int g) {
   return (a >> 2) * 64 + 4 * g + (a & 3);
-}
-
-// dst[f * kPitch + r] = src[row0 + r][f0 + f] for r < rows and f0 + f < d,
-// else 0. Consecutive threads read consecutive features of a row.
-__device__ __forceinline__ void stage(float* __restrict__ dst,
-                                      const float* __restrict__ src, int row0,
-                                      int rows, int d, int f0) {
-  for (int e = threadIdx.x; e < kTile * kChunk; e += kThreads) {
-    const int r = e / kChunk;
-    const int f = e % kChunk;
-    dst[f * kPitch + r] =
-        r < rows && f0 + f < d ? src[size_t(row0 + r) * d + f0 + f] : 0.0f;
-  }
 }
 
 template <int F>
@@ -272,7 +290,7 @@ struct Selection {
   __device__ __forceinline__ void begin() {
     if constexpr (K > 0) {
 #pragma unroll
-      for (int j = 0; j < K; ++j) list[j] = kSentinelKey;
+      for (int j = 0; j < K; ++j) list[j] = kScanSentinelKey;
     } else {
       const int warp = tid / 32, lane = tid % 32;
       for (int qi = warp; qi < q_rows; qi += kWarps) {
@@ -288,7 +306,7 @@ struct Selection {
     if constexpr (K > 0) {
       if (tid < q_rows) {
         const float* row = dist_s + tid * kDistPitch;
-        for (int r = 0; r < rows; ++r) insert_key<K>(list, pack_key(row[r], t0 + r));
+        for (int r = 0; r < rows; ++r) insert_row<K>(list, row[r], t0 + r);
       }
     } else {
       const int warp = tid / 32, lane = tid % 32;
@@ -318,7 +336,7 @@ struct Selection {
     if constexpr (K > 0) {
       if (tid < q_rows) {
 #pragma unroll
-        for (int j = 0; j < K; ++j) rows_out[tid * q_stride + j] = list[j];
+        for (int j = 0; j < K; ++j) rows_out[tid * q_stride + j] = scan_key(list[j]);
       }
     }
   }
@@ -326,14 +344,14 @@ struct Selection {
 
 template <int F, int K>
 __global__ void __launch_bounds__(kThreads)
-tile_scan_kernel(const float* __restrict__ train, const float* __restrict__ t2,
-                 int n_valid, const float* __restrict__ test,
+tile_scan_kernel(const float* __restrict__ train_t, int n_pad,
+                 const float* __restrict__ t2, int n_valid,
+                 const float* __restrict__ test_t, int q_pad,
                  const float* __restrict__ q2, int n_queries, int d, int k,
                  int rows_per_split, uint64_t* __restrict__ partial) {
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                       // [kChunk][kPitch]
-  float* t_s = q_s + kChunk * kPitch;      // [kChunk][kPitch]
-  float* dist_s = t_s + kChunk * kPitch;   // [kTile][kDistPitch]
+  float* ring = smem;    // [kStages][2][kChunkFloats], while multiplying
+  float* dist_s = smem;  // [kTile][kDistPitch], while selecting
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // row group
@@ -342,6 +360,34 @@ tile_scan_kernel(const float* __restrict__ train, const float* __restrict__ t2,
   const int q_rows = min(kTile, n_queries - q0);
   const int r_begin = blockIdx.y * rows_per_split;
   const int r_end = min(r_begin + rows_per_split, n_valid);
+  const int n_tiles = r_end > r_begin ? (r_end - r_begin + kTile - 1) / kTile : 0;
+  const int n_chunks = max(1, (d + kChunk - 1) / kChunk);
+
+  // Step s of the block (tile s / n_chunks, chunk s % n_chunks) into stage
+  // s % kStages: the chunk's kChunk feature runs of the 128 queries and of
+  // the tile's 128 rows, 16 bytes a copy. Features at or past d, and rows
+  // at or past r_end, are zero-filled: a zero feature adds exactly 0 in
+  // both forms, and those rows are never selected.
+  auto issue = [&](int s) {
+    const int i = s / n_chunks;
+    const int f0 = (s - i * n_chunks) * kChunk;
+    const int t0 = r_begin + i * kTile;
+    float* q_dst = ring + (s % kStages) * 2 * kChunkFloats;
+    float* t_dst = q_dst + kChunkFloats;
+#pragma unroll
+    for (int j = 0; j < kCopiesPerThread; ++j) {
+      const int p = tid + j * kThreads;
+      const int f = p / (kTile / 4);
+      const int c = (p % (kTile / 4)) * 4;
+      const bool feature = f0 + f < d;
+      const bool row = feature && t0 + c < r_end;
+      cp_async16(q_dst + f * kTile + c,
+                 feature ? test_t + size_t(f0 + f) * q_pad + q0 + c : test_t,
+                 feature);
+      cp_async16(t_dst + f * kTile + c,
+                 row ? train_t + size_t(f0 + f) * n_pad + t0 + c : train_t, row);
+    }
+  };
 
   float qn[8] = {};
   if constexpr (F != kExact) {
@@ -354,7 +400,9 @@ tile_scan_kernel(const float* __restrict__ train, const float* __restrict__ t2,
                    reinterpret_cast<uint64_t*>(dist_s + kTile * kDistPitch));
   sel.begin();
 
-  for (int t0 = r_begin; t0 < r_end; t0 += kTile) {
+  int s = 0;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t0 = r_begin + i * kTile;
     const int rows = min(kTile, r_end - t0);
     float acc[8][8];
 #pragma unroll
@@ -362,16 +410,24 @@ tile_scan_kernel(const float* __restrict__ train, const float* __restrict__ t2,
 #pragma unroll
       for (int b = 0; b < 8; ++b) acc[a][b] = 0.0f;
     }
-
-    for (int f0 = 0; f0 < d; f0 += kChunk) {
-      __syncthreads();  // the previous chunk is consumed
-      stage(q_s, test, q0, q_rows, d, f0);
-      stage(t_s, train, t0, rows, d, f0);
+    __syncthreads();  // the previous tile's selection is done with dist_s
+    issue(s);
+    cp_async_commit();
+    for (int c = 0; c < n_chunks; ++c, ++s) {
+      cp_async_wait<0>();
+      // Step s has landed for every thread, and every thread is done with
+      // step s - 1, so its stage can take step s + 1.
       __syncthreads();
+      if (c + 1 < n_chunks) issue(s + 1);
+      cp_async_commit();
+      const float* q_s = ring + (s % kStages) * 2 * kChunkFloats;
+      const float* t_s = q_s + kChunkFloats;
 #pragma unroll
       for (int f = 0; f < kChunk; ++f) {
-        const float* qf = q_s + f * kPitch;
-        const float* tf = t_s + f * kPitch;
+        // A warp's threads read two query float4s (broadcast) and sixteen
+        // consecutive row float4s: conflict-free.
+        const float* qf = q_s + f * kTile;
+        const float* tf = t_s + f * kTile;
         const float4 qa = *reinterpret_cast<const float4*>(qf + 4 * ty);
         const float4 qb = *reinterpret_cast<const float4*>(qf + 64 + 4 * ty);
         const float4 ta = *reinterpret_cast<const float4*>(tf + 4 * tx);
@@ -393,7 +449,7 @@ tile_scan_kernel(const float* __restrict__ train, const float* __restrict__ t2,
         if (slot(b, tx) < rows) tn[b] = t2[t0 + slot(b, tx)];
       }
     }
-    __syncthreads();  // the previous tile's selection has read dist_s
+    __syncthreads();  // every thread is done with the ring
 #pragma unroll
     for (int a = 0; a < 8; ++a) {
 #pragma unroll
@@ -471,10 +527,16 @@ tile_scan_bf16_kernel(const __grid_constant__ CUtensorMap t_map,
 }
 
 template <int F, int K>
-cudaError_t launch_scan(const float* train, const float* t2, int n_valid,
-                        const float* test, const float* q2, int n_queries,
-                        int d, int k, int n_splits, int rows_per_split,
-                        uint64_t* partial, cudaStream_t stream) {
+cudaError_t launch_scan(const float* train_t, int n_pad, const float* t2,
+                        int n_valid, const float* test_t, int q_pad,
+                        const float* q2, int n_queries, int d, int k,
+                        int n_splits, int rows_per_split, uint64_t* partial,
+                        cudaStream_t stream) {
+  if (rows_per_split % stripe_knn::kSplitAlign != 0 ||
+      n_pad % stripe_knn::kRowGranule != 0 || q_pad % kTile != 0 ||
+      q_pad < n_queries) {
+    return cudaErrorInvalidValue;
+  }
   const size_t smem = kSmemBytes + (K > 0 ? 0 : kLargeExtraBytes);
   cudaError_t err = cudaFuncSetAttribute(
       tile_scan_kernel<F, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -482,7 +544,8 @@ cudaError_t launch_scan(const float* train, const float* t2, int n_valid,
   if (err != cudaSuccess) return err;
   const dim3 grid((n_queries + kTile - 1) / kTile, n_splits);
   tile_scan_kernel<F, K><<<grid, kThreads, smem, stream>>>(
-      train, t2, n_valid, test, q2, n_queries, d, k, rows_per_split, partial);
+      train_t, n_pad, t2, n_valid, test_t, q_pad, q2, n_queries, d, k,
+      rows_per_split, partial);
   return cudaGetLastError();
 }
 
@@ -511,21 +574,24 @@ cudaError_t launch_bf16(const void* train, int n_rows, const float* t2,
 
 }  // namespace tile_knn
 
-// Launch the exact (form 0) or fast (form 1) tile scan on `stream` over a
-// [N, d] float32 train matrix and [n_queries, d] float32 queries; returns
-// the CUDA status (0 = launched). The caller validates shapes (k >= 1,
-// n_queries >= 1, 0 <= n_valid <= N, n_splits * rows_per_split >=
-// n_valid), passes the [n_queries] and [N] float32 norms for the fast form
-// (null for exact), and allocates `partial` as [n_queries, n_splits, k]
-// uint64.
-extern "C" int tile_knn_scan(int form, const void* train, const void* t2,
-                             int n_valid, const void* test, const void* q2,
-                             int n_queries, int d, int k, int n_splits,
-                             int rows_per_split, void* partial, void* stream) {
+// Launch the exact (form 0) or fast (form 1) tile scan on `stream`; returns
+// the CUDA status (0 = launched). `train_t` [d, n_pad] and `test_t`
+// [d, q_pad] are the feature-major float32 operands (ops/cuda_knn.py::
+// feature_major: n_pad a multiple of kRowGranule, q_pad a multiple of 128
+// and at least n_queries, zeros past the true rows). The caller validates
+// shapes (k >= 1, n_queries >= 1, 0 <= n_valid <= N, n_splits *
+// rows_per_split >= n_valid, rows_per_split a multiple of kSplitAlign),
+// passes the [n_queries] and [N] float32 norms for the fast form (null for
+// exact), and allocates `partial` as [n_queries, n_splits, k] uint64.
+extern "C" int tile_knn_scan(int form, const void* train_t, int n_pad,
+                             const void* t2, int n_valid, const void* test_t,
+                             int q_pad, const void* q2, int n_queries, int d,
+                             int k, int n_splits, int rows_per_split,
+                             void* partial, void* stream) {
   using namespace tile_knn;
-  const auto* trainf = static_cast<const float*>(train);
+  const auto* trainf = static_cast<const float*>(train_t);
   const auto* t2f = static_cast<const float*>(t2);
-  const auto* testf = static_cast<const float*>(test);
+  const auto* testf = static_cast<const float*>(test_t);
   const auto* q2f = static_cast<const float*>(q2);
   auto* out = static_cast<uint64_t*>(partial);
   auto* s = static_cast<cudaStream_t>(stream);
@@ -533,12 +599,12 @@ extern "C" int tile_knn_scan(int form, const void* train, const void* t2,
     constexpr int K = decltype(kc)::value;
     switch (form) {
       case kExact:
-        return launch_scan<kExact, K>(trainf, t2f, n_valid, testf, q2f,
-                                      n_queries, d, k, n_splits,
+        return launch_scan<kExact, K>(trainf, n_pad, t2f, n_valid, testf,
+                                      q_pad, q2f, n_queries, d, k, n_splits,
                                       rows_per_split, out, s);
       case kFast:
-        return launch_scan<kFast, K>(trainf, t2f, n_valid, testf, q2f,
-                                     n_queries, d, k, n_splits,
+        return launch_scan<kFast, K>(trainf, n_pad, t2f, n_valid, testf,
+                                     q_pad, q2f, n_queries, d, k, n_splits,
                                      rows_per_split, out, s);
       default:
         return cudaErrorInvalidValue;

@@ -3,10 +3,13 @@ and the host entries of the classify path.
 
 The port of ``knn_tpu/ops/pallas_knn.py``'s stripe route, exact form. The
 kernel (``csrc/stripe_knn.cu``) is written for the GPU, not translated from
-the Pallas blocks: no 128-lane layout, no v5e block tunings, no padding
-(rows at or past ``n_valid`` are masked inside the kernel), and no
-super-chunk or windowed dispatch — those worked around the TPU's fetch
-round trip. The queries go to the card in one call.
+the Pallas blocks: no 128-lane layout, no v5e block tunings, no padding of
+the features (rows at or past ``n_valid`` are masked inside the kernel),
+and no super-chunk or windowed dispatch — those worked around the TPU's
+fetch round trip. The queries go to the card in one call. Like the TPU
+kernel, it reads a transposed train: :func:`feature_major` makes the
+``[D, N]`` copy (rows rounded up to 128) once per train tensor and keeps it
+with it, for this kernel and the tile kernel's exact and fast forms.
 
 Two kernels, each with its own wrapper, launch counter and plain version:
 :func:`knn_stripe_scan` keeps the k best keys of each (query, train split),
@@ -41,10 +44,12 @@ slots beyond the valid rows are ``(+inf, INT32_MAX)``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from knn_tpu_torch.ops import _build
 from knn_tpu_torch.ops.distance import DIST_FNS, pairwise_sq_dists
@@ -59,7 +64,13 @@ _SENTINEL_KEY = (0x7F800000 << 32) | INT_MAX  # (+inf, INT32_MAX)
 
 # Must match csrc/stripe_knn.cuh.
 _QUERIES_PER_BLOCK = 128
-_TILE_ROWS = 64
+_TILE_ROWS = 128  # kTileRows: the stripe scan's tile and split granule
+# kRowGranule: the rows of a feature-major operand come in multiples of
+# this, zero-filled past the matrix's own rows.
+ROW_GRANULE = 128
+# kSplitAlign: the feature-major kernels' splits start on a multiple of
+# this many rows (16 bytes of float32), so each run they copy is aligned.
+SPLIT_ALIGN = 4
 # Scan blocks to aim for per SM: enough resident blocks to fill the card
 # when there are few queries, by splitting the train rows across blocks.
 _BLOCKS_PER_SM = 16
@@ -164,6 +175,43 @@ def _unpack_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return dists, idx
 
 
+# x -> {name: (x._version, value)}: what is kept with a tensor, dropped
+# with it.
+_kept = WeakIdKeyDictionary()
+
+
+def _kept_with(x: torch.Tensor, name: str, make):
+    """``make()``, kept with ``x`` under ``name`` while ``x`` lives and is
+    not modified in place."""
+    entries = _kept.setdefault(x, {})
+    hit = entries.get(name)
+    if hit is None or hit[0] != x._version:
+        hit = entries[name] = (x._version, make())
+    return hit[1]
+
+
+def feature_major(x: torch.Tensor, cache: bool = False) -> torch.Tensor:
+    """``[R, D]`` float32 -> the ``[max(D, 1), R_pad]`` float32 operand of
+    the stripe kernel and the tile kernel's exact and fast forms: ``x``
+    transposed, so that each feature's values over the rows are one
+    contiguous run, ``R_pad`` the rows rounded up to a multiple of
+    :data:`ROW_GRANULE` (at least one), zeros past R (and in the one row of
+    a matrix with no features). Every run then starts 16-byte aligned, and
+    a kernel stages it with 16-byte asynchronous copies. With ``cache`` the
+    copy is kept with ``x`` (``N * D * 4`` more bytes for a train matrix,
+    rows rounded up), so a train tensor is transposed once."""
+    def make():
+        r, d = x.shape
+        rows = -(-max(r, 1) // ROW_GRANULE) * ROW_GRANULE
+        if d == 0:
+            return x.new_zeros((1, rows), dtype=torch.float32)
+        # One op (a per-call copy of the queries costs host time before the
+        # kernel's launch): the transposed view, zero-padded to `rows`.
+        return torch.nn.functional.pad(x.T, (0, rows - r)).contiguous()
+
+    return _kept_with(x, "feature_major", make) if cache else make()
+
+
 def knn_stripe_candidates_reference(
     train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
     form: str = "exact",
@@ -264,29 +312,60 @@ def check_stripe_k(k: int) -> None:
                          "kernel")
 
 
-def check_splits(n_valid: int, n_splits: int, rows_per_split: int) -> None:
+def check_splits(n_valid: int, n_splits: int, rows_per_split: int,
+                 align: int = 1) -> None:
     """Raise unless ``n_splits`` splits of ``rows_per_split`` rows cut
-    ``n_valid`` rows into non-empty splits that a kernel grid can hold."""
+    ``n_valid`` rows into non-empty splits that a kernel grid can hold,
+    each starting on a multiple of ``align`` rows."""
     if not (1 <= n_splits <= 65535 and 1 <= rows_per_split
+            and rows_per_split % align == 0
             and (n_splits - 1) * rows_per_split < max(n_valid, 1)
             <= n_splits * rows_per_split
             and n_valid + rows_per_split <= INT_MAX):
         raise ValueError(f"{n_splits} splits of {rows_per_split} rows do not "
-                         f"cut n_valid={n_valid} into non-empty splits")
+                         f"cut n_valid={n_valid} into non-empty splits of a "
+                         f"multiple of {align} rows")
 
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # The C entries of csrc/stripe_knn.cu; pointers and the stream are 64-bit.
 _SIGNATURES = {
-    "stripe_knn_scan": ([_p, _i, _p, _i, _i, _i, _i, _i, _p, _p], _i),
+    "stripe_knn_scan": ([_p, _i, _i, _p, _i, _i, _i, _i, _i, _p, _p], _i),
     "stripe_knn_merge": ([_p, _i, _i, _i, _p, _p, _p], _i),
-    "stripe_knn_scan_variant": ([_i, _p, _i, _p, _i, _i, _i, _i, _i, _p, _p],
-                                _i),
+    "stripe_knn_scan_variant": ([_i, _p, _i, _i, _p, _i, _i, _i, _i, _i, _p,
+                                 _p], _i),
+    "stripe_knn_blocks_per_sm": ([_i, _i], _i),
 }
 
 
 def _library():
     return _build.load_library("stripe_knn", _SIGNATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def stripe_blocks_per_sm(device, d: int, k: int) -> int:
+    """How many blocks of the stripe scan one SM of ``device`` holds at once
+    at ``d`` features and ``k``, by the kernel's registers and shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), asked of the card
+    once."""
+    with torch.cuda.device(device):
+        blocks = _library().stripe_knn_blocks_per_sm(int(d), int(k))
+    if blocks < 1:
+        raise DeviceError(f"the stripe scan fits no block on an SM at d={d}, "
+                          f"k={k}")
+    return blocks
+
+
+def stripe_split_plan(n_valid: int, n_queries: int, device, d: int,
+                      k: int) -> Tuple[int, int]:
+    """The stripe scan's split plan on ``device``: :func:`split_plan` at the
+    blocks per SM that the kernel's occupancy allows
+    (:func:`stripe_blocks_per_sm`), so that its blocks run as one wave,
+    each thread scanning as many rows as that wave leaves it."""
+    dev = torch.device(device)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    return split_plan(n_valid, n_queries, sm_count,
+                      blocks_per_sm=stripe_blocks_per_sm(dev, int(d), int(k)))
 
 
 def knn_stripe_scan(
@@ -298,8 +377,10 @@ def knn_stripe_scan(
     1 <= k <= 16 on either device.
 
     CPU tensors take the plain version. CUDA tensors launch the scan kernel
-    on the current stream, or raise. ``knn_stripe_scan.launches`` counts
-    the launches."""
+    on the current stream over the train's :func:`feature_major` copy (kept
+    with ``train_x``), or raise; each split must start on a multiple of
+    :data:`SPLIT_ALIGN` rows. ``knn_stripe_scan.launches`` counts the
+    launches."""
     n_valid, k = int(n_valid), int(k)
     n_splits, rows_per_split = int(n_splits), int(rows_per_split)
     check_stripe_k(k)
@@ -307,17 +388,18 @@ def knn_stripe_scan(
         return knn_stripe_scan_reference(train_x, test_x, n_valid, k,
                                          n_splits, rows_per_split)
     _check_kernel_inputs(train_x, test_x, n_valid, k)
-    check_splits(n_valid, n_splits, rows_per_split)
+    check_splits(n_valid, n_splits, rows_per_split, SPLIT_ALIGN)
     fn = _library().stripe_knn_scan
     q, d = test_x.shape
     dev = train_x.device
     partial = torch.empty((q, n_splits, k), dtype=torch.int64, device=dev)
     if q == 0:
         return partial
+    train_t = feature_major(train_x, cache=True)
     with torch.cuda.device(dev):
-        rc = fn(train_x.data_ptr(), n_valid, test_x.data_ptr(), q, d, k,
-                n_splits, rows_per_split, partial.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(train_t.data_ptr(), train_t.shape[1], n_valid,
+                test_x.data_ptr(), q, d, k, n_splits, rows_per_split,
+                partial.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise DeviceError(f"stripe_knn_scan launch failed: CUDA error {rc}")
     knn_stripe_scan.launches += 1
@@ -453,7 +535,8 @@ def knn_stripe_scan_variant(
     when :func:`stripe_inputs_finite` holds and k <= n_valid.
 
     CPU tensors take the plain version. CUDA tensors launch the scan kernel
-    with that selection on the current stream, or raise.
+    with that selection on the current stream, over the same operands as
+    :func:`knn_stripe_scan`, or raise.
     ``knn_stripe_scan_variant.launches[mode]`` counts the launches."""
     n_valid, k = int(n_valid), int(k)
     n_splits, rows_per_split = int(n_splits), int(rows_per_split)
@@ -462,17 +545,19 @@ def knn_stripe_scan_variant(
         return knn_stripe_scan_variant_reference(
             train_x, test_x, n_valid, k, mode, n_splits, rows_per_split)
     _check_kernel_inputs(train_x, test_x, n_valid, k)
-    check_splits(n_valid, n_splits, rows_per_split)
+    check_splits(n_valid, n_splits, rows_per_split, SPLIT_ALIGN)
     fn = _library().stripe_knn_scan_variant
     q, d = test_x.shape
     dev = train_x.device
     partial = torch.empty((q, n_splits, k), dtype=torch.int64, device=dev)
     if q == 0:
         return partial
+    train_t = feature_major(train_x, cache=True)
     with torch.cuda.device(dev):
-        rc = fn(SELECT_MODES.index(mode) + 1, train_x.data_ptr(), n_valid,
-                test_x.data_ptr(), q, d, k, n_splits, rows_per_split,
-                partial.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(SELECT_MODES.index(mode) + 1, train_t.data_ptr(),
+                train_t.shape[1], n_valid, test_x.data_ptr(), q, d, k,
+                n_splits, rows_per_split, partial.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise DeviceError(f"stripe_knn_scan_variant launch failed: CUDA "
                           f"error {rc}")
@@ -491,8 +576,8 @@ def knn_stripe_candidates(
     (distance, index) over rows ``< n_valid``; any k >= 1.
 
     CPU tensors take the plain version. CUDA tensors run
-    :func:`knn_stripe_scan` over the splits of :func:`split_plan`, then
-    :func:`knn_stripe_merge` (k > 16: the tile kernel's exact form,
+    :func:`knn_stripe_scan` over the splits of :func:`stripe_split_plan`,
+    then :func:`knn_stripe_merge` (k > 16: the tile kernel's exact form,
     ``tile_knn.knn_tile_candidates``), or raise: a build failure is a
     :class:`CompileError`, a refused launch a :class:`DeviceError`, inputs
     the kernels do not take a ``ValueError``."""
@@ -506,12 +591,10 @@ def knn_stripe_candidates(
                                             "exact")
     n_valid = int(n_valid)
     _check_kernel_inputs(train_x, test_x, n_valid, int(k))
-    sm_count = torch.cuda.get_device_properties(
-        train_x.device).multi_processor_count
-    n_splits, rows_per_split = split_plan(n_valid, test_x.shape[0], sm_count)
-    partial = knn_stripe_scan(train_x, test_x, n_valid, k, n_splits,
-                              rows_per_split)
-    return knn_stripe_merge(partial)
+    plan = stripe_split_plan(n_valid, test_x.shape[0], train_x.device,
+                             train_x.shape[1], int(k))
+    return knn_stripe_merge(knn_stripe_scan(train_x, test_x, n_valid, k,
+                                            *plan))
 
 
 def memo(cache: Optional[dict], key: tuple, make):

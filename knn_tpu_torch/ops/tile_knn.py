@@ -45,17 +45,19 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from knn_tpu_torch.ops import _build
 from knn_tpu_torch.ops.cuda_knn import (
     INT_MAX,
+    SPLIT_ALIGN,
     STRIPE_MAX_K,
+    _kept_with,
     _resolve_stripe_precision,
     cached_labels,
     cached_train,
     check_k,
     check_splits,
+    feature_major,
     knn_stripe_candidates_reference,
     knn_stripe_merge,
     knn_stripe_scan_reference,
@@ -105,21 +107,6 @@ def padded_features(d: int) -> int:
     """The bf16 operands' feature count: ``d`` rounded up to a multiple of
     :data:`FEATURE_GRANULE`, at least one granule."""
     return max(1, -(-d // FEATURE_GRANULE)) * FEATURE_GRANULE
-
-
-# x -> {name: (x._version, value)}: what is kept with a tensor, dropped
-# with it.
-_kept = WeakIdKeyDictionary()
-
-
-def _kept_with(x: torch.Tensor, name: str, make):
-    """``make()``, kept with ``x`` under ``name`` while ``x`` lives and is
-    not modified in place."""
-    entries = _kept.setdefault(x, {})
-    hit = entries.get(name)
-    if hit is None or hit[0] != x._version:
-        hit = entries[name] = (x._version, make())
-    return hit[1]
 
 
 def bf16_operand(x: torch.Tensor, cache: bool = False) -> torch.Tensor:
@@ -197,7 +184,8 @@ def _check_tile_inputs(train_x, test_x, n_valid: int, k: int, form: str) -> None
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # The C entries of csrc/tile_knn.cu; pointers and the stream are 64-bit.
 _SIGNATURES = {
-    "tile_knn_scan": ([_i, _p, _p, _i, _p, _p, _i, _i, _i, _i, _i, _p, _p], _i),
+    "tile_knn_scan": ([_i, _p, _i, _p, _i, _p, _i, _p, _i, _i, _i, _i, _i, _p,
+                       _p], _i),
     "tile_knn_scan_bf16": ([_p, _i, _p, _i, _p, _p, _i, _i, _i, _i, _i, _p, _p],
                            _i),
 }
@@ -217,9 +205,11 @@ def knn_tile_scan(
 
     CPU tensors take the plain version. CUDA tensors launch a tile kernel
     on the current stream, after the norms of the matmul forms, or raise:
-    the exact and fast forms the CUDA-core kernel, the bf16 form the
-    tensor-core kernel over :func:`bf16_operand` copies (the train's copy
-    and norms kept with it). ``knn_tile_scan.launches[form]`` counts the
+    the exact and fast forms the CUDA-core kernel over
+    ``cuda_knn.feature_major`` copies (the train's copy kept with it, each
+    split starting on a multiple of ``SPLIT_ALIGN`` rows), the bf16 form
+    the tensor-core kernel over :func:`bf16_operand` copies. The train's
+    norms are kept with it too. ``knn_tile_scan.launches[form]`` counts the
     launches.
 
     The bf16 kernel's tolerance: its operands are the plain version's
@@ -240,7 +230,8 @@ def knn_tile_scan(
         return knn_tile_scan_reference(train_x, test_x, n_valid, k, form,
                                        n_splits, rows_per_split)
     _check_tile_inputs(train_x, test_x, n_valid, k, form)
-    check_splits(n_valid, n_splits, rows_per_split)
+    check_splits(n_valid, n_splits, rows_per_split,
+                 1 if form == "bf16" else SPLIT_ALIGN)
     lib = _library()
     q, d = test_x.shape
     dev = train_x.device
@@ -250,12 +241,11 @@ def knn_tile_scan(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         q2 = t2 = None
-        if form == "fast":
-            q2, t2 = sq_norms(test_x), sq_norms(train_x)
-        if form == "bf16":
-            # The fast form's norms, the train's kept with it.
+        if form != "exact":
+            # The matmul forms' norms, the train's kept with it.
             q2 = sq_norms(test_x)
             t2 = _kept_with(train_x, "sq_norms", lambda: sq_norms(train_x))
+        if form == "bf16":
             tb = bf16_operand(train_x, cache=True)
             qb = bf16_operand(test_x)
             rc = lib.tile_knn_scan_bf16(
@@ -263,11 +253,14 @@ def knn_tile_scan(
                 qb.data_ptr(), q2.data_ptr(), q, tb.shape[1], k, n_splits,
                 rows_per_split, partial.data_ptr(), stream)
         else:
+            train_t = feature_major(train_x, cache=True)
+            test_t = feature_major(test_x)
             rc = lib.tile_knn_scan(
-                FORMS.index(form), train_x.data_ptr(),
+                FORMS.index(form), train_t.data_ptr(), train_t.shape[1],
                 None if t2 is None else t2.data_ptr(), n_valid,
-                test_x.data_ptr(), None if q2 is None else q2.data_ptr(), q,
-                d, k, n_splits, rows_per_split, partial.data_ptr(), stream)
+                test_t.data_ptr(), test_t.shape[1],
+                None if q2 is None else q2.data_ptr(), q, d, k, n_splits,
+                rows_per_split, partial.data_ptr(), stream)
     if rc != 0:
         raise DeviceError(f"tile_knn_scan ({form}) launch failed: CUDA "
                           f"error {rc}")

@@ -1,8 +1,9 @@
 """Generated data for the probes and ``chip_smoke.py``.
 
 The port's copy of the JAX package's ``bench.py::load_large`` with the
-``scripts/make_fixtures.py`` recipe, and of the wide (MNIST-784-shaped)
-arrays of ``bench.py``'s mnist784 config. Everything is made from a seed;
+``scripts/make_fixtures.py`` recipe, of its xl train set (the large train
+rows tiled), and of the wide (MNIST-784-shaped) arrays of ``bench.py``'s
+mnist784 config. Everything is made from a seed;
 nothing is read from outside the checkout.
 """
 
@@ -40,6 +41,17 @@ def large_fixture(seed: int = 0):
         0, 1.5, size=(n_test - n_dup, d))).astype(np.float32)])
     ty = np.concatenate([labels[dup_idx], tl])
     return x, labels.astype(np.int32), tx, ty.astype(np.int32)
+
+
+def tiled_large(x: np.ndarray, y: np.ndarray, reps: int = 33):
+    """The xl train set (BASELINE.json config 4, bench.py::_tiled_large):
+    ``x`` tiled ``reps`` times with 1e-3 float32 noise (seed 0) so that the
+    copies are not duplicates; 33 copies of the large fixture's train rows
+    are 1,016,499 x 11."""
+    rng = np.random.default_rng(0)
+    feats = np.tile(x, (reps, 1))
+    feats += 1e-3 * rng.standard_normal(feats.shape, dtype=np.float32)
+    return feats, np.tile(y, reps)
 
 
 def wide_data(seed: int = 0):

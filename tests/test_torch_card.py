@@ -291,3 +291,85 @@ def test_bf16_operand_on_the_card_equals_the_hosts(card, d):
     got = tile_knn.bf16_operand(x.to(card), cache=True)
     assert got.device.type == "cuda" and got.data_ptr() % 16 == 0
     assert torch.equal(got.cpu(), tile_knn.bf16_operand(x))
+
+
+# The feature-major staging's edges: feature counts around the tile kernel's
+# 16-feature chunk and the stripe scan's float4 groups (and its wider tile
+# past 64 features), N and n_valid off the 128-row tiles, Q off the
+# 128-query blocks and Q = 1, NaN rows, k on both selection paths.
+STAGING_D = (1, 11, 15, 16, 17, 33, 65, 130, 784, 1000)
+STAGING_K = (1, 10, 16, 17, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 130])
+@pytest.mark.parametrize("kind", ["grid", "float"])
+@pytest.mark.parametrize("k", STAGING_K)
+@pytest.mark.parametrize("d", STAGING_D)
+def test_feature_major_staging_edges(card, d, k, kind, q):
+    # Bit-equal keys against the plain versions: every form on integer
+    # grids, the exact forms on float rows; at each kernel's own plan and at
+    # splits of 332 rows (ending inside a tile, starting on 16-byte rows).
+    rng = np.random.default_rng(d * 100 + k)
+    n, n_valid = 1001, 990
+    if kind == "grid":
+        train, test = _grid(rng, n, q, d)
+    else:
+        train = rng.standard_normal((n, d)).astype(np.float32)
+        test = rng.standard_normal((q, d)).astype(np.float32)
+        train[7, d // 2] = np.nan
+    test[0, 0] = np.nan if q > 1 else test[0, 0]
+    t, qt = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
+    sm = torch.cuda.get_device_properties(card).multi_processor_count
+    forms = ("exact", "fast") if kind == "grid" else ("exact",)
+    for form in forms:
+        for plan in (tile_knn.tile_split_plan(n_valid, q, sm, k, form),
+                     (3, 332)):
+            got = tile_knn.knn_tile_scan(t, qt, n_valid, k, form, *plan)
+            want = tile_knn.knn_tile_scan_reference(t, qt, n_valid, k, form,
+                                                    *plan)
+            assert torch.equal(got, want), (form, plan)
+    if d <= cuda_knn.STRIPE_MAX_D and k <= cuda_knn.STRIPE_MAX_K:
+        for plan in (cuda_knn.split_plan(n_valid, q, sm), (3, 332)):
+            got = cuda_knn.knn_stripe_scan(t, qt, n_valid, k, *plan)
+            want = cuda_knn.knn_stripe_scan_reference(t, qt, n_valid, k, *plan)
+            assert torch.equal(got, want), plan
+        kd, ki = cuda_knn.knn_stripe_candidates(t, qt, n_valid, k)
+        rd, ri = cuda_knn.knn_stripe_candidates_reference(t, qt, n_valid, k)
+        assert torch.equal(ki, ri) and torch.equal(kd, rd)
+
+
+@pytest.mark.cuda
+def test_feature_major_train_is_kept_and_misaligned_splits_raise(card):
+    rng = np.random.default_rng(0)
+    train, test = _grid(rng, 700, 50, 11)
+    t, q = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
+    cuda_knn.knn_stripe_scan(t, q, 700, 5, 3, 256)
+    kept = cuda_knn.feature_major(t, cache=True)
+    tile_knn.knn_tile_scan(t, q, 700, 5, "fast", 3, 256)
+    assert cuda_knn.feature_major(t, cache=True) is kept
+    # Bit for bit (the grid has a NaN, which torch.equal never matches).
+    assert torch.equal(kept.cpu().view(torch.int32),
+                       cuda_knn.feature_major(t.cpu()).view(torch.int32))
+    for call in (lambda: cuda_knn.knn_stripe_scan(t, q, 700, 5, 3, 250),
+                 lambda: cuda_knn.knn_stripe_scan_variant(t, q, 700, 5,
+                                                          "lite", 3, 250),
+                 lambda: tile_knn.knn_tile_scan(t, q, 700, 5, "exact", 3,
+                                                250)):
+        with pytest.raises(ValueError, match="multiple of 4 rows"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("d", [1, 11, 64, 65, 128])
+def test_stripe_split_plan_is_one_wave(card, d, k):
+    # The plan sizes one wave at the blocks per SM that the kernel's
+    # registers and shared memory allow.
+    sm = torch.cuda.get_device_properties(card).multi_processor_count
+    blocks = cuda_knn.stripe_blocks_per_sm(card, d, k)
+    assert 1 <= blocks <= 16
+    for n_valid, q in ((1_016_499, 1718), (30_803, 1718), (990, 1)):
+        n_splits, rows = cuda_knn.stripe_split_plan(n_valid, q, card, d, k)
+        assert n_splits * -(-q // 128) <= sm * blocks
+        assert rows % cuda_knn._TILE_ROWS == 0 and n_splits * rows >= n_valid

@@ -204,6 +204,59 @@ def test_split_plan_covers_every_row(n_valid, q):
     assert n_splits * rows >= n_valid > (n_splits - 1) * rows or n_valid == 0
 
 
+def test_stripe_kernel_constants_match_the_source():
+    # The split granule, the query block and the feature-major operand's
+    # granules are the kernel's own (csrc/stripe_knn.cuh).
+    import re
+
+    head = (cuda_knn._build.CSRC / "stripe_knn.cuh").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", head).group(1))
+
+    assert const("kTileRows") == cuda_knn._TILE_ROWS == 128
+    assert const("kQueriesPerBlock") == cuda_knn._QUERIES_PER_BLOCK == 128
+    assert const("kRowGranule") == cuda_knn.ROW_GRANULE == 128
+    assert const("kSplitAlign") == cuda_knn.SPLIT_ALIGN == 4
+    assert const("kMaxD") == cuda_knn.STRIPE_MAX_D
+    assert const("kMaxRegisterK") == cuda_knn.STRIPE_MAX_K
+    assert const("kTileRowsWide") == 32 and const("kWideD") == 64
+
+
+@pytest.mark.parametrize("blocks_per_sm", [4, 9, 16])
+@pytest.mark.parametrize("n_valid,q", [(30_803, 1718), (1_016_499, 1718),
+                                       (3001, 300), (1990, 1)])
+def test_split_plan_is_one_wave_of_the_blocks_an_sm_holds(n_valid, q,
+                                                          blocks_per_sm):
+    # stripe_split_plan passes the kernel's occupancy as blocks_per_sm: the
+    # grid then fits the card at once, in whole 128-row tiles, every row
+    # covered; fewer blocks per SM give longer splits.
+    n_splits, rows = cuda_knn.split_plan(n_valid, q, 132,
+                                         blocks_per_sm=blocks_per_sm)
+    q_blocks = -(-q // cuda_knn._QUERIES_PER_BLOCK)
+    assert n_splits * q_blocks <= 132 * blocks_per_sm or rows == 128 * -(
+        -n_valid // 128)
+    assert rows % cuda_knn._TILE_ROWS == 0
+    assert n_splits * rows >= n_valid > (n_splits - 1) * rows
+    if blocks_per_sm > 4:
+        assert rows <= cuda_knn.split_plan(n_valid, q, 132, blocks_per_sm=4)[1]
+
+
+@pytest.mark.parametrize("rows,ok", [(256, True), (200, True), (250, False),
+                                     (6, False)])
+def test_feature_major_kernels_take_splits_on_16_byte_rows(rows, ok):
+    # check_splits with the kernels' alignment: each split starts on a
+    # multiple of SPLIT_ALIGN rows, or the wrapper raises before a launch.
+    n_valid = 1000
+    args = (n_valid, -(-n_valid // rows), rows, cuda_knn.SPLIT_ALIGN)
+    if ok:
+        cuda_knn.check_splits(*args)
+    else:
+        with pytest.raises(ValueError, match="multiple of 4 rows"):
+            cuda_knn.check_splits(*args)
+    cuda_knn.check_splits(*args[:3])  # no alignment asked: any rows
+
+
 
 @pytest.mark.parametrize("k", [1, 5, 16, 17, 32, 100, 256, 257, 1000, N])
 @pytest.mark.parametrize("n_valid,n_splits,rows", [

@@ -570,11 +570,76 @@ def test_tile_forms_probe_main_at_a_reduced_size():
                             "7", "--reps", "1", "--tag", "t"], stdout=out) == 0
     line = json.loads(out.getvalue())
     assert line["device"] == "cpu (plain versions)" and line["tag"] == "t"
-    assert sorted(line["ms"]) == sorted([
+    assert sorted(line["ms"]) == sorted(line["digest"]) == sorted([
         "wide exact k=5 f32 store", "wide fast k=5 f32 store",
         "wide bf16 k=5 bf16 store", "wide bf16 k=32 bf16 store",
         "wide bf16 k=256 bf16 store", "wide bf16 k=5 f32 store",
         "wide P1 block_n=1024", "large bf16 k=5 f32 store",
         "large bf16 k=32 bf16 store", "large bf16 k=256 bf16 store",
-        "large exact k=32 f32 store", "large exact k=256 f32 store"])
+        "large exact k=32 f32 store", "large exact k=256 f32 store",
+        "large stripe k=5", "xl stripe k=10"])
     assert all(ms > 0 for ms in line["ms"].values())
+    # The profiled device times are the card's only.
+    assert line["kernel_ms"] == line["device_ms"] == {}
+    # A digest is the int64 sum of the packed keys of the first run.
+    from knn_tpu_torch.probes.data import large_fixture
+    lx, _, lq, _ = large_fixture(seed=0)
+    dist, idx = cuda_knn.knn_stripe_candidates_reference(
+        torch.from_numpy(lx[:300]), torch.from_numpy(lq[:7]), 300, 5)
+    assert line["digest"]["large stripe k=5"] == int(
+        cuda_knn._pack_keys(dist, idx).sum())
+
+
+@pytest.mark.parametrize("rows", [1, 127, 128, 300])
+@pytest.mark.parametrize("d", [1, 11, 128, 129, 784])
+def test_feature_major_transposes_and_pads_the_rows(d, rows):
+    # Each feature's values over the rows are one contiguous run, the rows
+    # rounded up to the kernels' 128-row granule (so every run starts
+    # 16-byte aligned), zeros past the matrix's own rows.
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (rows, d)).astype(np.float32))
+    op = cuda_knn.feature_major(x)
+    assert op.dtype == torch.float32 and op.is_contiguous()
+    assert op.shape == (d, -(-rows // 128) * 128)
+    assert op.shape[1] % cuda_knn.ROW_GRANULE == 0
+    assert torch.equal(op[:, :rows], x.T)
+    assert not op[:, rows:].any()
+
+
+def test_feature_major_of_an_empty_matrix_is_zeros():
+    assert cuda_knn.feature_major(torch.zeros((0, 5))).shape == (5, 128)
+    op = cuda_knn.feature_major(torch.ones((7, 0)))
+    assert op.shape == (1, 128) and not op.any()
+
+
+def test_feature_major_is_kept_with_its_tensor():
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (200, 11)).astype(np.float32))
+    first = cuda_knn.feature_major(x, cache=True)
+    assert cuda_knn.feature_major(x, cache=True) is first
+    assert cuda_knn.feature_major(x) is not first  # uncached: a new copy
+    assert tile_knn._kept_with is cuda_knn._kept_with  # one store for both
+    x[3, 4] = 7.0  # an in-place change makes a new copy
+    again = cuda_knn.feature_major(x, cache=True)
+    assert again is not first and again[4, 3] == 7.0
+    assert torch.equal(again, cuda_knn.feature_major(x.clone(), cache=True))
+    # The bf16 operand is kept with the same tensor, under its own name.
+    assert tile_knn.bf16_operand(x, cache=True) is tile_knn.bf16_operand(
+        x, cache=True)
+    assert cuda_knn.feature_major(x, cache=True) is again
+
+
+def test_tile_kernel_constants_match_the_source():
+    # The host's plans and operands assume the kernel's tile, chunk and
+    # granules; each is read back from csrc/.
+    src = (cuda_knn._build.CSRC / "tile_knn.cu").read_text()
+    head = (cuda_knn._build.CSRC / "stripe_knn.cuh").read_text()
+
+    def const(text, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert const(src, "kTile") == tile_knn._TILE_ROWS == 128
+    assert const(src, "kChunk") == 16 and const(src, "kStages") == 2
+    assert const(head, "kRowGranule") == cuda_knn.ROW_GRANULE == 128
+    assert const(head, "kSplitAlign") == cuda_knn.SPLIT_ALIGN == 4
+    assert tile_knn._TILE_ROWS % cuda_knn.SPLIT_ALIGN == 0

@@ -400,6 +400,47 @@ def test_predict_arrays_matches_jax(case):
     assert len(set(got.tolist())) > 1
 
 
+# (d, k, options, whether engine "auto" sends the problem to the kernels'
+# host entry, stripe_classify_arrays): every euclidean problem at any k and
+# form, and nothing of the metrics, force_tiled, engine "xla" or a
+# query_batch outside stripe_route_ok.
+AUTO_ROUTES = {
+    "exact-k17": (11, 17, {}, True),
+    "exact-k32": (11, 32, {}, True),
+    "fast-d11": (11, 5, {"precision": "fast"}, True),
+    "fast-d11-k32": (11, 32, {"precision": "fast"}, True),
+    "manhattan": (11, 5, {"metric": "manhattan"}, False),
+    "chebyshev": (11, 5, {"metric": "chebyshev"}, False),
+    "cosine": (11, 5, {"metric": "cosine"}, False),
+    "tiled": (11, 32, {"force_tiled": True, "query_tile": 16,
+                       "train_tile": 128}, False),
+    "query-batch": (11, 32, {"query_batch": 16}, False),
+    "engine-xla": (11, 32, {"engine": "xla"}, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(AUTO_ROUTES))
+def test_auto_engine_sends_euclidean_problems_to_the_kernels(case,
+                                                              monkeypatch):
+    d, k, opts, routed = AUTO_ROUTES[case]
+    calls = []
+    entry = cuda.stripe_classify_arrays
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("precision"))
+        return entry(*args, **kwargs)
+
+    monkeypatch.setattr(cuda, "stripe_classify_arrays", counted)
+    x, y, qx = mixed(len(case), d=d)
+    got = cuda.predict_arrays(x, y, qx, k, 6, device="cpu", **opts)
+    assert len(calls) == int(routed)
+    if routed:
+        assert calls == [opts.get("precision", "exact")]
+    np.testing.assert_array_equal(got, jtpu.predict_arrays(x, y, qx, k, 6,
+                                                           **opts))
+    assert len(set(got.tolist())) > 1
+
+
 @pytest.mark.parametrize("query_batch", [None, 16])
 def test_tiled_route_keeps_the_padded_train_in_the_cache(query_batch):
     """The tiled scan's zero-padded train and labels are made once per
