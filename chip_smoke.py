@@ -58,18 +58,31 @@ Phases, each printed as it runs; any failure exits non-zero:
                         counters move, predictions equal ``cuda-tile``'s
                         and the oracle's, and its result line is no slower
                         than ``cuda-tile``'s.
-13. ``probe_selection`` — P2's entry point
+13. ``models``        — the model layer (``knn_tpu_torch.models.knn``) at the
+                        shapes of bench.py's ``kneighbors`` and ``sweepk``
+                        configs, the launch counters read around each call:
+                        ``KNNClassifier.kneighbors`` on the large shape
+                        (engine auto: the stripe kernels; ``xla`` and
+                        manhattan: no hand kernel) against the oracle and the
+                        plain version; 109,952 and 659,712 queries;
+                        ``kneighbors_async``; ``radius_neighbors`` (the tile
+                        scan at k = 128); ``--sweep-k 1,5,10`` through the
+                        CLI (one retrieval's launches) with
+                        ``--dump-predictions``; the sweep against three
+                        predicts at large and xl; ``KNNRegressor`` and the
+                        distance-weighted vote on xl. Each timed.
+14. ``probe_selection`` — P2's entry point
                         (``knn_tpu_torch.probes.tune_stripe_selection``) on
                         the large shape, counters read around it; each
                         selection's kernel, at that shape's layout, held
                         bit-equal to its plain version and timed beside it.
-14. ``probe_wide``    — P1's entry point (``knn_tpu_torch.probes.
+15. ``probe_wide``    — P1's entry point (``knn_tpu_torch.probes.
                         probe_mnist_r3``) at 65,536 x 784 with 2,048 queries,
                         the counter read around it; P1 held to its plain
                         version at block_n 8, 256 and 1,024, and timed
                         beside it and the library's bfloat16 matmul with
                         float32 output.
-15. ``kernels``       — one JSON line describing every kernel.
+16. ``kernels``       — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -1001,6 +1014,327 @@ def _ms_of(line: str) -> int:
     return int(line.split(" required ")[1].split(" ms")[0])
 
 
+def wall_ms(fn, reps: int) -> "tuple[float, list[float]]":
+    """Median host-clock ms of ``fn()`` over ``reps`` calls (each call ends
+    with its answers on the host), and every call's time."""
+    import statistics
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def source_order_sq_dists(q: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """numpy brute force of the port's exact form: ``acc = acc + diff*diff``
+    feature by feature in float32 (each operation rounded), NaN -> +inf."""
+    acc = np.zeros((q.shape[0], t.shape[0]), np.float32)
+    for f in range(q.shape[1]):
+        diff = q[:, f : f + 1] - t[:, f]
+        acc = acc + diff * diff
+    return np.where(np.isnan(acc), np.float32(np.inf), acc)
+
+
+# bench.py's kneighbors config: the large test set tiled 64 and 384 times
+# with 1e-4 noise (seeds 1 and 2), and 10 async calls resolved together.
+MODEL_QUERY_REPS = ((64, 1), (384, 2))
+ASYNC_CALLS = 10
+# Rounds of ten sync calls and of ten async calls, taken in turns.
+ASYNC_ROUNDS = 8
+# A squared radius under which every large-shape query has fewer than 128
+# train rows (at most 87), so radius_neighbors' k = 128 list is complete.
+RADIUS = 10.0
+
+
+def phase_models(torch, dev, cuda_knn, tile_knn, train_path, test_path,
+                 xl_x, xl_y) -> dict:
+    """The model layer on the card, at bench.py's kneighbors and sweepk
+    shapes. Every model call is made with the launch counters set to 0 just
+    before it and read just after; returns the launches and times."""
+    from knn_tpu_torch import cli
+    from knn_tpu_torch.backends.oracle import oracle_kneighbors
+    from knn_tpu_torch.data.arff import load_arff
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.models.knn import (
+        KNNClassifier, KNNRegressor, _host_vote, aggregate_targets, sweep_k,
+        vote_from_labels)
+
+    scan, merge = cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge
+    tile_scan = tile_knn.knn_tile_scan
+
+    def reset():
+        scan.launches = merge.launches = 0
+        for form in tile_scan.launches:
+            tile_scan.launches[form] = 0
+
+    def counts():
+        return {"stripe_scan": scan.launches, "stripe_merge": merge.launches,
+                **{f"tile_{f}": n for f, n in tile_scan.launches.items()}}
+
+    def launched(fn):
+        reset()
+        out = fn()
+        return out, counts()
+
+    def need(what, got, **want):
+        """Fail unless each named counter moved (True) or stayed 0 (False)."""
+        for name, moved in want.items():
+            if bool(got[name]) != moved:
+                raise SystemExit(f"models {what}: {name} launched "
+                                 f"{got[name]} times; launches {got}")
+
+    train, test = load_arff(str(train_path)), load_arff(str(test_path))
+    n, d, q = train.num_instances, train.num_features, test.num_instances
+    k = 5
+    tx = torch.from_numpy(train.features.copy()).to(dev)
+    qx = torch.from_numpy(test.features.copy()).to(dev)
+    res = {"launches": {}, "ms": {}}
+
+    # Large shape, k = 5: engine auto (the stripe kernels), xla, manhattan.
+    model = KNNClassifier(k=k).fit(train)
+    (kd, ki), res["launches"]["kneighbors_auto"] = launched(
+        lambda: model.kneighbors(test))
+    need("kneighbors auto", res["launches"]["kneighbors_auto"],
+         stripe_scan=True, stripe_merge=True)
+    od, oi = oracle_kneighbors(train.features, test.features, k)
+    if not np.array_equal(ki, oi):
+        raise SystemExit("models kneighbors auto: indices differ from the "
+                         "oracle's")
+    rd, ri = cuda_knn.knn_stripe_candidates_reference(tx, qx, n, k)
+    if not (np.array_equal(kd, rd.cpu().numpy())
+            and np.array_equal(ki, ri.cpu().numpy())):
+        raise SystemExit("models kneighbors auto: differs from the plain "
+                         "version on the card")
+    xla_model = KNNClassifier(k=k, engine="xla").fit(train)
+    (xd, xi), res["launches"]["kneighbors_xla"] = launched(
+        lambda: xla_model.kneighbors(test))
+    need("kneighbors xla", res["launches"]["kneighbors_xla"],
+         stripe_scan=False, stripe_merge=False, tile_exact=False)
+    if not (np.array_equal(xi, ki) and np.array_equal(xd, kd)):
+        raise SystemExit("models kneighbors xla: differs from engine auto")
+    man = KNNClassifier(k=k, metric="manhattan").fit(train)
+    (md, mi), res["launches"]["kneighbors_manhattan"] = launched(
+        lambda: man.kneighbors(test))
+    if any(res["launches"]["kneighbors_manhattan"].values()):
+        raise SystemExit(f"models manhattan: a hand kernel launched: "
+                         f"{res['launches']['kneighbors_manhattan']}")
+    _, omi = oracle_kneighbors(train.features, test.features, k, "manhattan")
+    hmd, hmi = KNNClassifier(k=k, metric="manhattan", device="cpu").fit(
+        train).kneighbors(test)
+    if not (np.array_equal(mi, omi) and np.array_equal(mi, hmi)
+            and np.array_equal(md, hmd)):
+        raise SystemExit("models manhattan: differs from the oracle or the "
+                         "host's plain version")
+    for name, m in (("auto", model), ("xla", xla_model)):
+        res["ms"][f"kneighbors_{name}"], trials = wall_ms(
+            lambda m=m: m.kneighbors(test), 5)
+        print(f"kneighbors[{name}] at q={q} n={n} d={d} k={k}: "
+              f"{res['ms'][f'kneighbors_{name}']} ms/call (median of 5 wall "
+              f"times {trials})")
+    print(f"large: auto launches {res['launches']['kneighbors_auto']}; xla "
+          f"{res['launches']['kneighbors_xla']}; manhattan "
+          f"{res['launches']['kneighbors_manhattan']}. Indices equal to the "
+          "oracle's (euclidean and manhattan); auto's distances and indices "
+          "bit-equal to the plain version on the card and to xla's; "
+          "manhattan's bit-equal to the host's plain version")
+
+    # Many queries through one call each.
+    sample = np.random.default_rng(3)
+    for reps, seed in MODEL_QUERY_REPS:
+        big = np.tile(test.features, (reps, 1))
+        big += 1e-4 * np.random.default_rng(seed).standard_normal(
+            big.shape, dtype=np.float32)
+        big_ds = Dataset(big, np.zeros(len(big), np.int32))
+        (bd, bi), got = launched(lambda: model.kneighbors(big_ds))
+        need(f"{len(big)} queries", got, stripe_scan=True, stripe_merge=True)
+        rows = np.sort(sample.choice(len(big), 2048, replace=False))
+        pd, pi = cuda_knn.knn_stripe_candidates_reference(
+            tx, torch.from_numpy(big[rows]).to(dev), n, k)
+        if not (np.array_equal(bi[rows], pi.cpu().numpy())
+                and np.array_equal(bd[rows], pd.cpu().numpy())):
+            raise SystemExit(f"models {len(big)} queries: differs from the "
+                             "plain version on 2,048 sampled rows")
+        ms, trials = wall_ms(lambda: model.kneighbors(big_ds), 3)
+        res["launches"][f"kneighbors_q{len(big)}"] = got
+        res["ms"][f"kneighbors_q{len(big)}"] = ms
+        res[f"qps_q{len(big)}"] = len(big) / ms * 1e3
+        print(f"kneighbors at {len(big)} queries: {ms} ms (median of 3 wall "
+              f"times {trials}), {len(big) / ms * 1e3} q/s; launches {got}; "
+              "2,048 sampled rows bit-equal to the plain version")
+        huge_ds, huge_want = big_ds, (bd, bi)  # the last: the largest
+
+    # Async: rounds of ten handles resolved together against rounds of ten
+    # sync calls, in turns (the host's clock moves between rounds), then
+    # one handle on the 659,712 queries.
+    def ten_async():
+        handles = [model.kneighbors_async(test) for _ in range(ASYNC_CALLS)]
+        return [h.result() for h in handles]
+
+    def ten_sync():
+        return [model.kneighbors(test) for _ in range(ASYNC_CALLS)]
+
+    outs, got = launched(ten_async)
+    need("kneighbors_async", got, stripe_scan=True, stripe_merge=True)
+    for out in outs:
+        if not (np.array_equal(out[0], kd) and np.array_equal(out[1], ki)):
+            raise SystemExit("models kneighbors_async: differs from the sync "
+                             "call")
+    rounds = {"sync": [], "async": []}
+    for r in range(ASYNC_ROUNDS):
+        order = (("sync", ten_sync), ("async", ten_async))
+        for name, fn in order if r % 2 == 0 else order[::-1]:
+            rounds[name].append(wall_ms(fn, 1)[0])
+    for name in rounds:
+        res["ms"][f"{name}_per_call"] = float(
+            np.median(rounds[name])) / ASYNC_CALLS
+    res["launches"]["kneighbors_async_x10"] = got
+    t0 = time.perf_counter()
+    handle = model.kneighbors_async(huge_ds)
+    res["ms"]["async_return_huge"] = (time.perf_counter() - t0) * 1e3
+    hd, hi = handle.result()
+    res["ms"]["async_result_huge"] = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(hd, huge_want[0])
+            and np.array_equal(hi, huge_want[1])):
+        raise SystemExit(f"models kneighbors_async: {huge_ds.num_instances} "
+                         "queries differ from the sync call")
+    print(f"kneighbors_async x{ASYNC_CALLS} resolved together: "
+          f"{res['ms']['async_per_call']} ms per call against "
+          f"{res['ms']['sync_per_call']} ms for {ASYNC_CALLS} sync calls "
+          f"(medians of {ASYNC_ROUNDS} rounds each, in turns; round times "
+          f"{rounds} ms); launches of one async round {got}. At "
+          f"{huge_ds.num_instances} queries: returned after "
+          f"{res['ms']['async_return_huge']} ms, result() done at "
+          f"{res['ms']['async_result_huge']} ms. Async answers bit-equal to "
+          "the sync ones")
+
+    # radius_neighbors at max_neighbors = 128: the tile scan's k > 16 path.
+    (rd, ri, mask), got = launched(lambda: model.radius_neighbors(
+        test, RADIUS))
+    need("radius_neighbors", got, tile_exact=True, stripe_merge=True,
+         stripe_scan=False)
+    rows = np.sort(sample.choice(q, 256, replace=False))
+    bf = source_order_sq_dists(test.features[rows], train.features)
+    order = np.lexsort((np.broadcast_to(np.arange(n), bf.shape), bf),
+                       axis=1)[:, :128]
+    want_d = np.take_along_axis(bf, order, axis=1)
+    if not (np.array_equal(ri[rows], order) and np.array_equal(
+            rd[rows], want_d) and np.array_equal(mask[rows],
+                                                 want_d <= RADIUS)):
+        raise SystemExit("models radius_neighbors: differs from the numpy "
+                         "brute force on 256 queries")
+    res["ms"]["radius"], trials = wall_ms(
+        lambda: model.radius_neighbors(test, RADIUS), 5)
+    res["launches"]["radius"] = got
+    print(f"radius_neighbors (radius {RADIUS}, max_neighbors 128, "
+          f"{int(mask.sum())} rows in radius, at most "
+          f"{int(mask.sum(1).max())} per query): {res['ms']['radius']} ms "
+          f"(median of 5 wall times {trials}); launches {got}; indices, "
+          "distances and mask equal to a numpy brute force on 256 queries")
+
+    # --sweep-k through the CLI: one retrieval at k = 10, one vote per k.
+    ks = (1, 5, 10)
+    dump = REPO / "build" / "chip_smoke" / "sweep.npy"
+    out = io.StringIO()
+    rc, got = launched(lambda: cli.run(
+        [str(train_path), str(test_path), "1", "--sweep-k", "1,5,10",
+         "--dump-predictions", str(dump)], stdout=out))
+    if rc != 0:
+        raise SystemExit(f"models sweep: cli.run exited {rc}")
+    if (got["stripe_scan"], got["stripe_merge"]) != (1, 1) or any(
+            got[f"tile_{f}"] for f in tile_knn.FORMS):
+        raise SystemExit(f"models sweep: not one retrieval's launches: {got}")
+    res["launches"]["sweep_cli"] = got
+    lines = out.getvalue().splitlines()
+    print("\n".join(lines))
+    _, oi10 = oracle_kneighbors(train.features, test.features, 10)
+    for line, kk in zip(lines, ks):
+        single = KNNClassifier(k=kk).fit(train).predict(test)
+        oracle = _host_vote(train.labels[oi10[:, :kk]], train.num_classes)
+        acc = float((oracle == test.labels).mean())
+        if not (np.array_equal(np.load(dump.with_name(f"sweep.k{kk}.npy")),
+                               single) and np.array_equal(single, oracle)
+                and line.startswith(f"The {kk}-NN classifier")
+                and line.endswith(f"Accuracy was {acc:.4f}")):
+            raise SystemExit(f"models sweep k={kk}: the line, the dumped "
+                             "predictions, a single predict and the oracle "
+                             "disagree")
+    print(f"sweep launches {got}: one retrieval at k = 10. Each line's "
+          "accuracy is the oracle's; each dumped file equals that k's "
+          "predict and the oracle. (The golden 0.9919/0.9948/0.7538 belong "
+          "to the reference datasets; this phase runs on the synthetic "
+          "large fixture.)")
+
+    # The sweep against three single predicts, large and xl.
+    xl = Dataset(xl_x, xl_y)
+    for name, tr in (("large", train), ("xl", xl)):
+        got_sweep = sweep_k(tr, test, ks)  # upload, first call
+        preds = {kk: KNNClassifier(k=kk).fit(tr).predict(test) for kk in ks}
+        for kk in ks:
+            if not np.array_equal(got_sweep[kk], preds[kk]):
+                raise SystemExit(f"models sweep {name} k={kk}: differs from "
+                                 "the single predict")
+        _, got = launched(lambda: sweep_k(tr, test, ks))
+        need(f"sweep {name}", got, stripe_scan=True, stripe_merge=True)
+        res["ms"][f"sweep_{name}"], t_sweep = wall_ms(
+            lambda: sweep_k(tr, test, ks), 5)
+        res["ms"][f"three_predicts_{name}"], t_three = wall_ms(
+            lambda: [KNNClassifier(k=kk).fit(tr).predict(test) for kk in ks],
+            5)
+        res["launches"][f"sweep_{name}"] = got
+        print(f"sweep_k {ks} on {name} ({tr.num_instances} rows): "
+              f"{res['ms'][f'sweep_{name}']} ms (median of 5 {t_sweep}) "
+              f"against three predicts {res['ms'][f'three_predicts_{name}']}"
+              f" ms ({t_three}); launches of one sweep {got}; each k equal "
+              "to its predict")
+
+    # KNNRegressor on xl, float targets: labels plus seeded noise.
+    targets = (xl_y + np.random.default_rng(4).normal(
+        0, 0.25, len(xl_y))).astype(np.float32)
+    xl_reg = Dataset(xl_x, xl_y, raw_targets=targets)
+    txl = torch.from_numpy(xl_x).to(dev)
+    pdx, pix = cuda_knn.knn_stripe_candidates_reference(txl, qx, len(xl_x), 10)
+    pdx, pix = pdx.cpu().numpy(), pix.cpu().numpy()
+    for weights in ("uniform", "distance"):
+        reg = KNNRegressor(k=10, weights=weights).fit(xl_reg)
+        got_p, got = launched(lambda: reg.predict(test))
+        need(f"regressor {weights}", got, stripe_scan=True, stripe_merge=True)
+        want = aggregate_targets(pdx, targets[pix], weights)
+        if not np.array_equal(got_p, want):
+            raise SystemExit(f"models regressor {weights}: differs from the "
+                             "plain version's neighbors aggregated on the "
+                             "host")
+        res["ms"][f"regressor_{weights}"], trials = wall_ms(
+            lambda: reg.predict(test), 5)
+        res["launches"][f"regressor_{weights}"] = got
+        print(f"KNNRegressor(k=10, weights={weights!r}) on xl: "
+              f"{res['ms'][f'regressor_{weights}']} ms (median of 5 "
+              f"{trials}); launches {got}; equal to the plain version's "
+              "neighbors aggregated")
+    del txl
+
+    # The distance-weighted vote on xl against the oracle's neighbors.
+    weighted = KNNClassifier(k=10, weights="distance").fit(xl)
+    got_p, got = launched(lambda: weighted.predict(test))
+    need("weighted vote", got, stripe_scan=True, stripe_merge=True)
+    rows = np.sort(sample.choice(q, 128, replace=False))
+    wd, wi = oracle_kneighbors(xl_x, test.features[rows], 10)
+    want = vote_from_labels(wd, xl_y[wi], int(xl_y.max()) + 1, "distance")
+    if not np.array_equal(got_p[rows], want):
+        raise SystemExit("models weighted vote: differs from the oracle's "
+                         "neighbors voted by distance")
+    res["ms"]["weighted_xl"], trials = wall_ms(lambda: weighted.predict(test),
+                                               5)
+    res["launches"]["weighted_xl"] = got
+    print(f"KNNClassifier(k=10, weights='distance') on xl: "
+          f"{res['ms']['weighted_xl']} ms (median of 5 {trials}); launches "
+          f"{got}; equal to the oracle's neighbors voted through "
+          "vote_from_labels on 128 queries")
+    print("models: " + json.dumps(res))
+    return res
+
+
 def phase_probe_selection(torch, dev, cuda_knn) -> dict:
     """P2's entry point, ``tune_stripe_selection.main``, on the large shape
     (k = 5), with the counters read around it; then each selection's kernel
@@ -1306,6 +1640,10 @@ def main() -> int:
     phase("classify_xla")
     phase_classify_xla(torch, dev, cuda_knn, tile_knn, vote_neighbors,
                        train_path, test_path)
+
+    phase("models")
+    phase_models(torch, dev, cuda_knn, tile_knn, train_path, test_path, xl_x,
+                 xl_y)
 
     phase("probe_selection")
     sel = phase_probe_selection(torch, dev, cuda_knn)

@@ -16,6 +16,8 @@ the caller asks for the host (``device="cpu"``).
 - ``knn_tpu_torch.obs``      — the timing primitives (``bench_timing``).
 - ``knn_tpu_torch.backends`` — ``cuda`` (the stripe route), ``cuda-tile``
   (the wide-feature rung) and ``oracle`` (numpy).
+- ``knn_tpu_torch.models``   — ``KNNClassifier``, ``KNNRegressor`` and
+  ``sweep_k`` on the retrieval core (the kernels, or the XLA route's scan).
 - ``knn_tpu_torch.cli``      — ``python -m knn_tpu_torch TRAIN TEST k``.
 - ``knn_tpu_torch.convert``  — a ``knn_tpu`` dataset's fields in, the
   port's :class:`Dataset` out.
@@ -28,7 +30,11 @@ max(label)+1``.
 
 __version__ = "0.2.0"
 
-from knn_tpu_torch.data.arff import load_arff
 from knn_tpu_torch.data.dataset import Dataset
+from knn_tpu_torch.data.arff import load_arff, write_arff
+from knn_tpu_torch.models.knn import KNNClassifier, KNNRegressor, sweep_k
 
-__all__ = ["Dataset", "load_arff", "__version__"]
+__all__ = [
+    "Dataset", "load_arff", "write_arff", "KNNClassifier", "KNNRegressor",
+    "sweep_k", "__version__",
+]

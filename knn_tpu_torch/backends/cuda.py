@@ -25,6 +25,10 @@ Two routes, chosen as the JAX ``predict_arrays`` chooses them:
   tiles as one block as fit ``_TILED_BLOCK_CELLS``: each query's scan is
   independent, so the function is the same.
 
+:func:`candidates_arrays` is the XLA route's retrieval entry, which the
+models (``models/knn.py``) take for ``engine="xla"`` and the non-euclidean
+metrics.
+
 ``approx`` (``lax.approx_max_k``) is not ported and raises a ``ValueError``
 naming ROADMAP B6. ``device`` defaults to ``"cuda"``; ``"cpu"`` runs the
 kernels' plain versions and the XLA route's ops on the host. A CUDA device
@@ -44,11 +48,13 @@ from knn_tpu_torch.ops.cuda_knn import (
     _resolve_stripe_precision,
     cached_labels,
     cached_train,
+    host_copy_async,
     memo,
     resolve_device,
     stripe_classify_arrays,
     stripe_route_ok,
     to_device,
+    to_device_async,
 )
 from knn_tpu_torch.ops.distance import DIST_FNS, resolve_form
 from knn_tpu_torch.ops.topk import merge_topk, topk_smallest
@@ -173,13 +179,73 @@ def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((extra, *x.shape[1:]))])
 
 
+def _padded_train_x(train_x, dev, cache, train_tile: int):
+    """The device train matrix with zero rows appended up to a multiple of
+    ``train_tile``, memoized in ``cache`` per device and tile."""
+    return memo(cache, ("train_padded_x", str(dev), train_tile),
+                lambda: _pad_rows(cached_train(train_x, dev, cache),
+                                  train_tile))
+
+
 def _padded_train(train_x, train_y, dev, cache, train_tile: int):
     """The device train matrix and labels with zero rows appended up to a
     multiple of ``train_tile``, memoized in ``cache`` per device and tile
     so repeat calls skip the copy."""
     return memo(cache, ("train_padded", str(dev), train_tile), lambda: (
-        _pad_rows(cached_train(train_x, dev, cache), train_tile),
+        _padded_train_x(train_x, dev, cache, train_tile),
         _pad_rows(cached_labels(train_y, dev, cache), train_tile)))
+
+
+# Query rows per tile of the retrieval's scan (candidates_arrays): JAX's
+# pad quantum, models/knn.py::QUERY_PAD_QUANTUM.
+_RETRIEVAL_QUERY_TILE = 128
+
+
+def candidates_arrays(
+    train_x: np.ndarray,
+    test_x: np.ndarray,
+    k: int,
+    precision: str = "exact",
+    device="cuda",
+    cache: "dict | None" = None,
+    deferred: bool = False,
+):
+    """Host entry of the XLA route's retrieval, the twin of
+    ``knn_forward_candidates`` as the JAX models call it: ``([Q, k]``
+    distances, ``[Q, k]`` int32 indices``)`` by (distance, index) in the
+    distance form ``precision`` (a euclidean form or a metric's name), from
+    the tiled scan of :func:`forward_candidates_core` (without its label
+    gather) over train tiles of ``max(min(2048, N), k)`` rows. The padded
+    train is memoized in ``cache``; the queries are padded to a multiple of
+    128 rows (fewer: one tile of them all) and the answers trimmed.
+    ``deferred=True`` returns a zero-argument ``resolve()``: the scan is
+    enqueued and its answers' copy to pinned host memory started before
+    this returns (``cuda_knn.host_copy_async``); on the CPU the scan runs
+    now."""
+    dev = resolve_device(device)
+    n, q = train_x.shape[0], test_x.shape[0]
+    if precision not in DIST_FNS:
+        raise ValueError(f"unknown distance form {precision!r}; choose from "
+                         f"{sorted(DIST_FNS)}")
+    if k < 1:
+        raise ValueError(f"k={k}: k must be >= 1")
+    if q == 0:
+        empty = (np.empty((0, k), np.float32), np.empty((0, k), np.int32))
+        return (lambda: empty) if deferred else empty
+    train_tile = max(min(2048, n), k)
+    query_tile = min(q, _RETRIEVAL_QUERY_TILE)
+    tx = _padded_train_x(train_x, dev, cache, train_tile)
+    qx = _pad_rows(to_device_async(test_x, dev), query_tile)
+    d, i = _scan_tiles(tx, qx, n, k, precision, query_tile, train_tile)
+    wait = host_copy_async(d[:q], i[:q])
+    memo_out = []
+
+    def resolve():
+        if not memo_out:
+            memo_out.append(wait())
+        return memo_out[0]
+
+    return resolve if deferred else resolve()
 
 
 def _predict_query_batched(train_x, train_y, test_x, k, num_classes, *,

@@ -17,7 +17,14 @@ the backend's own default applies, as in the JAX CLI), ``--metric
 the JAX CLI's names and defaults (passed on as it passes them),
 ``--device {cuda,cpu}`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions), ``--warmup`` (one untimed run first: kernel build and
-upload), ``--json`` (a structured line after the result line).
+upload), ``--json`` (a structured line after the result line),
+``--sweep-k K1,K2,...`` (every listed k from one retrieval at the largest,
+``models/knn.py::sweep_k``: one result line per k, each with the whole
+sweep's ms; the positional k is ignored; ``--backend``, a non-exact
+``--precision``, ``--query-batch`` and non-default tiles are rejected with
+one ``incompatible`` error before any file is read) and ``--dump-predictions
+FILE.npy`` (the int32 predictions, written after the result line; with
+``--sweep-k`` one file per k, ``FILE.k{K}.npy``).
 
 Exit codes, as the JAX package's (knn_tpu/cli.py:45-54): 0 success; 2 the
 input was rejected before classification (bad flags, bad k, missing or
@@ -60,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("test", help="test ARFF file")
     c.add_argument("k", type=int, help="number of neighbors")
     c.add_argument("--backend", choices=["cuda", "cuda-tile", "oracle"],
-                   default="cuda",
+                   default=None,
                    help="cuda: the stripe kernels or the XLA scans, as tpu "
                    "(default); cuda-tile: the wide-feature rung; oracle: numpy")
     c.add_argument("--precision", choices=["exact", "fast", "bf16", "auto"],
@@ -87,6 +94,17 @@ def build_parser() -> argparse.ArgumentParser:
                    "PyTorch version)")
     c.add_argument("--warmup", action="store_true",
                    help="run once before timing (excludes build and upload)")
+    c.add_argument(
+        "--sweep-k", default=None, metavar="K1,K2,...",
+        help="classify at every listed k from ONE shared retrieval "
+        "(positional k is ignored): prints the result line per k, each "
+        "reporting the whole sweep's time. Runs the exact retrieval with "
+        "--engine auto/stripe/xla, --metric and --device; --backend, a "
+        "non-exact --precision, --query-batch and tile knobs are rejected")
+    c.add_argument(
+        "--dump-predictions", default=None, metavar="FILE.npy",
+        help="save the int32 prediction vector (with --sweep-k: one file per "
+        "k, FILE.k{K}.npy)")
     c.add_argument("--json", action="store_true",
                    help="emit structured JSON metrics")
     return p
@@ -115,9 +133,94 @@ def run(argv: Optional[Sequence[str]] = None, stdout=None) -> int:
     return _run_classify(args, stdout)
 
 
+def _dump_predictions(path: str, preds) -> bool:
+    """Save a prediction vector, keeping the CLI's error contract (a bad
+    path reports ``error: ...`` and exits 1, never a traceback). Runs after
+    the result line, so a failed save does not discard the computed
+    output."""
+    import numpy as np
+
+    try:
+        np.save(path, preds)
+        return True
+    except OSError as e:
+        _error(e)
+        return False
+
+
+def _sweep_ks(args) -> "tuple[list[int] | None, str | None]":
+    """``--sweep-k``'s sorted, deduplicated ks and no error, or no ks and
+    the error line; checked before any file is read."""
+    try:
+        ks = sorted({int(s) for s in args.sweep_k.split(",") if s})
+        if not ks or ks[0] < 1:
+            raise ValueError
+    except ValueError:
+        return None, (f"--sweep-k wants positive integers, got "
+                      f"{args.sweep_k!r}")
+    # Options the retrieval cannot honor are rejected rather than silently
+    # computing something else.
+    rejected = [name for name, bad in (
+        ("--backend", args.backend is not None),
+        ("--precision", args.precision not in ("exact", "auto")),
+        ("--query-batch", args.query_batch is not None),
+        ("--query-tile", args.query_tile != 256),
+        ("--train-tile", args.train_tile != 2048),
+    ) if bad]
+    if rejected:
+        return None, ("--sweep-k runs the exact candidate-retrieval path; "
+                      f"incompatible with {', '.join(rejected)}")
+    return ks, None
+
+
+def _run_sweep(args, ks, stdout) -> int:
+    from knn_tpu_torch.models.knn import sweep_k
+
+    try:
+        train = load_arff(args.train)
+        test = load_arff(args.test)
+        train.validate_for_knn(max(ks), test)
+    except (OSError, ValueError) as e:
+        _error(e)
+        return EXIT_USAGE
+    opts = {"metric": args.metric, "engine": args.engine,
+            "device": args.device}
+    try:
+        if args.warmup:
+            sweep_k(train, test, ks, **opts)
+        with RegionTimer() as t:
+            preds_by_k = sweep_k(train, test, ks, **opts)
+    except ResilienceError as e:
+        _error(f"{type(e).__name__}: {e}")
+        return EXIT_RUNTIME
+    except (ValueError, RuntimeError) as e:
+        _error(e)
+        return EXIT_RUNTIME
+    base = args.dump_predictions
+    if base and base.endswith(".npy"):
+        base = base[:-4]
+    for k in ks:
+        acc = accuracy(confusion_matrix(preds_by_k[k], test.labels,
+                                        test.num_classes))
+        print(result_line(k, test.num_instances, train.num_instances, t.ms,
+                          acc), file=stdout)
+        if args.json:
+            print(result_json(k, test.num_instances, train.num_instances,
+                              t.ms, acc, f"sweep:{args.engine}"), file=stdout)
+        if base and not _dump_predictions(f"{base}.k{k}.npy", preds_by_k[k]):
+            return EXIT_RUNTIME
+    return 0
+
+
 def _run_classify(args, stdout) -> int:
     from knn_tpu_torch.backends import get_backend
 
+    if args.sweep_k is not None:
+        ks, err = _sweep_ks(args)
+        if err is not None:
+            _error(err)
+            return EXIT_USAGE
+        return _run_sweep(args, ks, stdout)
     try:
         train = load_arff(args.train)
         test = load_arff(args.test)
@@ -126,7 +229,8 @@ def _run_classify(args, stdout) -> int:
         _error(e)
         return EXIT_USAGE
 
-    predict = get_backend(args.backend)
+    backend = args.backend or "cuda"
+    predict = get_backend(backend)
     opts = {"device": args.device, "query_tile": args.query_tile,
             "train_tile": args.train_tile}
     if args.metric != "euclidean":
@@ -152,9 +256,12 @@ def _run_classify(args, stdout) -> int:
     acc = accuracy(confusion_matrix(predictions, test.labels, test.num_classes))
     print(result_line(args.k, test.num_instances, train.num_instances, t.ms, acc),
           file=stdout)
+    if args.dump_predictions and not _dump_predictions(args.dump_predictions,
+                                                       predictions):
+        return EXIT_RUNTIME
     if args.json:
         print(result_json(args.k, test.num_instances, train.num_instances, t.ms,
-                          acc, args.backend), file=stdout)
+                          acc, backend), file=stdout)
     return 0
 
 

@@ -5,8 +5,9 @@ The port of ``knn_tpu/ops/pallas_knn.py``'s stripe route, exact form. The
 kernel (``csrc/stripe_knn.cu``) is written for the GPU, not translated from
 the Pallas blocks: no 128-lane layout, no v5e block tunings, no padding of
 the features (rows at or past ``n_valid`` are masked inside the kernel),
-and no super-chunk or windowed dispatch — those worked around the TPU's
-fetch round trip. The queries go to the card in one call. Like the TPU
+and no super-chunks or chunk sizes tuned to the TPU's fetch round trip: the
+retrieval entry cuts the queries only as far as the kernels' partial-key
+buffer needs (:func:`candidate_chunk_rows`). Like the TPU
 kernel, it reads a transposed train: :func:`feature_major` makes the
 ``[D, N]`` copy (rows rounded up to 128) once per train tensor and keeps it
 with it, for this kernel and the tile kernel's exact and fast forms.
@@ -32,6 +33,11 @@ The host entries (:func:`stripe_candidates_arrays`,
 forms: the exact form with d <= 128 runs the stripe kernel; the matmul forms
 (and the exact form past 128 features) run the tile kernel of
 ``ops/tile_knn.py``, with the train matrix stored as the JAX route stores it.
+:func:`stripe_candidates_arrays` is also the models' retrieval entry, and
+with ``deferred=True`` returns before the card has finished: its queries go
+up through pinned host memory and its answers come back by copies into
+pinned host memory that an event marks done (:func:`to_device_async`,
+:func:`host_copy_async`).
 
 Semantics, shared by the kernel and :func:`knn_stripe_candidates_reference`:
 per query, the k smallest ``(distance, train index)`` pairs over rows
@@ -76,6 +82,9 @@ SPLIT_ALIGN = 4
 _BLOCKS_PER_SM = 16
 # Elements of the plain version's [queries, N] distance block per step.
 _REFERENCE_BLOCK = 1 << 26
+# Bytes of the kernels' [rows, splits, k] int64 partial keys that one chunk
+# of a retrieval may hold on the card (stripe_candidates_arrays).
+PARTIAL_BYTES_CAP = 256 << 20
 
 
 def stripe_route_ok(precision: str, d: int, k: int) -> bool:
@@ -653,6 +662,70 @@ def stripe_route_candidates(
     return tile_knn.knn_tile_candidates(train_x, test_x, n_valid, k, form)
 
 
+def to_device_async(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``a`` as a float32 tensor on ``dev``. For a CUDA device the copy is
+    staged in pinned host memory and enqueued on the current stream without
+    waiting: a copy from pageable memory would wait for the work already on
+    the stream, and a deferred call would then return only after it."""
+    if dev.type != "cuda":
+        return to_device(a, np.float32, dev)
+    host = torch.empty(a.shape, dtype=torch.float32, pin_memory=True)
+    host.numpy()[...] = a
+    return host.to(dev, non_blocking=True)
+
+
+def host_copy_async(*tensors: torch.Tensor):
+    """Start copying ``tensors`` to the host and return ``wait()``, which
+    gives them as numpy arrays (copies the caller owns).
+
+    CUDA tensors are copied into pinned host tensors on the current stream
+    (``non_blocking``), and an event recorded after the copies; ``wait()``
+    waits on that event. CPU tensors are read now."""
+    if tensors[0].device.type != "cuda":
+        out = tuple(t.numpy().copy() for t in tensors)
+        return lambda: out
+    dev = tensors[0].device
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+
+    def wait():
+        done.synchronize()
+        return tuple(h.numpy().copy() for h in host)
+
+    return wait
+
+
+def route_split_plan(n_valid: int, n_queries: int, dev, d: int, k: int,
+                     form: str) -> Tuple[int, int]:
+    """The split plan that :func:`stripe_route_candidates` gives its scan
+    kernel on ``dev``: the stripe scan's for the exact form with d <= 128
+    and k <= 16, the tile kernel's otherwise."""
+    if form == "exact" and d <= STRIPE_MAX_D and k <= STRIPE_MAX_K:
+        return stripe_split_plan(n_valid, n_queries, dev, d, k)
+    from knn_tpu_torch.ops import tile_knn  # tile_knn imports this module
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    return tile_knn.tile_split_plan(n_valid, n_queries, sm_count, k, form)
+
+
+def candidate_chunk_rows(n_valid: int, n_queries: int, dev, d: int, k: int,
+                         form: str) -> int:
+    """The most query rows one call of the kernels takes on ``dev``: all of
+    them, halved until their ``[rows, splits, k]`` int64 partial keys (at
+    the route's split plan for that many rows) fit
+    :data:`PARTIAL_BYTES_CAP`. Fewer rows get more splits, so the halving
+    stops at the plan's least splits."""
+    rows = n_queries
+    while rows > 1 and rows * k * 8 * route_split_plan(
+            n_valid, rows, dev, d, k, form)[0] > PARTIAL_BYTES_CAP:
+        rows = -(-rows // 2)
+    return rows
+
+
 def stripe_candidates_arrays(
     train_x: np.ndarray,
     test_x: np.ndarray,
@@ -660,17 +733,62 @@ def stripe_candidates_arrays(
     precision: str = "exact",
     device="cuda",
     cache: Optional[dict] = None,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Host entry: numpy in, unpadded ``([Q, k]`` float32 distances,
-    ``[Q, k]`` int32 indices``)`` out. ``cache`` (a ``Dataset.device_cache``
-    dict) memoizes the device-side train matrix."""
+    chunk_rows: Optional[int] = None,
+    deferred: bool = False,
+):
+    """Host entry of the stripe route and the models' retrieval: numpy in,
+    unpadded ``([Q, k]`` float32 distances, ``[Q, k]`` int32 indices``)``
+    out, ascending by (distance, index); any k >= 1, and ``(0, k)`` empties
+    for no queries. ``cache`` (a ``Dataset.device_cache`` dict) memoizes
+    the device-side train matrix.
+
+    The queries go to the card once and run in chunks of at most
+    ``chunk_rows`` rows (default :func:`candidate_chunk_rows`, which bounds
+    the kernels' partial-key buffer), streamed through
+    ``utils/windowed.py::windowed_dispatch_deferred``: each chunk's answers
+    start their copy to pinned host memory as soon as its kernels are
+    enqueued (:func:`host_copy_async`). ``deferred=True`` returns a
+    zero-argument ``resolve()`` instead of the arrays: the queries are
+    uploaded and every chunk enqueued before this returns, and ``resolve()``
+    waits for the copies and memoizes. On the CPU the plain versions run
+    now and ``resolve()`` returns their result."""
+    from knn_tpu_torch.utils.windowed import windowed_dispatch_deferred
+
     form = _resolve_stripe_precision(precision, train_x.shape[1])
     dev = resolve_device(device)
+    check_k(int(k))
+    n, q = train_x.shape[0], test_x.shape[0]
+    if q == 0:
+        empty = (np.empty((0, k), np.float32), np.empty((0, k), np.int32))
+        return (lambda: empty) if deferred else empty
+    if chunk_rows is not None and chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
     tx = cached_train(train_x, dev, cache,
                       stripe_store_dtype(form, train_x.shape[1]))
-    d, i = stripe_route_candidates(tx, to_device(test_x, np.float32, dev),
-                                   train_x.shape[0], k, form)
-    return d.cpu().numpy(), i.cpu().numpy()
+    qx = to_device_async(test_x, dev)
+    if chunk_rows is None:
+        chunk_rows = q if dev.type == "cpu" else candidate_chunk_rows(
+            n, q, dev, train_x.shape[1], k, form)
+
+    def dispatch(s0):
+        return host_copy_async(*stripe_route_candidates(
+            tx, qx[s0 : s0 + chunk_rows], n, k, form))
+
+    def fetch(wait, s0):
+        return wait()
+
+    drain = windowed_dispatch_deferred(range(0, q, chunk_rows), dispatch,
+                                       fetch)
+    memo_out = []
+
+    def resolve():
+        if not memo_out:
+            parts = drain()
+            memo_out.append((np.concatenate([p[0] for p in parts]),
+                             np.concatenate([p[1] for p in parts])))
+        return memo_out[0]
+
+    return resolve if deferred else resolve()
 
 
 def knn_stripe_classify(

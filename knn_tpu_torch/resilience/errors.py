@@ -8,6 +8,8 @@ Callers branch on type, not text:
   refusing a source).
 - :class:`DeviceError`  — a CUDA device that was asked for is absent, or a
   kernel launch on it was refused.
+- :class:`DeadlineExceededError` — a wait ran out of time before the work
+  finished (``AsyncResult.result(timeout=...)``).
 
 ``DataError`` subclasses ``ValueError`` and every class subclasses
 ``ResilienceError`` (itself an ``Exception``), so ``except ValueError``
@@ -36,3 +38,9 @@ class CompileError(ResilienceError):
 class DeviceError(ResilienceError):
     """A CUDA device was asked for and is absent, or a kernel launch on it
     was refused."""
+
+
+class DeadlineExceededError(ResilienceError):
+    """A deadline elapsed before the work finished: ``AsyncResult.result(
+    timeout=...)`` ran out of time waiting for an in-flight computation.
+    The work usually keeps running, and a later ``result()`` collects it."""

@@ -373,3 +373,112 @@ def test_stripe_split_plan_is_one_wave(card, d, k):
         n_splits, rows = cuda_knn.stripe_split_plan(n_valid, q, card, d, k)
         assert n_splits * -(-q // 128) <= sm * blocks
         assert rows % cuda_knn._TILE_ROWS == 0 and n_splits * rows >= n_valid
+
+
+def _model_problem(seed, n=3000, q=300, d=7, classes=5):
+    rng = np.random.default_rng(seed)
+    train, test = _grid(rng, n, q, d)
+    labels = rng.integers(0, classes, n).astype(np.int32)
+    targets = rng.normal(size=n).astype(np.float32)
+    return (dataset_from_arrays(train, labels, raw_targets=targets),
+            dataset_from_arrays(test, np.zeros(q, np.int32)))
+
+
+def _stripe_launches():
+    return (cuda_knn.knn_stripe_scan.launches,
+            cuda_knn.knn_stripe_merge.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "stripe", "xla"])
+def test_async_on_the_card_equals_sync_and_host(card, engine):
+    from knn_tpu_torch.models.knn import KNNClassifier, KNNRegressor
+
+    train, test = _model_problem(11)
+    model = KNNClassifier(k=5, engine=engine).fit(train)
+    host = KNNClassifier(k=5, engine=engine, device="cpu").fit(train)
+    before = _stripe_launches()
+    handles = [model.kneighbors_async(test) for _ in range(4)]
+    want_d, want_i = model.kneighbors(test)
+    moved = _stripe_launches() != before
+    assert moved == (engine != "xla")
+    for h in handles:
+        d, i = h.result()
+        assert np.array_equal(d, want_d) and np.array_equal(i, want_i)
+    host_d, host_i = host.kneighbors(test)
+    assert np.array_equal(want_i, host_i) and np.array_equal(want_d, host_d)
+    assert np.array_equal(model.predict_async(test).result(),
+                          host.predict(test))
+    reg = KNNRegressor(k=5, weights="distance", engine=engine).fit(train)
+    assert np.array_equal(reg.predict_async(test).result(),
+                          KNNRegressor(k=5, weights="distance", engine=engine,
+                                       device="cpu").fit(train).predict(test))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,chunk_rows", [(5, 64), (5, 301), (20, 100)])
+def test_chunked_deferred_retrieval_on_the_card(card, k, chunk_rows):
+    train, test = _model_problem(12, q=1000)
+    resolve = cuda_knn.stripe_candidates_arrays(
+        train.features, test.features, k, chunk_rows=chunk_rows,
+        deferred=True)
+    d, i = resolve()
+    want_d, want_i = cuda_knn.stripe_candidates_arrays(
+        train.features, test.features, k, device="cpu")
+    assert np.array_equal(d, want_d) and np.array_equal(i, want_i)
+    assert resolve()[1] is i
+    empty = cuda_knn.stripe_candidates_arrays(
+        train.features, test.features[:0], k, deferred=True)()
+    assert empty[0].shape == empty[1].shape == (0, k)
+
+
+@pytest.mark.cuda
+def test_chunk_cap_bounds_the_partial_keys(card):
+    for n, q, d, k, form in ((30_803, 659_712, 11, 5, "exact"),
+                             (30_803, 200_000, 11, 128, "exact"),
+                             (65_536, 100_000, 784, 1000, "fast")):
+        rows = cuda_knn.candidate_chunk_rows(n, q, card, d, k, form)
+        splits = cuda_knn.route_split_plan(n, rows, card, d, k, form)[0]
+        assert 1 <= rows <= q
+        assert rows == q or rows * splits * k * 8 <= cuda_knn.PARTIAL_BYTES_CAP
+
+
+@pytest.mark.cuda
+def test_radius_on_the_card_launches_the_large_k_tile_scan(card):
+    from knn_tpu_torch.models.knn import radius_neighbors_arrays
+
+    rng = np.random.default_rng(13)
+    train = rng.uniform(0, 10, (2000, 4)).astype(np.float32)
+    test = rng.uniform(0, 10, (200, 4)).astype(np.float32)
+    before = (tile_knn.knn_tile_scan.launches["exact"],
+              cuda_knn.knn_stripe_merge.launches)
+    d, i, mask = radius_neighbors_arrays(train, test, 2.0)
+    assert (tile_knn.knn_tile_scan.launches["exact"] > before[0]
+            and cuda_knn.knn_stripe_merge.launches > before[1])
+    hd, hi, hmask = radius_neighbors_arrays(train, test, 2.0, device="cpu")
+    assert d.shape == (200, 128)
+    assert np.array_equal(i, hi) and np.array_equal(d, hd)
+    assert np.array_equal(mask, hmask)
+    bf = ((test[:, None, :] - train[None, :, :]) ** 2).sum(-1)
+    for row in range(0, 200, 17):
+        assert set(i[row][mask[row]].tolist()) == set(
+            np.nonzero(bf[row] <= 2.0)[0].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "xla"])
+def test_sweep_on_the_card_is_one_retrieval(card, engine):
+    from knn_tpu_torch.models.knn import KNNClassifier, sweep_k
+
+    train, test = _model_problem(14)
+    sweep_k(train, test, [1, 5, 10], engine=engine)  # build, upload
+    before = _stripe_launches()
+    got = sweep_k(train, test, [1, 5, 10], engine=engine)
+    after = _stripe_launches()
+    want = (1, 1) if engine == "auto" else (0, 0)
+    assert (after[0] - before[0], after[1] - before[1]) == want
+    host = sweep_k(train, test, [1, 5, 10], engine=engine, device="cpu")
+    for k in (1, 5, 10):
+        assert np.array_equal(got[k], host[k])
+        assert np.array_equal(got[k], KNNClassifier(k=k, engine=engine).fit(
+            train).predict(test))

@@ -7,18 +7,24 @@ import sys
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from knn_tpu_torch import KNNClassifier, KNNRegressor, sweep_k  # noqa: E402
+from knn_tpu_torch.data.dataset import Dataset  # noqa: E402
+from knn_tpu_torch.models import knn  # noqa: E402
 from knn_tpu_torch.ops import _build, cuda_knn, probe_matmul, tile_knn  # noqa: E402
 from knn_tpu_torch.resilience.errors import CompileError, DeviceError  # noqa: E402
+from tests import fixtures  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 
 
 def test_import_leaves_jax_and_knn_tpu_out():
-    # A subprocess: this test process already imported jax (conftest).
+    # A subprocess: this test process already imported jax (conftest). It
+    # imports every module, then runs --sweep-k and --dump-predictions.
     code = (
         "import sys\n"
         "import knn_tpu_torch, knn_tpu_torch.cli, knn_tpu_torch.ops.cuda_knn\n"
@@ -29,12 +35,24 @@ def test_import_leaves_jax_and_knn_tpu_out():
         "import knn_tpu_torch.obs.bench_timing, knn_tpu_torch.ops.probe_matmul\n"
         "import knn_tpu_torch.probes.data, knn_tpu_torch.probes.probe_mnist_r3\n"
         "import knn_tpu_torch.probes.tune_stripe_selection\n"
+        "import knn_tpu_torch.models, knn_tpu_torch.models.knn\n"
         "knn_tpu_torch.backends.available_backends()\n"
+        "import io, os, tempfile\n"
+        "tr, te = sys.argv[1:3]\n"
+        "dump = os.path.join(tempfile.mkdtemp(), 'p.npy')\n"
+        "for argv in ([tr, te, '1', '--sweep-k', '1,3', '--device', 'cpu',\n"
+        "              '--dump-predictions', dump],\n"
+        "             [tr, te, '3', '--device', 'cpu',\n"
+        "              '--dump-predictions', dump]):\n"
+        "    assert knn_tpu_torch.cli.run(argv, stdout=io.StringIO()) == 0\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'knn_tpu', 'triton'))\n"
         "print(bad)\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    d = fixtures.datasets_dir()
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(d / "small-train.arff"),
+                          str(d / "small-test.arff")], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
@@ -280,3 +298,46 @@ def test_resolve_device_never_falls_back(monkeypatch):
         cuda_knn.resolve_device("cuda")
     with pytest.raises(ValueError):
         cuda_knn.resolve_device("meta")
+
+
+def _no_card_problem():
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 4, (60, 3)).astype(np.float32)
+    train = Dataset(x, rng.integers(0, 3, 60).astype(np.int32),
+                    raw_targets=rng.normal(size=60).astype(np.float32))
+    return train, Dataset(x[:7], np.zeros(7, np.int32))
+
+
+@pytest.mark.parametrize("engine", ["auto", "stripe", "xla"])
+def test_models_without_a_card_raise_and_never_answer_from_the_host(
+        monkeypatch, engine):
+    """Every model entry asks for the card unless ``device="cpu"`` was
+    given: with no card it is a DeviceError, never the host's answer."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    train, test = _no_card_problem()
+    clf = KNNClassifier(k=3, engine=engine).fit(train)
+    reg = KNNRegressor(k=3, engine=engine).fit(train)
+    calls = [
+        lambda: clf.kneighbors(test),
+        lambda: clf.kneighbors_async(test),
+        lambda: clf.predict_async(test),
+        lambda: clf.predict_proba(test),
+        lambda: clf.radius_neighbors(test, 1.0),
+        lambda: KNNClassifier(k=3, engine=engine,
+                              weights="distance").fit(train).predict(test),
+        lambda: reg.predict(test),
+        lambda: reg.predict_async(test),
+        lambda: sweep_k(train, test, [1, 3], engine=engine),
+        lambda: knn._kneighbors_arrays(train.features, test.features[:0], 3,
+                                       engine=engine),
+    ]
+    if engine == "auto":
+        calls.append(lambda: clf.predict(test))
+    for call in calls:
+        with pytest.raises(DeviceError, match="device='cpu'"):
+            call()
+    assert not train.device_cache
+    # The same calls on the host answer.
+    d, i = KNNClassifier(k=3, engine=engine, device="cpu").fit(
+        train).kneighbors(test)
+    assert i.shape == (7, 3)
