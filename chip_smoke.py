@@ -85,18 +85,39 @@ Phases, each printed as it runs; any failure exits non-zero:
                         wide files' exact form); --approx;
                         the native ARFF parser against the pure-Python one
                         on the large and wide files (byte-equal, MB/s).
-15. ``probe_selection`` — P2's entry point
+15. ``serve``         — ``save-index`` and ``serve`` on the card: index
+                        artifacts of the large fixture (through the CLI),
+                        xl and wide; an in-process ``ServeApp`` on xl under
+                        closed-loop HTTP clients from another process
+                        (single-row ``/predict`` at c = 1, 8 and 32, 64-row
+                        requests at c = 8, ``/kneighbors``), the stripe
+                        scan's and the merge's launches equal to the
+                        dispatched batches, every answer equal to the
+                        synchronous retrieval's and the oracle's, latency,
+                        q/s, batch sizes and the dispatch's breakdown; the
+                        ``serve.dispatch`` faults (``once:oom`` halves
+                        ``max_batch`` on the same kernels; ``always`` gives
+                        typed 500s, the breaker opens, no kernel and no
+                        other route answers, and it closes after the
+                        cooldown); the card's memory over three reloads of
+                        xl; the wide index through the tile kernel; then
+                        ``python -m knn_tpu_torch serve`` as a subprocess
+                        on the large index (banner, ``/healthz``, both
+                        ``/metrics`` expositions, a request id resolved,
+                        ``/debug/profile`` under load holding stripe-scan
+                        kernel events, re-save + SIGHUP, SIGTERM).
+16. ``probe_selection`` — P2's entry point
                         (``knn_tpu_torch.probes.tune_stripe_selection``) on
                         the large shape, counters read around it; each
                         selection's kernel, at that shape's layout, held
                         bit-equal to its plain version and timed beside it.
-16. ``probe_wide``    — P1's entry point (``knn_tpu_torch.probes.
+17. ``probe_wide``    — P1's entry point (``knn_tpu_torch.probes.
                         probe_mnist_r3``) at 65,536 x 784 with 2,048 queries,
                         the counter read around it; P1 held to its plain
                         version at block_n 8, 256 and 1,024, and timed
                         beside it and the library's bfloat16 matmul with
                         float32 output.
-17. ``kernels``       — one JSON line describing every kernel.
+18. ``kernels``       — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -1805,6 +1826,563 @@ def phase_probe_wide(torch, dev, probe_matmul) -> dict:
     return res
 
 
+# The serve phase: concurrency levels of closed-loop clients on the xl index
+# (single-row /predict at each c, then 64-row requests at c = 8).
+SERVE_LEVELS = (("predict", 1, 1, 200), ("predict", 1, 8, 800),
+                ("predict", 1, 32, 1600), ("predict", 64, 8, 160))
+
+
+class _Client:
+    """A keep-alive HTTP client of one server (one per load thread)."""
+
+    def __init__(self, base: str):
+        import http.client
+        from urllib.parse import urlparse
+
+        u = urlparse(base)
+        self.conn = http.client.HTTPConnection(u.hostname, u.port, timeout=60)
+
+    def call(self, method: str, path: str, payload=None, headers=None):
+        body = None if payload is None else json.dumps(payload)
+        hdrs = {"Content-Type": "application/json", **(headers or {})}
+        self.conn.request(method, path, body=body, headers=hdrs)
+        resp = self.conn.getresponse()
+        data = resp.read()
+        return resp.status, dict(resp.getheaders()), data
+
+    def close(self):
+        self.conn.close()
+
+
+def _dispatch_breakdown(spans) -> dict:
+    """Mean ms per ``serve.dispatch`` span, and of each kind of span
+    directly under it (``distance``: the retrieval's host entry and the
+    kernels' launch; ``fetch``: the wait for the answers; ``vote``), over
+    ``spans``; ``other`` is the rest of the dispatch (the batch's concat,
+    the stager, the per-request scatter and accounting)."""
+    dispatches = [s for s in spans if s.name == "serve.dispatch"
+                  and s.dur_ns is not None]
+    if not dispatches:
+        return {}
+    ids = {id(s) for s in dispatches}
+    out = {"serve.dispatch": sum(s.dur_ms for s in dispatches)}
+    for s in spans:
+        if s.parent is not None and id(s.parent) in ids:
+            out[s.name] = out.get(s.name, 0.0) + s.dur_ms
+    out["other"] = out["serve.dispatch"] - sum(
+        v for k, v in out.items() if k != "serve.dispatch")
+    return {k: v / len(dispatches) for k, v in out.items()}
+
+
+def _hist(registry, name: str) -> "tuple[int, float]":
+    """(count, sum) of an unlabeled histogram of the global registry."""
+    count, total = 0, 0.0
+    for inst in registry.instruments():
+        if inst.name == name:
+            count += inst.count
+            total += inst.sum
+    return count, total
+
+
+# The load generator, run as its own process so that its threads do not
+# share the server's interpreter lock: argv[1] is a JSON spec (base URL,
+# kind, clients, the request count, the .npy file of query blocks); it
+# prints one JSON object (answers by request, latencies in ms, wall s).
+_LOAD_CLIENT = r"""
+import http.client, json, sys, threading, time
+from urllib.parse import urlparse
+import numpy as np
+spec = json.loads(sys.argv[1])
+blocks = np.load(spec["queries"])
+u = urlparse(spec["base"])
+answers, lat, errors = {}, [], []
+lock = threading.Lock()
+def worker(t):
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+    for j in range(t, spec["total"], spec["clients"]):
+        body = json.dumps({"instances": blocks[j].tolist()})
+        t0 = time.perf_counter()
+        conn.request("POST", "/" + spec["kind"], body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        with lock:
+            lat.append(ms)
+            if resp.status != 200:
+                errors.append([resp.status, data.decode()[:200]])
+            answers[j] = json.loads(data)
+    conn.close()
+threads = [threading.Thread(target=worker, args=(t,))
+           for t in range(spec["clients"])]
+t0 = time.perf_counter()
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+wall = time.perf_counter() - t0
+print(json.dumps({"answers": answers, "lat": lat, "wall": wall,
+                  "errors": errors}))
+"""
+
+
+def _closed_loop(base: str, kind: str, blocks: np.ndarray, clients: int):
+    """``clients`` keep-alive connections from a separate process, each
+    sending its share of the requests ``blocks[j]`` back to back. Returns
+    the answers by request, the latencies (ms) and the wall (s)."""
+    path = REPO / "build" / "chip_smoke" / "serve-queries.npy"
+    np.save(path, blocks)
+    spec = {"base": base, "kind": kind, "clients": clients,
+            "total": int(blocks.shape[0]), "queries": str(path)}
+    out = subprocess.run([sys.executable, "-c", _LOAD_CLIENT,
+                          json.dumps(spec)], capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise SystemExit(f"serve: the load client exited {out.returncode}: "
+                         f"{out.stderr[-2000:]}")
+    doc = json.loads(out.stdout)
+    answers = {int(j): a for j, a in doc["answers"].items()}
+    if doc["errors"] or len(answers) != blocks.shape[0]:
+        raise SystemExit(f"serve: {len(doc['errors'])} failed requests "
+                         f"({doc['errors'][:2]}), {len(answers)}/"
+                         f"{blocks.shape[0]} answered")
+    return answers, doc["lat"], doc["wall"]
+
+
+def _near_tie_ok(train_x, queries, ki, oi, d: int) -> bool:
+    """Indices equal to the oracle's, except in rows where the two lists
+    are equally near in float64 to within the float rule rtol = d * 2^-24
+    (the oracle sums the features in another order, so the two may order
+    a near tie differently)."""
+    for r in np.nonzero((np.asarray(ki) != np.asarray(oi)).any(axis=1))[0]:
+        q = queries[r].astype(np.float64)
+        dk = ((train_x[ki[r]].astype(np.float64) - q) ** 2).sum(axis=1)
+        do = ((train_x[oi[r]].astype(np.float64) - q) ** 2).sum(axis=1)
+        if not np.allclose(np.sort(dk), np.sort(do), rtol=d * 2.0 ** -24,
+                           atol=0):
+            return False
+    return True
+
+
+def phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
+                smi) -> dict:
+    """save-index and serve on the card (ROADMAP A8a): the index artifacts,
+    an in-process server on xl under closed-loop HTTP clients, the wide
+    index through the tile kernel, the subprocess lifecycle on the large
+    index, faults at the dispatch, and the card's memory across reloads."""
+    import gc
+    import threading
+
+    from knn_tpu_torch import cli, obs
+    from knn_tpu_torch.backends.oracle import knn_oracle, oracle_kneighbors
+    from knn_tpu_torch.data.arff import load_arff
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.models.knn import DEFAULT_BATCH_BUCKETS, KNNClassifier
+    from knn_tpu_torch.resilience import faults
+    from knn_tpu_torch.serve.artifact import load_index, save_index
+    from knn_tpu_torch.serve.server import ServeApp, make_server
+
+    scan, merge = cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge
+    tile_scan = tile_knn.knn_tile_scan
+    res = {"levels": {}, "smi": smi}
+
+    def fail(msg):
+        raise SystemExit(f"serve: {msg}")
+
+    def reset_counts():
+        scan.launches = merge.launches = 0
+        for form in tile_scan.launches:
+            tile_scan.launches[form] = 0
+
+    def counts():
+        return {"stripe_scan": scan.launches, "stripe_merge": merge.launches,
+                **{f"tile_{f}": n for f, n in tile_scan.launches.items()}}
+
+    def start(app):
+        server = make_server(app, "127.0.0.1", 0)
+        th = threading.Thread(target=server.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+        th.start()
+        host, port = server.server_address[:2]
+        return server, th, f"http://{host}:{port}"
+
+    def stop(server, th, app):
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=30)
+        app.close()
+
+    data_dir = REPO / "build" / "chip_smoke"
+    train, test = load_arff(str(train_path)), load_arff(str(test_path))
+    q_all = test.features
+    buckets = tuple(sorted({b for b in DEFAULT_BATCH_BUCKETS if b < 256}
+                           | {256}))
+
+    # 1. Index artifacts.
+    idx_large = data_dir / "idx-large"
+    idx_xl = data_dir / "idx-xl"
+    idx_wide = data_dir / "idx-wide"
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    rc = cli.run(["save-index", str(train_path), str(idx_large), "--k", "5"],
+                 stdout=out)
+    if rc != 0:
+        fail(f"save-index exited {rc}")
+    print(out.getvalue().strip(), f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    save_index(KNNClassifier(k=10).fit(Dataset(xl_x, xl_y)), idx_xl)
+    print(f"wrote index {idx_xl}: {xl_x.shape[0]} rows x {xl_x.shape[1]} "
+          f"features, k=10 ({time.perf_counter() - t0:.2f} s)")
+    wide_train = load_arff(str(data_dir / "wide-train.arff"))
+    wide_test = load_arff(str(data_dir / "wide-test.arff"))
+    save_index(KNNClassifier(k=5).fit(wide_train), idx_wide)
+    print(f"wrote index {idx_wide}: {wide_train.num_instances} rows x "
+          f"{wide_train.num_features} features, k=5")
+
+    # 2. In-process server on xl, closed-loop clients at each level.
+    obs.enable()
+    obs.reset()
+    model = load_index(idx_xl)
+    app = ServeApp(model, max_batch=256, max_wait_ms=2.0,
+                   batch_buckets=buckets, cost_accounting=True,
+                   index_version="xl")
+    t0 = time.perf_counter()
+    warmed = app.warm()
+    print(f"xl warmed in {time.perf_counter() - t0:.2f} s: {warmed}")
+    mem_first = torch.cuda.memory_allocated()
+    server, th, base = start(app)
+    sync_d, sync_i = model.kneighbors(test)
+    sync_p = model.predict_from_candidates(sync_d, sync_i)
+    sample = np.random.default_rng(1).choice(len(q_all), 64, replace=False)
+    _, oi = oracle_kneighbors(xl_x, q_all[sample], 10)
+    oracle_p = knn_oracle(xl_x, xl_y, q_all[sample], 10, int(xl_y.max()) + 1)
+    if not np.array_equal(oracle_p, sync_p[sample]):
+        fail("the synchronous xl predictions differ from the oracle's")
+    if not _near_tie_ok(xl_x, q_all[sample], sync_i[sample], oi, 11):
+        fail("the synchronous xl neighbors differ from the oracle's")
+    registry = obs.registry()
+    tx = None
+    for kind, rows, clients, total in SERVE_LEVELS:
+        name = f"{kind}_r{rows}_c{clients}"
+
+        starts = [(j * rows) % (len(q_all) - rows) for j in range(total)]
+        blocks = np.stack([q_all[s:s + rows] for s in starts])
+        n_spans = len(obs.tracer().spans())
+        b0 = _hist(registry, "knn_serve_batch_size")
+        r0 = _hist(registry, "knn_serve_batch_rows")
+        d0 = _hist(registry, "knn_serve_dispatch_ms")
+        reset_counts()
+        answers, lat, wall = _closed_loop(base, kind, blocks, clients)
+        got = counts()
+        b1 = _hist(registry, "knn_serve_batch_size")
+        r1 = _hist(registry, "knn_serve_batch_rows")
+        d1 = _hist(registry, "knn_serve_dispatch_ms")
+        batches = b1[0] - b0[0]
+        if got["stripe_scan"] != batches or got["stripe_merge"] != batches:
+            fail(f"{name}: {batches} batches but launches {got}")
+        if any(got[f"tile_{f}"] for f in tile_scan.launches):
+            fail(f"{name}: the tile kernel launched at xl: {got}")
+        for j, doc in answers.items():
+            s = starts[j]
+            if doc["predictions"] != sync_p[s:s + rows].tolist():
+                fail(f"{name}: request {j} differs from the synchronous "
+                     f"answer")
+        mean_rows = (r1[1] - r0[1]) / batches
+        dispatch_ms = (d1[1] - d0[1]) / batches
+        qb = [torch.from_numpy(np.array(
+            q_all[i:i + max(1, round(mean_rows))])).to("cuda")
+            for i in range(12)]
+        if tx is None:
+            tx = cuda_knn.cached_train(xl_x, torch.device("cuda"),
+                                       model.train_.device_cache)
+        kern_ms = cuda_ms(cuda_knn.knn_stripe_candidates,
+                          [(tx, b, xl_x.shape[0], 10) for b in qb], reps=12)
+        lat.sort()
+        lv = {
+            "requests": total, "rows": rows, "clients": clients,
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+            "qps": total / wall, "rows_per_s": total * rows / wall,
+            "batches": batches,
+            "mean_batch_requests": (b1[1] - b0[1]) / batches,
+            "mean_batch_rows": mean_rows,
+            "dispatch_ms_mean": dispatch_ms,
+            "kernels_ms": kern_ms, "kernels_share": kern_ms / dispatch_ms,
+            "dispatch_breakdown_ms": _dispatch_breakdown(
+                obs.tracer().spans()[n_spans:]),
+            "launches": got,
+        }
+        res["levels"][name] = lv
+        print(f"xl {name}: {json.dumps(lv)}")
+    # /kneighbors on a sample: 4-row requests, against the synchronous
+    # answer (bit-equal) and the oracle.
+    reset_counts()
+    answers, _, _ = _closed_loop(
+        base, "kneighbors", q_all[sample].reshape(16, 4, -1), 4)
+    for j, doc in answers.items():
+        rows = sample[4 * j:4 * j + 4]
+        kd = np.asarray(doc["distances"], np.float32)
+        ki = np.asarray(doc["indices"])
+        if not (np.array_equal(kd, sync_d[rows])
+                and np.array_equal(ki, sync_i[rows])):
+            fail(f"/kneighbors request {j} differs from the synchronous one")
+        if not _near_tie_ok(xl_x, q_all[rows], ki, oi[4 * j:4 * j + 4], 11):
+            fail(f"/kneighbors request {j} differs from the oracle")
+    print(f"xl /kneighbors: 16 requests of 4 rows bit-equal to the "
+          f"synchronous retrieval and equal to the oracle; launches "
+          f"{counts()}")
+    st, _, body = _Client(base).call("GET", "/debug/capacity")
+    cap = json.loads(body)
+    res["capacity"] = cap["capacity"]
+    res["cost_totals"] = cap["cost"]["totals"]
+
+    # 5. Faults at the dispatch (in-process, the xl app).
+    feats = [q_all[16 * i:16 * i + 16] for i in range(16)]
+    reset_counts()
+    with faults.inject("serve.dispatch=once:oom") as plan:
+        handles = [app.batcher.submit(f, "predict") for f in feats]
+        preds = [h.result(timeout=60) for h in handles]
+    got = counts()
+    if (plan.stats()["serve.dispatch"]["fired"] != 1
+            or app.batcher.max_batch != 128 or got["stripe_scan"] < 2
+            or any(not np.array_equal(p, sync_p[16 * i:16 * i + 16])
+                   for i, p in enumerate(preds))):
+        fail(f"serve.dispatch=once:oom: max_batch {app.batcher.max_batch}, "
+             f"launches {got}, {plan.stats()}")
+    res["faults"] = {"once:oom": {"max_batch": app.batcher.max_batch,
+                                  "launches": got}}
+    print(f"serve.dispatch=once:oom: max_batch 256 -> "
+          f"{app.batcher.max_batch}, the same kernels launched {got}, "
+          f"answers unchanged")
+    reset_counts()
+    statuses = []
+    with faults.inject("serve.dispatch=always"):
+        cl = _Client(base)
+        for j in range(8):
+            st, _, body = cl.call("POST", "/predict",
+                                  {"instances": q_all[j:j + 1].tolist()})
+            statuses.append((st, json.loads(body).get("error", "")[:60]))
+        st, _, body = cl.call("GET", "/healthz")
+        health = json.loads(body)
+    got = counts()
+    fallbacks = [dict(i.labels) for i in registry.instruments()
+                 if i.name == "knn_serve_fallback_total"
+                 and dict(i.labels)["to"] != dict(i.labels)["from_rung"]]
+    if (any(s != 500 or not e.startswith("DeviceError") for s, e in statuses)
+            or health["breaker"] != "open" or any(got.values())
+            or fallbacks):
+        fail(f"serve.dispatch=always: statuses {statuses}, breaker "
+             f"{health['breaker']}, launches {got}, moves {fallbacks}")
+    time.sleep(1.2)  # the breaker's cooldown (KNN_TPU_BREAKER_COOLDOWN_MS)
+    for j in range(3):
+        st, _, body = cl.call("POST", "/predict",
+                              {"instances": q_all[j:j + 1].tolist()})
+        if st != 200 or json.loads(body)["predictions"] != \
+                sync_p[j:j + 1].tolist():
+            fail(f"after the fault: status {st} {body[:200]!r}")
+    st, _, body = cl.call("GET", "/healthz")
+    cl.close()
+    if json.loads(body)["breaker"] != "closed":
+        fail("the breaker did not close after the card recovered")
+    res["faults"]["always"] = {"statuses": sorted({s for s, _ in statuses}),
+                               "breaker": "open", "launches": got}
+    print(f"serve.dispatch=always: every request {statuses[0][0]} "
+          f"'{statuses[0][1]}...', the breaker open, no kernel and no other "
+          f"route; after the cooldown the probes answered and it closed")
+
+    # 6. Memory across three reloads of the xl index.
+    stop(server, th, app)
+    del app, model, tx
+    gc.collect()
+    app = ServeApp(load_index(idx_xl), max_batch=256, batch_buckets=buckets,
+                   index_path=str(idx_xl), cost_accounting=True)
+    app.warm()
+    gc.collect()
+    mem_first = torch.cuda.memory_allocated()
+    for _ in range(3):
+        app.reload()
+        gc.collect()
+    mem_after = torch.cuda.memory_allocated()
+    index_bytes = 2 * xl_x.nbytes  # the train and its feature-major copy
+    if mem_after > mem_first + index_bytes:
+        fail(f"memory after three reloads {mem_after} B against {mem_first} "
+             f"B after the first load (one index: {index_bytes} B)")
+    res["memory"] = {"first": mem_first, "after_3_reloads": mem_after,
+                     "index_bytes": index_bytes}
+    print(f"memory_allocated after the first load {mem_first} B, after "
+          f"three reloads {mem_after} B (one index {index_bytes} B)")
+    app.close()
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. Wide: the tile kernel's exact form and the merge.
+    wmodel = load_index(idx_wide)
+    wapp = ServeApp(wmodel, max_batch=64, batch_buckets=(16, 32, 64),
+                    cost_accounting=True)
+    wapp.warm()
+    server, th, base = start(wapp)
+    wq = wide_test.features[:48]
+    reset_counts()
+    answers, lat, wall = _closed_loop(base, "predict", wq.reshape(24, 2, -1),
+                                      4)
+    got = counts()
+    stop(server, th, wapp)
+    if got["tile_exact"] < 1 or got["stripe_merge"] < 1 or got["stripe_scan"]:
+        fail(f"wide: launches {got}")
+    preds = np.concatenate([answers[j]["predictions"] for j in range(24)])
+    wdev = torch.device("cuda")
+    wtx = torch.from_numpy(wide_train.features.copy()).to(wdev)
+    _, ri = cuda_knn.knn_stripe_candidates_reference(
+        wtx, torch.from_numpy(wq.copy()).to(wdev), wide_train.num_instances, 5)
+    plain = np.array([np.bincount(r, minlength=wide_train.num_classes)
+                      .argmax() for r in wide_train.labels[ri.cpu().numpy()]])
+    oracle_w = knn_oracle(wide_train.features, wide_train.labels, wq, 5,
+                          wide_train.num_classes)
+    if not (np.array_equal(preds, plain) and np.array_equal(preds, oracle_w)):
+        fail("wide: answers differ from the plain version or the oracle")
+    del wtx
+    lat.sort()
+    res["wide"] = {"requests": 24, "rows": 2, "clients": 4,
+                   "p50_ms": lat[len(lat) // 2], "qps": 24 / wall,
+                   "launches": got}
+    print(f"wide {wide_train.num_instances}x{wide_train.num_features}: 24 "
+          f"requests of 2 rows at c=4, launches {got}, predictions equal "
+          f"to the plain version and the oracle; {json.dumps(res['wide'])}")
+
+    # 4. The subprocess lifecycle on the large index.
+    res["lifecycle"] = _serve_lifecycle(train_path, idx_large, q_all,
+                                        knn_oracle, train)
+    obs.disable()
+    print("serve: " + json.dumps(res))
+    return res
+
+
+def _serve_lifecycle(train_path, idx_large, q_all, knn_oracle, train) -> dict:
+    """``python -m knn_tpu_torch serve IDX --port 0`` as a user runs it:
+    the banner, /healthz, both /metrics expositions, a request id in the
+    flight recorder, /debug/profile under load, SIGHUP reload after a
+    re-save, SIGTERM."""
+    import signal
+    import threading
+
+    def fail(msg):
+        proc.kill()
+        raise SystemExit(f"serve lifecycle: {msg}")
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "knn_tpu_torch", "serve", str(idx_large),
+         "--port", "0", "--drain-timeout-s", "5"],
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    t0 = time.perf_counter()
+    banner = proc.stdout.readline()
+    boot_s = time.perf_counter() - t0
+    if "ready on http://" not in banner:
+        fail(f"no ready banner: {banner!r} {proc.stderr.read()[-2000:]}")
+    base = banner.split("ready on ")[1].split()[0]
+    out = {"boot_s": boot_s}
+    cl = _Client(base)
+    try:
+        st, _, body = cl.call("GET", "/healthz")
+        h = json.loads(body)
+        mem = h["device"]["memory"]
+        if (st != 200 or not h["ready"]
+                or mem[0]["source"] != "memory_stats" or mem[0]["in_use"] <= 0):
+            fail(f"/healthz {st}: {h}")
+        want = knn_oracle(train.features, train.labels, q_all[:64], 5,
+                          train.num_classes)
+        st, hdrs, body = cl.call("POST", "/predict",
+                                 {"instances": q_all[:64].tolist()},
+                                 {"x-request-id": "chip-smoke-1"})
+        doc = json.loads(body)
+        if st != 200 or doc["predictions"] != want.tolist():
+            fail(f"/predict {st}: differs from the oracle")
+        before = doc["predictions"]
+        version0 = doc["index_version"]
+        st, _, body = cl.call("GET", "/debug/requests?id=chip-smoke-1")
+        if st != 200 or json.loads(body)["requests"][0]["outcome"] != "ok":
+            fail(f"/debug/requests?id= {st} {body[:300]!r}")
+        st, _, prom = cl.call("GET", "/metrics")
+        st2, hdrs, om = cl.call("GET", "/metrics", headers={
+            "Accept": "application/openmetrics-text"})
+        om = om.decode()
+        if (st != 200 or b"knn_serve_request_ms_bucket" not in prom
+                or st2 != 200 or not om.endswith("# EOF\n")
+                or '# {trace_id="' not in om):
+            fail("/metrics expositions")
+        # /debug/profile under load: two threads keep posting.
+        stop_load = threading.Event()
+
+        def load():
+            c = _Client(base)
+            while not stop_load.is_set():
+                c.call("POST", "/predict", {"instances": q_all[:8].tolist()})
+            c.close()
+
+        loaders = [threading.Thread(target=load) for _ in range(2)]
+        for t in loaders:
+            t.start()
+        time.sleep(0.2)
+        st, _, body = cl.call("GET", "/debug/profile?ms=200")
+        stop_load.set()
+        for t in loaders:
+            t.join(timeout=30)
+        trace = json.loads(body)
+        names = [e.get("name", "") for e in trace.get("traceEvents", [])]
+        kernel_events = sum("stripe_scan" in n for n in names)
+        host_spans = sum(n in ("serve.dispatch", "distance") for n in names)
+        if st != 200 or kernel_events < 1:
+            fail(f"/debug/profile: {st}, {kernel_events} stripe-scan events "
+                 f"of {len(names)}, source "
+                 f"{trace.get('otherData', {}).get('source')}")
+        out["profile"] = {"events": len(names),
+                          "stripe_scan_events": kernel_events,
+                          "worker_host_spans": host_spans}
+        # Re-save, then SIGHUP: a new version, identical predictions.
+        time.sleep(0.01)
+        rc = subprocess.run(
+            [sys.executable, "-m", "knn_tpu_torch", "save-index",
+             str(train_path), str(idx_large), "--k", "5"], cwd=str(REPO),
+            capture_output=True, text=True, timeout=300).returncode
+        if rc != 0:
+            fail(f"re-save exited {rc}")
+        proc.send_signal(signal.SIGHUP)
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            st, _, body = cl.call("GET", "/healthz")
+            h = json.loads(body)
+            if h["index_version"] != version0 and h["reloads"] == 1:
+                break
+            time.sleep(0.1)
+        else:
+            fail(f"SIGHUP: no reload seen ({h['index_version']})")
+        st, _, body = cl.call("POST", "/predict",
+                              {"instances": q_all[:64].tolist()})
+        doc = json.loads(body)
+        if doc["predictions"] != before or doc["index_version"] == version0:
+            fail("after SIGHUP: predictions or version")
+        out["reload"] = {"from": version0, "to": doc["index_version"]}
+    finally:
+        cl.close()
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        fail("SIGTERM: still running after 30 s")
+    out["sigterm_exit"] = rc
+    out["sigterm_s"] = time.perf_counter() - t0
+    err = proc.stderr.read()
+    if rc != 0 or "drained (clean=" not in err:
+        fail(f"SIGTERM: exit {rc}, stderr {err[-1000:]!r}")
+    print(f"lifecycle: banner after {boot_s:.2f} s, /healthz ready with its "
+          f"device block, /metrics in both expositions (exemplars, # EOF), "
+          f"x-request-id resolved, /debug/profile {out['profile']}, SIGHUP "
+          f"{out['reload']}, SIGTERM exit {rc} in {out['sigterm_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1999,6 +2577,10 @@ def main() -> int:
 
     phase("cli_ladder")
     phase_cli_ladder(torch, cuda_knn, tile_knn, train_path, test_path, smi)
+
+    phase("serve")
+    phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
+                smi)
 
     phase("probe_selection")
     sel = phase_probe_selection(torch, dev, cuda_knn)

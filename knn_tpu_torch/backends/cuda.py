@@ -222,6 +222,27 @@ def _padded_train(train_x, train_y, dev, cache, train_tile: int):
 _RETRIEVAL_QUERY_TILE = 128
 
 
+def record_lookup(backend: str, key: tuple) -> None:
+    """Count one dispatch against ``obs/devprof.py``'s signature set (one
+    predicate while obs is off)."""
+    if obs.enabled():
+        from knn_tpu_torch.obs import devprof
+
+        devprof.record_executable_lookup(backend, key)
+
+
+def retrieval_padded_rows(rows: int) -> int:
+    """Query rows the XLA route's retrieval scan sweeps for ``rows`` actual
+    rows: whole query tiles of ``min(rows, 128)`` rows. THE definition
+    :func:`candidates_arrays` pads with and the serving cost layer counts
+    waste by (``obs/accounting.padded_query_rows``)."""
+    rows = int(rows)
+    if rows <= 0:
+        return 0
+    tile = min(rows, _RETRIEVAL_QUERY_TILE)
+    return -(-rows // tile) * tile
+
+
 def candidates_arrays(
     train_x: np.ndarray,
     test_x: np.ndarray,
@@ -230,6 +251,7 @@ def candidates_arrays(
     device="cuda",
     cache: "dict | None" = None,
     deferred: bool = False,
+    prefetched_queries=None,
 ):
     """Host entry of the XLA route's retrieval, the twin of
     ``knn_forward_candidates`` as the JAX models call it: ``([Q, k]``
@@ -242,7 +264,9 @@ def candidates_arrays(
     ``deferred=True`` returns a zero-argument ``resolve()``: the scan is
     enqueued and its answers' copy to pinned host memory started before
     this returns (``cuda_knn.host_copy_async``); on the CPU the scan runs
-    now."""
+    now. ``prefetched_queries``, a float32 block on the device whose first
+    Q rows are the queries (the serving batcher's staged upload), is read
+    in place of the upload."""
     dev = resolve_device(device)
     n, q = train_x.shape[0], test_x.shape[0]
     if precision not in DIST_FNS:
@@ -258,7 +282,8 @@ def candidates_arrays(
     with obs.span("prepare", engine="xla"):
         tx, qx = guarded_call("device.put", lambda: (
             _padded_train_x(train_x, dev, cache, train_tile),
-            _pad_rows(to_device_async(test_x, dev), query_tile)))
+            _pad_rows(prefetched_queries[:q] if prefetched_queries is not None
+                      else to_device_async(test_x, dev), query_tile)))
     # The scan and its selection as one logical phase, as JAX's fused
     # dispatch; rows against padded_rows is the padding the span owns.
     with obs.span("distance", engine="xla", note="fused distance+top-k",
@@ -360,6 +385,8 @@ def predict_arrays(
         return np.empty(0, np.int32)
     if engine == "stripe" or (
             engine == "auto" and not force_tiled and metric == "euclidean"):
+        # The kernels take any query count: the key is the live shape.
+        record_lookup("cuda", ("stripe", form, q, k, d, query_batch))
         # The host entry uploads, launches and copies back inside one call:
         # nested guards give both fault points (and both failure classes)
         # coverage over it.
@@ -379,6 +406,7 @@ def predict_arrays(
         )
     if not force_tiled and q * n <= _FULL_MATRIX_CELL_LIMIT:
         engine_name = "xla-full"
+        record_lookup("cuda", (engine_name, form, q, k, d))
         with obs.span("prepare", engine=engine_name):
             tx, ty, qx = guarded_call("device.put", lambda: (
                 cached_train(train_x, dev, device_cache),
@@ -390,6 +418,9 @@ def predict_arrays(
                 tx, ty, qx, k, num_classes, form))
     else:
         engine_name = "xla-tiled"
+        # Keyed on the padded shapes the scan really runs.
+        record_lookup("cuda", (engine_name, form, -(-q // query_tile)
+                               * query_tile, k, d, query_tile, train_tile))
         with obs.span("prepare", engine=engine_name):
             tx, ty, qx = guarded_call("device.put", lambda: (
                 *_padded_train(train_x, train_y, dev, device_cache,

@@ -19,6 +19,7 @@ import numpy as np
 
 from knn_tpu_torch import obs
 from knn_tpu_torch.backends import register
+from knn_tpu_torch.backends.cuda import record_lookup
 from knn_tpu_torch.data.dataset import Dataset
 from knn_tpu_torch.obs.instrument import record_transfer
 from knn_tpu_torch.ops.tile_knn import predict_tile
@@ -42,6 +43,8 @@ def predict(
     if obs.enabled():
         record_transfer(train.features.nbytes + train.labels.nbytes
                         + test.features.nbytes, backend="cuda-tile")
+        record_lookup("cuda-tile", (engine, precision, test.num_instances, k,
+                                    train.num_features))
     # The host entry uploads, launches and copies back inside one call:
     # nested guards give both fault points coverage over it.
     with obs.span("kernel", backend="cuda-tile", engine=engine):

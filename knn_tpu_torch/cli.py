@@ -41,6 +41,20 @@ host rung that fails moves down ``native-mt → native → oracle`` with a
 OOM remain: a persistent failure there exits 1, never answered from
 another route or the host.
 
+``--profile-out FILE`` writes one ``torch.profiler`` trace (CPU and CUDA
+activities) of the classify region, the host spans inside it as
+``record_function`` ranges; ``--trace-dir DIR`` writes the profiler's own
+trace file into ``DIR``.
+
+``save-index TRAIN OUT`` (``--k``, ``--family``, ``--backend``,
+``--metric``, ``--weights``, ``--engine``) writes the JAX package's index
+artifact (format 3, readable by either package). ``serve INDEX`` loads
+one, warms every batch shape on the card and answers ``/predict``,
+``/kneighbors``, ``/healthz``, ``/metrics``, ``/debug/*`` and
+``/admin/reload`` (``serve/server.py``), with the default path's flags and
+``--device {cuda,cpu}``; the flags of the layers later slices bring are
+not in the parser, so argparse refuses them (exit 2).
+
 Exit codes, as the JAX package's (knn_tpu/cli.py:45-54): 0 success; 2 the
 input was rejected before classification (bad flags, bad k, missing or
 malformed files, mismatched feature counts, an unknown or unavailable
@@ -52,6 +66,8 @@ failure).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import sys
 from typing import Optional, Sequence
 
@@ -61,12 +77,12 @@ from knn_tpu_torch.resilience import degrade, faults
 from knn_tpu_torch.resilience.errors import ResilienceError
 from knn_tpu_torch.utils.cli_format import result_json, result_line
 from knn_tpu_torch.utils.evaluate import accuracy, confusion_matrix
-from knn_tpu_torch.utils.timing import RegionTimer
+from knn_tpu_torch.utils.timing import RegionTimer, maybe_profile
 
 EXIT_USAGE = 2
 EXIT_RUNTIME = 1
 
-_SUBCOMMANDS = ("classify",)
+_SUBCOMMANDS = ("classify", "serve", "save-index")
 
 # persona -> its default backend
 _PERSONAS = {"main": "native", "multi-thread": "native-mt", "cuda": "cuda"}
@@ -77,7 +93,24 @@ def build_parser() -> argparse.ArgumentParser:
         prog="knn_tpu_torch",
         description="KNN classify on a CUDA card (PyTorch port of knn_tpu)",
     )
-    sub = p.add_subparsers(dest="command", metavar="{classify}")
+    sub = p.add_subparsers(dest="command",
+                           metavar="{classify,serve,save-index}")
+    _add_serve_args(sub.add_parser(
+        "serve",
+        help="long-lived micro-batching HTTP server over a prebuilt index",
+        description="Serve /predict, /kneighbors, /healthz, /metrics from "
+                    "an index artifact built by `save-index`, on the card. "
+                    "The process warms every batch shape (kernel build, "
+                    "train upload) before reporting ready.",
+    ))
+    _add_save_index_args(sub.add_parser(
+        "save-index",
+        help="build a versioned index artifact from a train ARFF file",
+        description="Parse TRAIN once and write an index artifact "
+                    "(arrays.npz + manifest.json) that `serve` boots from "
+                    "without re-parsing ARFF; the JAX package's format, "
+                    "readable by either package.",
+    ))
     c = sub.add_parser(
         "classify",
         help="one-shot classify (bare positional argv implies it)",
@@ -157,7 +190,118 @@ def build_parser() -> argparse.ArgumentParser:
         "--trace-out", default=None, metavar="FILE",
         help="write a Chrome/Perfetto trace_event JSON of the run's nested "
         "spans to FILE. Enables the obs tracer for this run")
+    c.add_argument(
+        "--profile-out", default=None, metavar="FILE",
+        help="capture a torch.profiler profile (CPU and CUDA activities) "
+        "spanning the classify region and write ONE Perfetto-loadable "
+        "trace to FILE: host phase spans ride the kernels' timeline as "
+        "record_function ranges. Enables the obs tracer for this run")
+    c.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the classify region "
+                   "into DIR (created if missing)")
     return p
+
+
+def _add_serve_args(p: argparse.ArgumentParser) -> None:
+    """The default ``serve`` path's flags, with the JAX CLI's names and
+    defaults. The flags of the layers later slices bring are absent, so
+    argparse refuses them (exit 2)."""
+    p.add_argument("index", help="index artifact directory (save-index "
+                   "output, of either package)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8099,
+                   help="TCP port (0 picks an ephemeral port, reported in "
+                   "the ready line)")
+    p.add_argument("--max-batch", type=int, default=256,
+                   help="close a micro-batch at this many coalesced query "
+                   "rows")
+    p.add_argument("--max-wait-ms", type=float, default=2.0,
+                   help="...or when the oldest queued request has waited "
+                   "this long (the latency price of coalescing)")
+    p.add_argument("--max-queue-rows", type=int, default=4096,
+                   help="admission bound: queued rows beyond this are "
+                   "refused with HTTP 429")
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="default per-request deadline (HTTP 504 on expiry); "
+                   "requests may override with a deadline_ms body field")
+    p.add_argument("--drain-timeout-s", type=float, default=10.0,
+                   help="SIGTERM graceful-drain window: answer every "
+                   "in-flight request within this many seconds (remainders "
+                   "fail 504), then exit 0")
+    p.add_argument("--warmup-batches", default=None, metavar="B1,B2,...",
+                   help="batch shapes to run before reporting ready "
+                   "(default: 1, --max-batch, and every --batch-buckets "
+                   "bucket)")
+    p.add_argument("--batch-buckets", default="auto",
+                   metavar="B1,B2,...|auto|off",
+                   help="the server's bucket ladder: a batch stages its "
+                   "upload in the smallest bucket >= its rows (pinned "
+                   "memory, side stream, double-buffered), continuous "
+                   "batching tops a closed batch up to its bucket, and "
+                   "every bucket is warmed. 'auto' (default): 16,32,... "
+                   "capped at --max-batch; 'off': no ladder, no staging")
+    p.add_argument("--result-cache-rows", type=int, default=0,
+                   metavar="ROWS",
+                   help="exact-match result cache capacity in cached query "
+                   "rows (identical rows at the same index_version are "
+                   "answered without a dispatch, bit-identical); 0 "
+                   "(default) constructs nothing")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the index is served (cpu: the kernels' plain "
+                   "PyTorch versions)")
+    p.add_argument("--access-log", default=None, metavar="FILE",
+                   help="append one structured JSON line per terminal "
+                   "request outcome to FILE; '-' logs to stderr")
+    p.add_argument("--flight-recorder-size", type=int, default=256,
+                   help="per-request timelines kept for /debug/requests "
+                   "(0 disables request tracing entirely)")
+    p.add_argument("--slowest-k", type=int, default=32,
+                   help="slowest-request reservoir size for /debug/slowest")
+    p.add_argument("--slo-availability-target", type=float, default=0.999,
+                   help="availability SLO: target fraction of non-400 "
+                   "requests answered 200")
+    p.add_argument("--slo-latency-ms", type=float, default=100.0,
+                   help="latency SLO threshold: a 200 slower than this "
+                   "spends latency error budget")
+    p.add_argument("--slo-latency-target", type=float, default=0.99,
+                   help="latency SLO: target fraction of requests answered "
+                   "200 within --slo-latency-ms")
+    p.add_argument("--slo-fast-rung-target", type=float, default=0.99,
+                   help="degradation SLO: target fraction of requests "
+                   "served by the model's own engine")
+    p.add_argument("--slo-quality-target", type=float, default=0.999,
+                   help="quality SLO target (scored once shadow scoring "
+                   "comes with a later slice)")
+    p.add_argument("--slo-windows", default=None, metavar="S1,S2,...",
+                   help="burn-rate windows in seconds (default: 300,3600)")
+    p.add_argument("--cost-accounting", choices=["on", "off"], default="on",
+                   help="per-request device-cost attribution + the "
+                   "capacity/headroom model (knn_cost_*/knn_capacity_*, GET "
+                   "/debug/capacity, the x-knn-class request class); 'off' "
+                   "constructs nothing")
+    p.add_argument("--capacity-window-s", type=int, default=60,
+                   help="trailing observation window for the capacity "
+                   "rate rings / duty cycle / headroom model")
+
+
+def _add_save_index_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("train", help="train ARFF file")
+    p.add_argument("out", help="output artifact directory")
+    p.add_argument("--k", type=int, default=5)
+    p.add_argument("--family", choices=["classifier", "regressor"],
+                   default="classifier")
+    p.add_argument("--backend", default="cuda",
+                   help="classifier backend recorded in the manifest (under "
+                   "its JAX name: cuda as tpu, cuda-tile as tpu-pallas)")
+    p.add_argument("--metric",
+                   choices=["euclidean", "manhattan", "chebyshev", "cosine"],
+                   default="euclidean")
+    p.add_argument("--weights", choices=["uniform", "distance"],
+                   default="uniform")
+    p.add_argument("--engine", choices=["auto", "stripe", "xla"],
+                   default="auto",
+                   help="candidate engine (regressor; for the classifier it "
+                   "is recorded as a backend option when not auto)")
 
 
 def _normalize_argv(argv: Optional[Sequence[str]]) -> "list[str]":
@@ -201,6 +345,10 @@ def _run(argv: Optional[Sequence[str]], stdout) -> int:
     except ValueError as e:
         _error(f"{faults.FAULT_ENV}: {e}")
         return EXIT_USAGE
+    if args.command == "serve":
+        return _run_serve(args, stdout)
+    if args.command == "save-index":
+        return _run_save_index(args, stdout)
     return _run_classify(args, stdout)
 
 
@@ -223,11 +371,11 @@ def _setup_obs(args) -> Optional[str]:
     """Enable the span tracer when observability artifacts were requested,
     failing fast (before any parse or compute) on unwritable destinations.
     Returns an error message or None."""
-    if not (args.metrics_out or args.trace_out):
+    if not (args.metrics_out or args.trace_out or args.profile_out):
         return None
     from knn_tpu_torch.obs.export import check_parent_dir
 
-    for path in (args.metrics_out, args.trace_out):
+    for path in (args.metrics_out, args.trace_out, args.profile_out):
         if path:
             try:
                 check_parent_dir(path)
@@ -236,6 +384,32 @@ def _setup_obs(args) -> Optional[str]:
     obs.enable()
     obs.reset()  # the artifacts describe this run, not earlier spans
     return None
+
+
+@contextlib.contextmanager
+def _maybe_capture(path: Optional[str]):
+    """Wrap the classify region in a ``torch.profiler`` capture when
+    ``--profile-out`` was given (``obs/devprof.py``); yields the Capture
+    (its ``.trace`` is readable after the region) or None."""
+    if not path:
+        yield None
+        return
+    from knn_tpu_torch.obs import devprof
+
+    with devprof.capture() as cap:
+        yield cap
+
+
+def _write_profile(path: str, cap) -> bool:
+    """Write the captured profile after the result line (one-line error and
+    exit 1 on failure, as the other artifacts)."""
+    try:
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(cap.trace, f)
+    except OSError as e:
+        _error(e)
+        return False
+    return True
 
 
 def _phases(classify_span) -> "dict | None":
@@ -305,10 +479,12 @@ def _run_sweep(args, ks, stdout) -> int:
     try:
         if args.warmup:
             sweep_k(train, test, ks, **opts)
-        with RegionTimer() as t:
-            with obs.span("classify", mode="sweep",
-                          engine=args.engine) as classify_span:
-                preds_by_k = sweep_k(train, test, ks, **opts)
+        with _maybe_capture(args.profile_out) as capture:
+            with maybe_profile(args.trace_dir):
+                with RegionTimer() as t:
+                    with obs.span("classify", mode="sweep",
+                                  engine=args.engine) as classify_span:
+                        preds_by_k = sweep_k(train, test, ks, **opts)
     except ResilienceError as e:
         _error(f"{type(e).__name__}: {e}")
         return EXIT_RUNTIME
@@ -331,6 +507,8 @@ def _run_sweep(args, ks, stdout) -> int:
         if base and not _dump_predictions(f"{base}.k{k}.npy", preds_by_k[k]):
             return EXIT_RUNTIME
     if not _write_obs_artifacts(args, classify_span, round(t.ns / 1e6, 3)):
+        return EXIT_RUNTIME
+    if capture is not None and not _write_profile(args.profile_out, capture):
         return EXIT_RUNTIME
     return 0
 
@@ -415,11 +593,14 @@ def _run_classify(args, stdout) -> int:
             # so the timed region measures that configuration rather than
             # re-walking the failures.
             backend, opts = warm.backend, warm.opts
-        with RegionTimer() as t:
-            with obs.span("classify", backend=backend) as classify_span:
-                result = degrade.predict_with_ladder(
-                    backend, train, test, args.k, opts,
-                    no_fallback=args.no_fallback)
+        with _maybe_capture(args.profile_out) as capture:
+            with maybe_profile(args.trace_dir):
+                with RegionTimer() as t:
+                    with obs.span("classify",
+                                  backend=backend) as classify_span:
+                        result = degrade.predict_with_ladder(
+                            backend, train, test, args.k, opts,
+                            no_fallback=args.no_fallback)
     except ResilienceError as e:
         # A card rung's failure, the ladder exhausted, or --no-fallback.
         _error(f"{type(e).__name__}: {e}")
@@ -443,7 +624,220 @@ def _run_classify(args, stdout) -> int:
     # line keeps the reference's integer-floor contract.
     if not _write_obs_artifacts(args, classify_span, round(t.ns / 1e6, 3)):
         return EXIT_RUNTIME
+    if capture is not None and not _write_profile(args.profile_out, capture):
+        return EXIT_RUNTIME
     return 0
+
+
+def _run_save_index(args, stdout) -> int:
+    """``save-index TRAIN OUT``: parse once, write the versioned artifact
+    ``serve`` boots from (the JAX package's format). Bad inputs (missing
+    or malformed ARFF, bad k, unknown backend, a clobber target that is
+    not an artifact) exit 2; a write failure mid-save exits 1."""
+    from knn_tpu_torch.models.knn import KNNClassifier, KNNRegressor
+    from knn_tpu_torch.serve.artifact import save_index
+
+    if args.family == "classifier" and not degrade.known_backend(args.backend):
+        _error(f"backend '{args.backend}' unavailable")
+        return EXIT_USAGE
+    try:
+        train = load_arff(args.train)
+        if args.family == "classifier":
+            opts = {} if args.engine == "auto" else {"engine": args.engine}
+            model = KNNClassifier(
+                args.k, backend=args.backend, metric=args.metric,
+                weights=args.weights, **opts,
+            )
+        else:
+            model = KNNRegressor(
+                args.k, weights=args.weights, metric=args.metric,
+                engine=args.engine,
+            )
+        model.fit(train)
+    except (OSError, ValueError) as e:
+        _error(e)
+        return EXIT_USAGE
+    try:
+        out = save_index(model, args.out)
+    except ValueError as e:  # clobber refusal / non-directory target
+        _error(e)
+        return EXIT_USAGE
+    except OSError as e:  # the write itself failed
+        _error(e)
+        return EXIT_RUNTIME
+    print(
+        f"wrote index {out}: {train.num_instances} rows x "
+        f"{train.num_features} features, family={args.family}, "
+        f"k={args.k}",
+        file=stdout,
+    )
+    return 0
+
+
+def _int_list(raw: str) -> "list[int]":
+    """Sorted distinct positive integers of a comma list; ValueError
+    otherwise."""
+    out = sorted({int(s) for s in raw.split(",") if s})
+    if not out or out[0] < 1:
+        raise ValueError(raw)
+    return out
+
+
+def _serve_batch_buckets(args) -> "tuple[tuple | None, str | None]":
+    """The server's bucket ladder from ``--batch-buckets``: always topped
+    by ``--max-batch`` (every admissible batch stages onto a warmed
+    bucket); buckets past ``--max-batch`` are refused."""
+    from knn_tpu_torch.models.knn import DEFAULT_BATCH_BUCKETS
+
+    if args.batch_buckets == "off":
+        return None, None
+    if args.batch_buckets == "auto":
+        return tuple(sorted({b for b in DEFAULT_BATCH_BUCKETS
+                             if b < args.max_batch} | {args.max_batch})), None
+    try:
+        parsed = _int_list(args.batch_buckets)
+    except ValueError:
+        return None, (f"--batch-buckets wants positive integers (or 'auto' "
+                      f"/ 'off'), got {args.batch_buckets!r}")
+    if parsed[-1] > args.max_batch:
+        return None, (f"--batch-buckets {parsed[-1]} exceeds --max-batch "
+                      f"{args.max_batch}; no batch can ever fill that "
+                      f"bucket")
+    return tuple(sorted({*parsed, args.max_batch})), None
+
+
+def _run_serve(args, stdout) -> int:
+    """``serve INDEX``: load the artifact, warm every batch shape on the
+    card, then serve until SIGINT/SIGTERM. Bad policy values or a bad
+    artifact exit 2 before any compute; bind/warmup failures exit 1 (a
+    missing card fails the warmup)."""
+    from knn_tpu_torch.resilience.errors import DataError
+
+    for bad, msg in (
+        (args.max_batch < 1, f"--max-batch must be >= 1, got {args.max_batch}"),
+        (args.max_wait_ms < 0,
+         f"--max-wait-ms must be >= 0, got {args.max_wait_ms}"),
+        (args.max_queue_rows < args.max_batch,
+         f"--max-queue-rows ({args.max_queue_rows}) must be >= --max-batch "
+         f"({args.max_batch})"),
+        (args.deadline_ms is not None and args.deadline_ms <= 0,
+         f"--deadline-ms must be > 0, got {args.deadline_ms}"),
+        (args.drain_timeout_s <= 0,
+         f"--drain-timeout-s must be > 0, got {args.drain_timeout_s}"),
+        (not 0 <= args.port <= 65535, f"--port out of range: {args.port}"),
+        (args.flight_recorder_size < 0,
+         f"--flight-recorder-size must be >= 0, got "
+         f"{args.flight_recorder_size}"),
+        (args.slowest_k < 0, f"--slowest-k must be >= 0, got {args.slowest_k}"),
+        (not 0 < args.slo_availability_target < 1,
+         f"--slo-availability-target must be in (0, 1), got "
+         f"{args.slo_availability_target}"),
+        (not 0 < args.slo_latency_target < 1,
+         f"--slo-latency-target must be in (0, 1), got "
+         f"{args.slo_latency_target}"),
+        (not 0 < args.slo_fast_rung_target < 1,
+         f"--slo-fast-rung-target must be in (0, 1), got "
+         f"{args.slo_fast_rung_target}"),
+        (args.slo_latency_ms <= 0,
+         f"--slo-latency-ms must be > 0, got {args.slo_latency_ms}"),
+        (not 0 < args.slo_quality_target < 1,
+         f"--slo-quality-target must be in (0, 1), got "
+         f"{args.slo_quality_target}"),
+        (args.capacity_window_s < 5,
+         f"--capacity-window-s must be >= 5 (shorter windows make every "
+         f"rate gauge noise), got {args.capacity_window_s}"),
+        (args.result_cache_rows < 0,
+         f"--result-cache-rows must be >= 0, got "
+         f"{args.result_cache_rows}"),
+    ):
+        if bad:
+            _error(msg)
+            return EXIT_USAGE
+    slo_windows = None
+    if args.slo_windows is not None:
+        try:
+            slo_windows = _int_list(args.slo_windows)
+        except ValueError:
+            _error(f"--slo-windows wants positive integer seconds, got "
+                   f"{args.slo_windows!r}")
+            return EXIT_USAGE
+    warmup_batches = None
+    if args.warmup_batches is not None:
+        try:
+            warmup_batches = _int_list(args.warmup_batches)
+        except ValueError:
+            _error(f"--warmup-batches wants positive integers, got "
+                   f"{args.warmup_batches!r}")
+            return EXIT_USAGE
+    batch_buckets, err = _serve_batch_buckets(args)
+    if err is not None:
+        _error(err)
+        return EXIT_USAGE
+    from knn_tpu_torch.serve import artifact
+    from knn_tpu_torch.serve.server import ServeApp, make_server, serve_forever
+
+    try:
+        model = artifact.load_index(args.index, device=args.device)
+        manifest = artifact.read_manifest(args.index)
+        version = artifact.index_version(manifest)
+    except DataError as e:
+        _error(e)
+        return EXIT_USAGE
+    # The /metrics endpoint is this process's observability artifact.
+    obs.enable()
+    from knn_tpu_torch.obs.slo import DEFAULT_WINDOWS_S, SLOTracker
+
+    slo = SLOTracker(
+        availability_target=args.slo_availability_target,
+        latency_target_ms=args.slo_latency_ms,
+        latency_target=args.slo_latency_target,
+        fast_rung_target=args.slo_fast_rung_target,
+        quality_target=args.slo_quality_target,
+        windows_s=slo_windows or DEFAULT_WINDOWS_S,
+    )
+    try:
+        app = ServeApp(
+            model, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+            max_queue_rows=args.max_queue_rows, deadline_ms=args.deadline_ms,
+            index_path=args.index, index_version=version,
+            flight_recorder_size=args.flight_recorder_size,
+            slowest_k=args.slowest_k, access_log=args.access_log, slo=slo,
+            cost_accounting=(args.cost_accounting == "on"),
+            capacity_window_s=args.capacity_window_s,
+            batch_buckets=batch_buckets,
+            result_cache_rows=args.result_cache_rows, device=args.device,
+        )
+    except OSError as e:  # an unwritable --access-log path
+        _error(e)
+        return EXIT_USAGE
+    try:
+        server = make_server(app, args.host, args.port)
+    except OSError as e:
+        _error(f"cannot bind {args.host}:{args.port}: {e}")
+        app.close()
+        return EXIT_RUNTIME
+    host, port = server.server_address[:2]
+    try:
+        warmed = app.warm(warmup_batches)
+    except (ResilienceError, ValueError, RuntimeError) as e:
+        _error(f"warmup failed: {type(e).__name__}: {e}")
+        server.server_close()
+        app.close()
+        return EXIT_RUNTIME
+    bucket_note = ""
+    if batch_buckets is not None:
+        bucket_note = f", buckets={'/'.join(str(b) for b in batch_buckets)}"
+    if args.result_cache_rows > 0:
+        bucket_note += f", result_cache_rows={args.result_cache_rows}"
+    print(
+        f"knn-tpu serve: ready on http://{host}:{port} "
+        f"(family={app.family}, k={model.k}, "
+        f"train_rows={model.train_.num_instances}, "
+        f"index_version={version}, device={args.device}{bucket_note}, "
+        f"warmed={sorted(warmed)})",
+        file=stdout, flush=True,
+    )
+    return serve_forever(server, drain_timeout_s=args.drain_timeout_s)
 
 
 def main() -> None:

@@ -20,11 +20,11 @@ with ``device.put`` around ``backend.compile`` on the kernel route; the
 XLA route's own in ``backends/cuda.py::candidates_arrays``) and its spans:
 ``fit``, ``distance``, ``fetch`` (deferred calls), ``vote``, ``sweep_k``
 and, on the XLA route, ``prepare``. Left out until their users are
-ported: ``merge_tail`` and ``prefetched_queries`` (the mutable tier and the
-serving batcher, ROADMAP A10/A8) and the executable-cache lookups (the
-device profiling layer, A8). The compiled-shape bucket ladder is an
-argument of the shape helpers, never process-wide state: serving will
-scope it to its server.
+ported: ``merge_tail`` (the mutable tier, ROADMAP A10). The serving
+batcher's staged upload enters as ``prefetched_queries``, and every
+retrieval counts its signature in ``obs/devprof.py``'s executable-cache
+hit/miss. The compiled-shape bucket ladder is an argument of the shape
+helpers, never process-wide state: the server scopes it to itself.
 """
 
 from __future__ import annotations
@@ -105,6 +105,17 @@ def _check_engine(engine: str) -> None:
         )
 
 
+def retrieval_route(engine: str, metric: str = "euclidean") -> str:
+    """THE route rule of :func:`_kneighbors_arrays`, shared with the cost
+    layer (``obs/accounting.resolved_retrieval_engine``): ``stripe`` (the
+    hand-written kernels, at every d and k) for the euclidean metric on
+    engines ``auto`` and ``stripe``, ``xla`` (the torch scan) otherwise."""
+    _check_engine(engine)
+    if engine in ("auto", "stripe") and metric in (None, "euclidean"):
+        return "stripe"
+    return "xla"
+
+
 def _kneighbors_arrays(
     train_x: np.ndarray,
     test_x: np.ndarray,
@@ -114,6 +125,7 @@ def _kneighbors_arrays(
     cache: "dict | None" = None,
     deferred: bool = False,
     device="cuda",
+    prefetched_queries=None,
 ):
     """Shared retrieval core for both model families: ``(dists [Q, k],
     indices [Q, k])`` sorted by (distance, train index). Pure geometry — no
@@ -122,32 +134,56 @@ def _kneighbors_arrays(
 
     ``engine``: ``auto`` sends the euclidean metric to the kernels (any d
     and k), ``stripe`` forces them (euclidean only, else ``ValueError``),
-    ``xla`` takes the tiled torch scan; other metrics always take the scan.
-    ``cache`` (normally the train ``Dataset.device_cache``) memoizes the
-    device-side train. ``deferred`` returns a zero-argument ``resolve()``
-    instead of the arrays: the device work and the copies back are enqueued
-    before this returns, and ``resolve()`` waits for them (memoized) — the
-    primitive under ``kneighbors_async``. No queries give ``(0, k)``
-    empties on every engine."""
+    ``xla`` takes the tiled torch scan; other metrics always take the scan
+    (:func:`retrieval_route`). ``cache`` (normally the train
+    ``Dataset.device_cache``) memoizes the device-side train. ``deferred``
+    returns a zero-argument ``resolve()`` instead of the arrays: the device
+    work and the copies back are enqueued before this returns, and
+    ``resolve()`` waits for them (memoized) — the primitive under
+    ``kneighbors_async`` and the serving batcher. No queries give ``(0, k)``
+    empties on every engine.
+
+    ``prefetched_queries`` (the serving batcher's staged upload,
+    ``serve/batcher.py``): a float32 tensor on the retrieval's device whose
+    first ``Q`` rows are ``test_x`` (the batcher stages a whole bucket and
+    the rows past ``Q`` are never read). It takes the place of the upload
+    this call would make, on either route; the answers are bit-identical
+    with and without it. A block of another device, dtype, width, or with
+    fewer than ``Q`` rows is not used, and the queries are uploaded as
+    usual."""
     from knn_tpu_torch.backends.cuda import candidates_arrays
-    from knn_tpu_torch.ops.cuda_knn import stripe_candidates_arrays
+    from knn_tpu_torch.obs.accounting import padded_query_rows
+    from knn_tpu_torch.ops.cuda_knn import (
+        resolve_device,
+        stripe_candidates_arrays,
+    )
     from knn_tpu_torch.ops.distance import resolve_form
 
     _check_engine(engine)
     form = resolve_form("exact", metric)
-    euclidean = metric in (None, "euclidean")
-    if engine == "auto" and euclidean:
-        engine = "stripe"
-    if engine == "stripe":
-        if not euclidean:
-            raise ValueError("the stripe engine implements euclidean only")
-        q = test_x.shape[0]
+    if engine == "stripe" and metric not in (None, "euclidean"):
+        raise ValueError("the stripe engine implements euclidean only")
+    route = retrieval_route(engine, metric)
+    q, d = test_x.shape
+    swept = padded_query_rows(route, q)
+    if prefetched_queries is not None and not _usable_block(
+            prefetched_queries, q, d, resolve_device(device)):
+        prefetched_queries = None
+    if obs.enabled():
+        from knn_tpu_torch.obs import devprof
+
+        # A launch is configured by its route, form, swept rows, k and d:
+        # the port's counterpart of the JAX executable signature.
+        devprof.record_executable_lookup(
+            "retrieval", (route, form, swept, int(k), int(d)))
+    if route == "stripe":
         with obs.span("distance", engine="stripe", note="fused distance+top-k",
-                      rows=q, padded_rows=query_padded_rows(q)):
+                      rows=q, padded_rows=swept):
             out = guarded_call("device.put", lambda: guarded_call(
                 "backend.compile", lambda: stripe_candidates_arrays(
                     train_x, test_x, k, precision=form, device=device,
                     cache=cache, deferred=deferred,
+                    prefetched_queries=prefetched_queries,
                 )))
         if deferred and obs.enabled():
             def resolve_stripe(inner=out):
@@ -157,7 +193,19 @@ def _kneighbors_arrays(
             return resolve_stripe
         return out
     return candidates_arrays(train_x, test_x, k, form, device=device,
-                             cache=cache, deferred=deferred)
+                             cache=cache, deferred=deferred,
+                             prefetched_queries=prefetched_queries)
+
+
+def _usable_block(block, q: int, d: int, dev) -> bool:
+    """Whether a staged query block can stand in for the upload of ``q``
+    rows of width ``d`` on ``dev``."""
+    import torch
+
+    return (isinstance(block, torch.Tensor) and block.dtype == torch.float32
+            and block.dim() == 2 and block.shape[0] >= q
+            and block.shape[1] == d and block.device.type == dev.type
+            and dev.index in (None, block.device.index))
 
 
 class AsyncResult:

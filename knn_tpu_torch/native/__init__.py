@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -79,6 +80,7 @@ def build(name: str) -> Path:
         src, link = SOURCES[name]
         tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
         cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(src), *link]
+        t0 = time.monotonic()
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
@@ -88,6 +90,9 @@ def build(name: str) -> Path:
             os.replace(tmp, out)
         finally:
             tmp.unlink(missing_ok=True)
+    from knn_tpu_torch.obs import devprof
+
+    devprof.record_build("cxx", name, (time.monotonic() - t0) * 1e3)
     return out
 
 

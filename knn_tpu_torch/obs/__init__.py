@@ -10,7 +10,21 @@
 - :mod:`knn_tpu_torch.obs.export`     — the ``--trace-out`` /
   ``--metrics-out`` writers;
 - :mod:`knn_tpu_torch.obs.bench_timing` — the CUDA-event and
-  pipelined-slope timing primitives of ``chip_smoke.py`` and the probes.
+  pipelined-slope timing primitives of ``chip_smoke.py`` and the probes;
+- :mod:`knn_tpu_torch.obs.reqtrace` — request-scoped tracing for serving:
+  per-request timelines, the flight recorder behind ``/debug/requests``
+  and ``/debug/slowest``, and the active-context channel the breaker and
+  the ladders emit through;
+- :mod:`knn_tpu_torch.obs.slo` — SLO objectives and multi-window burn
+  rates (``knn_slo_*``);
+- :mod:`knn_tpu_torch.obs.accounting` and :mod:`~knn_tpu_torch.obs.capacity`
+  — per-request cost attribution and the headroom model
+  (``knn_cost_*``, ``knn_capacity_*``, ``GET /debug/capacity``);
+- :mod:`knn_tpu_torch.obs.devprof` — the card's side: ``torch.profiler``
+  captures (``--profile-out``, ``/debug/profile``), device-memory gauges,
+  the kernel builds as compile events, executable-signature hit/miss;
+- :mod:`knn_tpu_torch.obs.drift` — the training-distribution sketch an
+  index artifact carries.
 
 Everything is OFF by default and zero-cost when off: ``span()`` returns a
 shared no-op context manager and the metric helpers return at once, so the
@@ -63,8 +77,9 @@ def enable(annotations: bool = False) -> None:
     """Turn the global tracer + registry on. ``annotations=True``
     additionally wraps every span in a ``torch.profiler.record_function``
     so host spans line up with the card's timeline in a profiler trace.
-    Installs no compile listener (the device-side profiling layer is still
-    to port)."""
+    Needs no compile listener: the port's builds (``nvcc`` in
+    ``ops/_build.py``, ``g++`` in ``native/``) report themselves to
+    ``obs/devprof.py`` when they run."""
     global _ENABLED
     _ENABLED = True
     _TRACER.annotations = bool(annotations)
@@ -85,10 +100,11 @@ def reset() -> None:
     predict per backend records ``knn_first_call_wall_ms`` again."""
     _TRACER.reset()
     _REGISTRY.reset()
-    from knn_tpu_torch.obs import instrument
+    from knn_tpu_torch.obs import devprof, instrument
 
     with instrument._first_call_lock:
         instrument._first_call_seen.clear()
+    devprof.reset_state()
 
 
 def tracer() -> SpanTracer:
@@ -118,10 +134,10 @@ def gauge_set(name: str, value, *, help: str = "", **labels) -> None:
 
 
 def histogram_observe(name: str, value, *, buckets=None, help: str = "",
-                      **labels) -> None:
+                      exemplar=None, **labels) -> None:
     if _ENABLED:
         _REGISTRY.histogram(name, buckets=buckets, help=help, **labels) \
-            .observe(value)
+            .observe(value, exemplar=exemplar)
 
 
 if os.environ.get("KNN_TPU_OBS", "") not in ("", "0"):

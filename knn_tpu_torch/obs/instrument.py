@@ -13,9 +13,10 @@ backend uniformly reports:
   and upload included: an upper bound of the first call's set-up)
 
 plus a ``predict`` span wrapping the call; :func:`record_transfer` counts
-``knn_transfer_bytes_total``. The serving and sharded instrument sets wait
-for their modules. Everything here is a no-op while
-``knn_tpu_torch.obs`` is disabled.
+``knn_transfer_bytes_total``; the ``record_serve_*`` helpers are the
+serving instrument set (``knn_tpu_torch/serve/``), with the JAX package's
+names, labels and buckets. The sharded set waits for its modules.
+Everything here is a no-op while ``knn_tpu_torch.obs`` is disabled.
 """
 
 from __future__ import annotations
@@ -85,6 +86,132 @@ def _record_predict(name: str, q, wall_ms: float) -> None:
                 help="last predict call's steady-state queries/s",
                 backend=name,
             )
+
+
+# Serving-path instrument ladders (knn_tpu_torch/serve/). Request, queue and
+# dispatch latencies live in low single-digit ms when batching works and in
+# the hundreds when it doesn't, so the ladder starts below the default's
+# floor.
+SERVE_MS_BUCKETS = (
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+    500.0, 1000.0, 2500.0, 10000.0,
+)
+# Coalesced requests (and rows) per dispatched batch: powers of two up to
+# far past any sane max_batch.
+SERVE_BATCH_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+                       512.0, 1024.0)
+
+
+def record_serve_request(kind: str, rows: int) -> None:
+    """Count an ADMITTED serving request (rejected ones go to
+    :func:`record_serve_rejected` instead)."""
+    obs.counter_add(
+        "knn_serve_requests_total", 1,
+        help="serving requests admitted to the micro-batch queue", kind=kind,
+    )
+    obs.counter_add(
+        "knn_serve_rows_total", int(rows),
+        help="query rows admitted to the micro-batch queue", kind=kind,
+    )
+
+
+def record_serve_rejected(reason: str) -> None:
+    obs.counter_add(
+        "knn_serve_rejected_total", 1,
+        help="serving requests refused by admission control (HTTP 429)",
+        reason=reason,
+    )
+
+
+def record_serve_deadline_expired() -> None:
+    obs.counter_add(
+        "knn_serve_deadline_expired_total", 1,
+        help="serving requests whose deadline expired while queued "
+             "(HTTP 504)",
+    )
+
+
+def record_serve_queue_wait(ms: float, kind: str) -> None:
+    obs.histogram_observe(
+        "knn_serve_queue_wait_ms", ms, buckets=SERVE_MS_BUCKETS,
+        help="per-request wait from enqueue to batch close", kind=kind,
+    )
+
+
+def record_serve_topup(rows: int) -> None:
+    """Continuous batching admitted ``rows`` into an already-closed batch
+    below its bucket boundary (free rows — the compiled shape the batch
+    pads to is unchanged; serve/batcher.py::_admit_topup)."""
+    obs.counter_add(
+        "knn_serve_topup_rows_total", int(rows),
+        help="query rows admitted into a closed batch up to its bucket "
+             "boundary (continuous batching; they paid no extra wait "
+             "window and no extra compiled rows)",
+    )
+
+
+def record_serve_batch(requests: int, rows: int, dispatch_ms: float,
+                       padded_rows: "int | None" = None) -> None:
+    """Record one dispatched micro-batch. ``knn_serve_batch_size`` counts
+    REQUESTS coalesced per dispatch — the number whose histogram exceeding
+    1 is the measured proof that dynamic batching engages (pinned by
+    tests/test_serve.py); ``knn_serve_batch_rows`` counts actual query
+    rows, ``knn_serve_batch_padded_rows`` the compiled-shape rows the
+    engine really swept (the XLA route pads queries to its query tile;
+    the kernels pad nothing) — the gap between the two histograms IS the
+    padding waste."""
+    obs.histogram_observe(
+        "knn_serve_batch_size", requests, buckets=SERVE_BATCH_BUCKETS,
+        help="requests coalesced per dispatched micro-batch",
+    )
+    obs.histogram_observe(
+        "knn_serve_batch_rows", rows, buckets=SERVE_BATCH_BUCKETS,
+        help="query rows per dispatched micro-batch",
+    )
+    if padded_rows is not None:
+        # The histogram stays UNLABELED (pre-ladder dashboards keep
+        # reading the same series); the per-bucket dispatch counts live
+        # on a dedicated counter whose `bucket` label names the compiled
+        # shape — cardinality bounded by the ladder length plus the
+        # (rare) chunked-dispatch sums.
+        obs.histogram_observe(
+            "knn_serve_batch_padded_rows", padded_rows,
+            buckets=SERVE_BATCH_BUCKETS,
+            help="compiled-shape query rows per dispatched micro-batch "
+                 "(actual rows + the padding the dispatched bucket or "
+                 "shape quantum forced)",
+        )
+        obs.counter_add(
+            "knn_serve_bucket_dispatch_total", 1,
+            help="micro-batch dispatches per compiled bucket shape "
+                 "(which --batch-buckets rungs the traffic actually "
+                 "exercises)",
+            bucket=int(padded_rows),
+        )
+    obs.histogram_observe(
+        "knn_serve_dispatch_ms", dispatch_ms, buckets=SERVE_MS_BUCKETS,
+        help="engine dispatch wall ms per micro-batch (kneighbors + "
+             "scatter)",
+    )
+
+
+def record_serve_request_done(kind: str, outcome: str, ms: float,
+                              trace_id: "str | None" = None) -> None:
+    """One terminal serving outcome. ``trace_id`` (the request's id when
+    request tracing is on) rides the latency histogram as an OpenMetrics
+    exemplar, so a slow bucket links straight to its ``/debug/requests``
+    timeline."""
+    obs.counter_add(
+        "knn_serve_responses_total", 1,
+        help="serving requests completed, by outcome", kind=kind,
+        outcome=outcome,
+    )
+    obs.histogram_observe(
+        "knn_serve_request_ms", ms, buckets=SERVE_MS_BUCKETS,
+        help="per-request latency from enqueue to completion", kind=kind,
+        outcome=outcome,
+        exemplar={"trace_id": trace_id} if trace_id else None,
+    )
 
 
 def record_transfer(nbytes: int, direction: str = "h2d",

@@ -1,6 +1,7 @@
 """Metrics registry: counters, gauges, fixed-bucket histograms (the port's
-copy of ``knn_tpu/obs/metrics.py``: the same names, the same JSON document
-and the same Prometheus text, so dashboards read either package).
+copy of ``knn_tpu/obs/metrics.py``: the same names, the same JSON document,
+the same Prometheus and OpenMetrics text, so dashboards read either
+package).
 
 Prometheus-shaped without the dependency: metric names follow the
 ``snake_case`` + ``_total``/unit-suffix conventions, label sets are frozen
@@ -9,10 +10,14 @@ per instrument, and exposition comes in two forms —
 - :meth:`MetricsRegistry.to_json`      — nested dict for ``--metrics-out``;
 - :meth:`MetricsRegistry.to_prometheus` — the text exposition format
   (``# HELP``/``# TYPE`` headers, ``name{label="v"} value`` samples,
-  cumulative ``_bucket{le=...}`` histogram series ending at ``+Inf``).
-
-The OpenMetrics exposition with exemplars and the multihost merge wait for
-their users (serving, multi-device).
+  cumulative ``_bucket{le=...}`` histogram series ending at ``+Inf``);
+- :meth:`MetricsRegistry.to_openmetrics` — the OpenMetrics 1.0 text
+  format, which additionally carries histogram **exemplars**: each bucket
+  links the most recent observation that landed in it to its trace
+  (``... # {trace_id="..."} value timestamp``), so a p99 spike in
+  ``knn_serve_request_ms`` resolves directly to a ``/debug/requests``
+  timeline. Exemplar capture is opt-in per observation
+  (``observe(v, exemplar={...})``) and costs one tuple store.
 
 Instruments are get-or-create by ``(name, labels)``: calling
 ``registry.counter("knn_queries_total", backend="tpu")`` twice returns the
@@ -26,6 +31,7 @@ from __future__ import annotations
 import json
 import math
 import threading
+import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 # Default histogram bucket ladder (milliseconds-flavored: spans sub-ms
@@ -114,10 +120,14 @@ class Histogram(_Instrument):
             raise ValueError("+Inf bucket is implicit; pass finite bounds")
         self.buckets = bs
         self._counts = [0] * (len(bs) + 1)  # last = +Inf overflow
+        self._exemplars: List[Optional[tuple]] = [None] * (len(bs) + 1)
         self._sum = 0.0
         self._count = 0
 
-    def observe(self, value) -> None:
+    def observe(self, value, exemplar: Optional[dict] = None) -> None:
+        """Record ``value``. ``exemplar`` is an optional label dict (e.g.
+        ``{"trace_id": ...}``) stored as the bucket's most recent exemplar
+        for OpenMetrics exposition — last write wins per bucket."""
         value = float(value)
         # First bucket whose upper bound admits the value (le semantics).
         lo, hi = 0, len(self.buckets)
@@ -131,6 +141,29 @@ class Histogram(_Instrument):
             self._counts[lo] += 1
             self._sum += value
             self._count += 1
+            if exemplar:
+                self._exemplars[lo] = (
+                    tuple(sorted((k, str(v)) for k, v in exemplar.items())),
+                    value, time.time(),
+                )
+
+    def merge_counts(self, counts, sum_, count) -> None:
+        """Fold another histogram's raw (non-cumulative) bucket counts into
+        this one — the multihost aggregation primitive (obs/aggregate.py):
+        a process-0 merge registry reconstructs each remote histogram from
+        its snapshot instead of replaying observations. ``counts`` must
+        match this instrument's bucket count (+1 for +Inf)."""
+        counts = list(counts)
+        if len(counts) != len(self._counts):
+            raise ValueError(
+                f"histogram {self.name}: cannot merge {len(counts)} bucket "
+                f"counts into {len(self._counts)} buckets"
+            )
+        with self._lock:
+            for i, c in enumerate(counts):
+                self._counts[i] += int(c)
+            self._sum += float(sum_)
+            self._count += int(count)
 
     @property
     def count(self) -> int:
@@ -145,6 +178,12 @@ class Histogram(_Instrument):
         ``+Inf`` overflow bucket."""
         with self._lock:
             return list(self._counts)
+
+    def exemplars(self) -> List[Optional[tuple]]:
+        """Per-bucket ``(labels, value, unix_ts)`` exemplars (None where a
+        bucket never captured one); index ``len(buckets)`` is ``+Inf``."""
+        with self._lock:
+            return list(self._exemplars)
 
     def cumulative(self) -> List[Tuple[float, int]]:
         """Prometheus-style ``(le, cumulative_count)`` pairs ending at
@@ -260,6 +299,61 @@ class MetricsRegistry:
                         f"{name}{_labels(inst.labels)} {_fmt_num(inst.value)}"
                     )
         return "\n".join(lines) + ("\n" if lines else "")
+
+    def to_openmetrics(self) -> str:
+        """OpenMetrics 1.0 text exposition (the only text format that
+        carries exemplars). Differences from :meth:`to_prometheus`: the
+        counter *family* name drops the ``_total`` suffix (samples keep
+        it), histogram ``_bucket`` samples may carry a
+        ``# {labels} value timestamp`` exemplar, and the document ends
+        with ``# EOF``. Serve it under
+        ``application/openmetrics-text; version=1.0.0``."""
+        by_name: Dict[str, List[_Instrument]] = {}
+        for inst in self.instruments():
+            by_name.setdefault(inst.name, []).append(inst)
+        lines: List[str] = []
+        for name in sorted(by_name):
+            group = by_name[name]
+            kind = group[0].kind
+            family = name
+            if kind == "counter" and family.endswith("_total"):
+                family = family[: -len("_total")]
+            om_kind = {"counter": "counter", "gauge": "gauge",
+                       "histogram": "histogram"}.get(kind, "unknown")
+            lines.append(f"# TYPE {family} {om_kind}")
+            help_text = next((i.help for i in group if i.help), "")
+            if help_text:
+                lines.append(f"# HELP {family} {_escape_help(help_text)}")
+            for inst in group:
+                if isinstance(inst, Histogram):
+                    exemplars = inst.exemplars()
+                    run = 0
+                    counts = inst.bucket_counts()
+                    bounds = list(inst.buckets) + [math.inf]
+                    for i, le in enumerate(bounds):
+                        run += counts[i]
+                        le_s = "+Inf" if math.isinf(le) else _fmt_num(le)
+                        line = (f"{family}_bucket"
+                                f"{_labels(inst.labels + (('le', le_s),))} "
+                                f"{run}")
+                        ex = exemplars[i]
+                        if ex is not None:
+                            ex_labels, ex_value, ex_ts = ex
+                            line += (f" # {_labels(ex_labels) or '{}'} "
+                                     f"{_fmt_num(ex_value)} {ex_ts:.3f}")
+                        lines.append(line)
+                    lines.append(f"{family}_sum{_labels(inst.labels)} "
+                                 f"{_fmt_num(inst.sum)}")
+                    lines.append(f"{family}_count{_labels(inst.labels)} "
+                                 f"{inst.count}")
+                elif isinstance(inst, Counter):
+                    lines.append(f"{family}_total{_labels(inst.labels)} "
+                                 f"{_fmt_num(inst.value)}")
+                else:
+                    lines.append(f"{family}{_labels(inst.labels)} "
+                                 f"{_fmt_num(inst.value)}")
+        lines.append("# EOF")
+        return "\n".join(lines) + "\n"
 
 
 def _labels(pairs: Tuple[Tuple[str, str], ...]) -> str:

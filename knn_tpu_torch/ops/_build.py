@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 from knn_tpu_torch.resilience.errors import CompileError
@@ -54,7 +55,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> "tuple[Path, Path, subprocess.Popen] | None":
+def _start(name: str) -> "tuple[Path, Path, subprocess.Popen, float] | None":
     """Start ``nvcc`` for ``csrc/<name>.cu`` unless its library is built.
     Output goes to a per-process temporary name, renamed into place when
     the compile succeeds, so a concurrent build never loads half a file."""
@@ -69,13 +70,14 @@ def _start(name: str) -> "tuple[Path, Path, subprocess.Popen] | None":
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.monotonic()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
-    return out, tmp, proc
+    return out, tmp, proc, t0
 
 
 def _finish(name: str, started) -> None:
-    out, tmp, proc = started
+    out, tmp, proc, t0 = started
     _, err = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -83,6 +85,9 @@ def _finish(name: str, started) -> None:
                            f"(exit {proc.returncode}):\n{err.strip()}",
                            transient=False)
     os.replace(tmp, out)
+    from knn_tpu_torch.obs import devprof
+
+    devprof.record_build("nvcc", name, (time.monotonic() - t0) * 1e3)
 
 
 def build_all() -> "list[Path]":

@@ -735,6 +735,7 @@ def stripe_candidates_arrays(
     cache: Optional[dict] = None,
     chunk_rows: Optional[int] = None,
     deferred: bool = False,
+    prefetched_queries: Optional[torch.Tensor] = None,
 ):
     """Host entry of the stripe route and the models' retrieval: numpy in,
     unpadded ``([Q, k]`` float32 distances, ``[Q, k]`` int32 indices``)``
@@ -751,7 +752,10 @@ def stripe_candidates_arrays(
     zero-argument ``resolve()`` instead of the arrays: the queries are
     uploaded and every chunk enqueued before this returns, and ``resolve()``
     waits for the copies and memoizes. On the CPU the plain versions run
-    now and ``resolve()`` returns their result."""
+    now and ``resolve()`` returns their result. ``prefetched_queries`` is
+    a float32 block already on ``device`` whose first Q rows are the
+    queries (the serving batcher's staged upload): it is read in place of
+    the upload."""
     from knn_tpu_torch.utils.windowed import windowed_dispatch_deferred
 
     form = _resolve_stripe_precision(precision, train_x.shape[1])
@@ -765,7 +769,8 @@ def stripe_candidates_arrays(
         raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
     tx = cached_train(train_x, dev, cache,
                       stripe_store_dtype(form, train_x.shape[1]))
-    qx = to_device_async(test_x, dev)
+    qx = (prefetched_queries[:q] if prefetched_queries is not None
+          else to_device_async(test_x, dev))
     if chunk_rows is None:
         chunk_rows = q if dev.type == "cpu" else candidate_chunk_rows(
             n, q, dev, train_x.shape[1], k, form)

@@ -39,6 +39,13 @@ from typing import Callable, Dict, Optional, Tuple
 from knn_tpu_torch import obs
 from knn_tpu_torch.resilience.errors import DataError, DeviceError, ResilienceError
 
+#: The OVERLOAD degradation order the JAX control plane enforces past a
+#: replica's knee (scale, then shed low priority, then brownout, then the
+#: queue-full backstop). Shared as data; the serving front end reports it
+#: on ``/debug/control`` while no controller runs (ROADMAP A12).
+DEGRADATION_ORDER: Tuple[str, ...] = (
+    "scale", "shed_low_priority", "brownout_quality", "availability")
+
 #: backend -> fallback rungs, most-capable first. The card rungs have none.
 LADDER: Dict[str, Tuple[str, ...]] = {
     "cuda": (),
@@ -96,6 +103,11 @@ def _record_fallback(frm: str, to: str, reason: str) -> None:
         help="degradation-ladder moves (backend -> fallback backend)",
         from_backend=frm, to=to, reason=reason,
     )
+    # Also lands in any active request contexts (a laddered predict run
+    # inside a traced serving dispatch); one predicate otherwise.
+    from knn_tpu_torch.obs import reqtrace
+
+    reqtrace.emit("fallback", from_backend=frm, to=to, reason=reason)
 
 
 def _release_cached_blocks() -> None:

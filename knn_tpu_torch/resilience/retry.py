@@ -103,6 +103,16 @@ def _env_float(name: str, default: float) -> float:
         return default
 
 
+def retry_schedule() -> "list[float]":
+    """The environment's retry budget as :func:`guarded_call` reads it: the
+    sleep (ms) before each re-attempt, one entry fewer than the attempts.
+    For a caller that runs its own attempt loop (the serving batcher, which
+    checks deadlines between attempts)."""
+    attempts = max(1, int(_env_float(_ATTEMPTS_ENV, 3)))
+    return backoff_schedule(attempts, _env_float(_BASE_ENV, 25.0),
+                            _env_float(_MAX_ENV, 2000.0))
+
+
 def backoff_schedule(
     attempts: int, base_ms: float, max_ms: float,
 ) -> "list[float]":
@@ -122,7 +132,9 @@ _DETERMINISTIC_ERRNOS = frozenset(
 )
 
 
-def _is_transient(exc: BaseException) -> bool:
+def is_transient(exc: BaseException) -> bool:
+    """Whether ``exc`` is worth another attempt (the rule
+    :func:`guarded_call` retries by, and the serving batcher's)."""
     if getattr(exc, "_retry_exhausted", False):
         # A nested guarded_call already spent its attempt budget on this
         # failure; re-retrying it at the outer guard would multiply the
@@ -171,7 +183,7 @@ def guarded_call(
             return fn()
         except Exception as e:  # noqa: BLE001 — classified and re-raised below
             last = e
-            if not _is_transient(e):
+            if not is_transient(e):
                 break
             obs.counter_add(
                 "knn_retry_total",

@@ -1,0 +1,361 @@
+"""Index artifact store: versioned save/load of a fitted model (the port of
+``knn_tpu/serve/artifact.py``, format 3, byte-compatible both ways).
+
+A serving process boots from a PREBUILT index, not from raw ARFF: the parse
+is paid once at build time by ``save-index``, not on every server start.
+An artifact is a directory:
+
+    index/
+    ├── manifest.json   — format version, model family + hyperparameters
+    │                     (k, metric, weights, backend/engine, opts),
+    │                     array schema, attribute metadata, the training
+    │                     distribution sketch and a schema hash
+    └── arrays.npz      — the train arrays (features, labels, and
+                          raw_targets when the source kept them)
+
+The manifest is the contract: ``format`` gates forward compatibility
+(loaders reject artifacts from a NEWER format rather than misread them),
+and ``schema_hash`` pins manifest↔arrays consistency, so a hand-edited
+manifest or a swapped ``arrays.npz`` fails typed
+(:class:`~knn_tpu_torch.resilience.errors.DataError`).
+
+**Both packages read each other's artifacts.** The manifest's ``backend``
+names a rung, and the JAX loader hands ``backend_opts`` to its own
+``KNNClassifier``, so the port writes only names and options the JAX
+loader accepts and maps them on load, by one table
+(:data:`BACKEND_NAMES`): ``cuda ↔ tpu``, ``cuda-tile ↔ tpu-pallas``, the
+host rungs as they are. Run-time choices of the port (``device``) are
+never manifest fields: :func:`load_index` takes the device as an argument.
+
+**What the port does not load yet** fails typed, never with a part
+silently dropped: an IVF partition (the manifest's ``ivf`` block, ROADMAP
+A9) and a mutable base (``epochs/``, ``CURRENT.json`` or a ``mutable``
+manifest block, ROADMAP A10).
+
+:func:`warmup` is the boot step between load and ready. The card has no
+compile to hide, but the first retrieval builds the kernel library when it
+is missing, uploads the train and its feature-major copy, and sizes the
+split plans; warming every dispatch shape before ``/healthz`` reports
+ready keeps all of that out of user requests.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from knn_tpu_torch import obs
+from knn_tpu_torch.data.dataset import Attribute, Dataset
+from knn_tpu_torch.models.knn import KNNClassifier, KNNRegressor
+from knn_tpu_torch.resilience.errors import DataError
+
+#: The JAX package's format (1: the layout; 2: ``drift_sketch``; 3: the
+#: optional IVF partition). Loaders accept 1-3.
+ARTIFACT_FORMAT = 3
+MANIFEST_NAME = "manifest.json"
+ARRAYS_NAME = "arrays.npz"
+
+#: The mutable tier's files in an artifact directory (ROADMAP A10): the
+#: port refuses an artifact that carries them.
+EPOCHS_DIR = "epochs"
+CURRENT_NAME = "CURRENT.json"
+
+#: Port backend -> the manifest's (JAX) backend name. The one table both
+#: directions read: save writes the right-hand name, load maps it back.
+BACKEND_NAMES = {
+    "cuda": "tpu",
+    "cuda-tile": "tpu-pallas",
+    "native": "native",
+    "native-mt": "native-mt",
+    "oracle": "oracle",
+}
+_PORT_BACKEND = {v: k for k, v in BACKEND_NAMES.items()}
+
+#: Backend options of the port that are run-time choices, never manifest
+#: fields (the JAX loader would hand them to its backend).
+RUNTIME_OPTS = ("device",)
+
+
+def schema_hash(ds: Dataset) -> str:
+    """Digest over the dataset's SCHEMA — attribute metadata plus array
+    shapes/dtypes, not the data values. The JAX package's definition, so
+    an index hashes the same in either package."""
+    payload = json.dumps(
+        {
+            "attributes": [
+                {
+                    "name": a.name,
+                    "type": a.type,
+                    "nominal_values": a.nominal_values,
+                    "string_values": a.string_values,
+                }
+                for a in ds.attributes
+            ],
+            "features": [list(ds.features.shape), str(ds.features.dtype)],
+            "labels": [list(ds.labels.shape), str(ds.labels.dtype)],
+            "raw_targets": (
+                [list(ds.raw_targets.shape), str(ds.raw_targets.dtype)]
+                if ds.raw_targets is not None else None
+            ),
+        },
+        sort_keys=True,
+    )
+    return hashlib.sha256(payload.encode()).hexdigest()[:32]
+
+
+def _model_manifest(model) -> dict:
+    if isinstance(model, KNNClassifier):
+        backend = BACKEND_NAMES.get(model.backend_name)
+        if backend is None:
+            raise ValueError(f"backend {model.backend_name!r} has no "
+                             f"artifact name; choose from "
+                             f"{sorted(BACKEND_NAMES)}")
+        return {
+            "family": "classifier",
+            "k": model.k,
+            "metric": model.metric,
+            "weights": model.weights,
+            "backend": backend,
+            "backend_opts": {k: v for k, v in model.backend_opts.items()
+                             if k not in RUNTIME_OPTS},
+        }
+    if isinstance(model, KNNRegressor):
+        return {
+            "family": "regressor",
+            "k": model.k,
+            "metric": model.metric,
+            "weights": model.weights,
+            "engine": model.engine,
+        }
+    raise TypeError(
+        f"cannot save a {type(model).__name__}; expected KNNClassifier or "
+        f"KNNRegressor"
+    )
+
+
+def save_index(model, path) -> Path:
+    """Write a fitted model to ``path`` (a directory; created if missing).
+
+    Refuses to clobber a non-empty directory that is not already an
+    artifact (no ``manifest.json``) — re-saving over an existing artifact
+    is fine. Raises ``ValueError``/``OSError`` for bad inputs/paths (the
+    CLI maps both to exit 2). The manifest lands last and atomically."""
+    from knn_tpu_torch.obs.drift import StreamSketch
+
+    train = model.train_  # RuntimeError before fit
+    manifest = _model_manifest(model)
+    out = Path(path)
+    if out.exists():
+        if not out.is_dir():
+            raise ValueError(f"{out}: exists and is not a directory")
+        if any(out.iterdir()) and not (out / MANIFEST_NAME).exists():
+            raise ValueError(
+                f"{out}: non-empty directory without a {MANIFEST_NAME} — "
+                f"refusing to overwrite something that is not an index "
+                f"artifact"
+            )
+    out.mkdir(parents=True, exist_ok=True)
+    arrays = {"features": train.features, "labels": train.labels}
+    if train.raw_targets is not None:
+        arrays["raw_targets"] = train.raw_targets
+    np.savez(out / ARRAYS_NAME, **arrays)
+    manifest.update(
+        format=ARTIFACT_FORMAT,
+        drift_sketch=StreamSketch.from_data(train.features).to_dict(),
+        created_unix=round(time.time(), 3),
+        relation=train.relation,
+        attributes=[
+            {
+                "name": a.name,
+                "type": a.type,
+                "nominal_values": a.nominal_values,
+                "string_values": a.string_values,
+            }
+            for a in train.attributes
+        ],
+        train_rows=int(train.num_instances),
+        num_features=int(train.num_features),
+        num_classes=int(train.num_classes),
+        dtype=str(train.features.dtype),
+        schema_hash=schema_hash(train),
+    )
+    tmp = out / (MANIFEST_NAME + ".tmp")
+    tmp.write_text(json.dumps(manifest, indent=2, sort_keys=True) + "\n")
+    os.replace(tmp, out / MANIFEST_NAME)
+    return out
+
+
+def read_manifest(path) -> dict:
+    """Read + validate an artifact's manifest without loading the arrays.
+    Raises :class:`DataError` like :func:`load_index`."""
+    return _read_manifest(Path(path))
+
+
+def reference_sketch(manifest: dict) -> Optional[dict]:
+    """The artifact's training-distribution sketch, or None for a
+    pre-sketch (format 1) artifact."""
+    sketch = manifest.get("drift_sketch")
+    return sketch if isinstance(sketch, dict) else None
+
+
+def index_version(manifest: dict) -> str:
+    """Opaque version tag for an artifact: ``<created_unix>-<hash8>`` (a
+    re-save moves the timestamp, so an operator can tell builds apart)."""
+    return (f"{manifest.get('created_unix', 0)}-"
+            f"{str(manifest.get('schema_hash', ''))[:8]}")
+
+
+def _read_manifest(root: Path) -> dict:
+    mf = root / MANIFEST_NAME
+    if not root.exists():
+        raise DataError(f"{root}: index artifact not found")
+    if not root.is_dir() or not mf.exists():
+        raise DataError(
+            f"{root}: not an index artifact (no {MANIFEST_NAME}); build one "
+            f"with `save-index`"
+        )
+    try:
+        manifest = json.loads(mf.read_text())
+    except (OSError, ValueError) as e:
+        raise DataError(f"{mf}: unreadable manifest: {e}") from e
+    fmt = manifest.get("format")
+    if not isinstance(fmt, int) or fmt < 1:
+        raise DataError(f"{mf}: missing/invalid format field: {fmt!r}")
+    if fmt > ARTIFACT_FORMAT:
+        raise DataError(
+            f"{mf}: artifact format {fmt} is newer than this build "
+            f"supports ({ARTIFACT_FORMAT}); rebuild the index or upgrade"
+        )
+    return manifest
+
+
+def _refuse_later_layers(root: Path, manifest: dict) -> None:
+    """An artifact part the port cannot serve yet is a typed refusal,
+    never a load with the part dropped."""
+    if isinstance(manifest.get("ivf"), dict):
+        raise DataError(
+            f"{root}: the artifact carries an IVF partition; the port "
+            f"serves it with the index family (ROADMAP A9) — rebuild "
+            f"without --ivf-cells, or serve it with the JAX package"
+        )
+    if (isinstance(manifest.get("mutable"), dict)
+            or (root / EPOCHS_DIR).exists()
+            or (root / CURRENT_NAME).exists()):
+        raise DataError(
+            f"{root}: the artifact is a mutable base ({EPOCHS_DIR}/, "
+            f"{CURRENT_NAME} or a mutable manifest block); the port serves "
+            f"it with the mutable tier (ROADMAP A10)"
+        )
+
+
+def load_index(path, device="cuda"):
+    """Load an artifact (the port's or the JAX package's) into a fitted
+    model that runs on ``device``. Raises :class:`DataError` — typed,
+    never a traceback — for missing, corrupt, newer-format or
+    not-yet-servable artifacts."""
+    import zipfile
+
+    root = Path(path)
+    manifest = _read_manifest(root)
+    _refuse_later_layers(root, manifest)
+    try:
+        with np.load(root / ARRAYS_NAME, allow_pickle=False) as z:
+            features = z["features"]
+            labels = z["labels"]
+            raw_targets = z["raw_targets"] if "raw_targets" in z else None
+    except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
+        raise DataError(f"{root / ARRAYS_NAME}: unreadable arrays: {e}") from e
+    attrs = [
+        Attribute(
+            a["name"], a["type"], a.get("nominal_values"),
+            a.get("string_values"),
+        )
+        for a in manifest.get("attributes", [])
+    ]
+    train = Dataset(
+        features=features, labels=labels,
+        relation=manifest.get("relation", ""), attributes=attrs,
+        raw_targets=raw_targets,
+    )
+    want = manifest.get("schema_hash")
+    got = schema_hash(train)
+    if want != got:
+        raise DataError(
+            f"{root}: schema hash mismatch (manifest {want!r}, arrays "
+            f"{got!r}) — the manifest and arrays.npz are not from the same "
+            f"save; rebuild the index"
+        )
+    family = manifest.get("family")
+    try:
+        if family == "classifier":
+            name = manifest.get("backend", "tpu")
+            backend = _PORT_BACKEND.get(name)
+            if backend is None:
+                raise DataError(
+                    f"{root}: backend {name!r} has no rung on the card yet "
+                    f"(the sharded backends come with ROADMAP A11)"
+                )
+            opts = {k: v for k, v in manifest.get("backend_opts", {}).items()
+                    if k not in RUNTIME_OPTS}
+            model = KNNClassifier(
+                k=manifest["k"], backend=backend,
+                metric=manifest.get("metric", "euclidean"),
+                weights=manifest.get("weights", "uniform"),
+                device=device, **opts,
+            )
+        elif family == "regressor":
+            model = KNNRegressor(
+                k=manifest["k"],
+                weights=manifest.get("weights", "uniform"),
+                metric=manifest.get("metric", "euclidean"),
+                engine=manifest.get("engine", "auto"), device=device,
+            )
+        else:
+            raise DataError(f"{root}: unknown model family {family!r}")
+        model.fit(train)
+    except (KeyError, TypeError, ValueError) as e:
+        if isinstance(e, DataError):
+            raise
+        raise DataError(f"{root}: manifest does not describe a loadable "
+                        f"model: {e}") from e
+    return model
+
+
+def warmup(model, batch_sizes=(1, 256), kinds=("predict",)) -> dict:
+    """Run the serving dispatch at each batch size before ready.
+
+    Each ``kind`` runs at each batch size on rows drawn from the fitted
+    train set. On the card the first call builds the kernel library when
+    it is missing, uploads the train (and the kernels' feature-major copy)
+    and asks the card for its split plans; later shapes launch the kernels
+    once each. Returns ``{f"{kind}@{rows}": wall_ms}``."""
+    train = model.train_
+    out = {}
+    with obs.span("serve.warmup", shapes=len(batch_sizes) * len(kinds)):
+        for rows in sorted({int(b) for b in batch_sizes}):
+            if rows < 1:
+                raise ValueError(f"warmup batch sizes must be >= 1: {rows}")
+            reps = -(-rows // train.num_instances)  # ceil
+            feats = np.tile(train.features, (reps, 1))[:rows]
+            ds = Dataset(feats, np.zeros(rows, np.int32))
+            for kind in kinds:
+                t0 = time.monotonic()
+                if kind == "predict":
+                    if isinstance(model, KNNClassifier):
+                        model.predict_from_candidates(*model.kneighbors(ds))
+                    else:
+                        model.predict(ds)
+                elif kind == "kneighbors":
+                    model.kneighbors(ds)
+                else:
+                    raise ValueError(f"unknown warmup kind {kind!r}")
+                out[f"{kind}@{rows}"] = round(
+                    (time.monotonic() - t0) * 1e3, 3
+                )
+    return out

@@ -1,0 +1,1026 @@
+"""The ``serve`` HTTP front-end, on the card (the port of
+``knn_tpu/serve/server.py``; stdlib only).
+
+A :class:`ServeApp` owns the loaded model, the micro-batcher, and the
+readiness flag; :class:`KNNServer` (a ``ThreadingHTTPServer``) gives every
+connection a handler thread that does nothing device-side itself — it
+validates, enqueues on the batcher, and waits on the request future, so
+the batcher's single worker thread stays the only thread that launches
+kernels.
+
+Endpoint contract (the JAX package's, docs/SERVING.md):
+
+- ``POST /predict``     body ``{"instances": [[...], ...]}`` (rows of
+  ``num_features`` floats; optional ``"deadline_ms"``) →
+  ``{"predictions": [...], "index_version": ..., "ms": ...}``.
+- ``POST /kneighbors``  same body → ``{"distances": [[...]], "indices":
+  [[...]], ...}``.
+- ``POST /admin/reload`` body ``{}`` or ``{"index": PATH}`` → hot reload:
+  load + validate off the serving path, warm, swap; any failure rolls
+  back with the old index serving. 409 while another reload runs.
+- ``GET /healthz``      → 200 once warmup is done (503 before, and while
+  draining), with the ``breaker``, ``slo``, ``capacity`` and ``device``
+  blocks.
+- ``GET /metrics``      → Prometheus text, or OpenMetrics with
+  ``trace_id`` exemplars under ``Accept: application/openmetrics-text``.
+- ``GET /debug/requests`` / ``/debug/slowest`` → the flight recorder
+  (``?id=``, ``?n=``, ``?format=perfetto``).
+- ``GET /debug/capacity`` → the cost & capacity join.
+- ``GET /debug/profile?ms=N`` → a ``torch.profiler`` capture of N ms
+  (``obs/devprof.py``) while the other threads keep serving; 409 while
+  another capture runs.
+
+The routes of the layers later slices bring answer as the JAX package
+answers them with the layer off: ``/debug/quality``, ``/debug/capture``,
+``/debug/control``, ``/debug/history`` and ``/debug/alerts`` are 200 with
+``enabled`` false and null blocks; the mutation and replication routes
+(``/insert``, ``/delete``, ``/admin/compact``, ``/admin/capture``,
+``/admin/wal-append``, ``/admin/promote``, ``/admin/bootstrap``,
+``/admin/wal-since``, ``/admin/snapshot``) are 404 with the layer named.
+
+Every request carries a **request id** (a valid ``x-request-id``, else a
+generated one), echoed on every response (header + JSON body), resolvable
+in the flight recorder, stamped on latency-histogram exemplars, and keyed
+into the optional ``--access-log``. Terminal outcomes feed the SLO
+tracker (``knn_slo_*``).
+
+Status mapping: :class:`OverloadError` → 429 (503 while draining),
+:class:`DeadlineExceededError` → 504, bad input → 400, any other failure
+(a typed card failure included: the ladder stops at the card) → 500 with
+the error class in the body.
+
+Signals: SIGTERM drains (the LISTENER closes first, then healthz flips to
+503, in-flight answered within ``--drain-timeout-s``, remainders 504,
+exit 0); SIGINT stops; SIGHUP reloads.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import random
+import sys
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+
+from knn_tpu_torch import obs
+from knn_tpu_torch.models.knn import KNNClassifier
+from knn_tpu_torch.obs import reqtrace
+from knn_tpu_torch.obs.slo import SLOTracker
+from knn_tpu_torch.resilience.errors import (
+    DataError,
+    DeadlineExceededError,
+    OverloadError,
+)
+from knn_tpu_torch.serve import artifact
+from knn_tpu_torch.serve.batcher import MicroBatcher
+
+#: Request bodies past this are rejected 413 before json.loads allocates.
+MAX_BODY_BYTES = 64 * 1024 * 1024
+
+#: POST routes of later layers -> the 404 message JAX gives with the layer
+#: off.
+_OFF_POST = {
+    "/insert": "mutable serving is off — boot with `serve INDEX --mutable on`",
+    "/delete": "mutable serving is off — boot with `serve INDEX --mutable on`",
+    "/admin/compact": "mutable serving is off — boot with `serve INDEX "
+                      "--mutable on`",
+    "/admin/bootstrap": "mutable serving is off — boot with `serve INDEX "
+                        "--mutable on`",
+    "/admin/capture": "workload capture is off — boot with `serve INDEX "
+                      "--capture-dir DIR`",
+    "/admin/wal-append": "fleet replication is off — boot with `serve INDEX "
+                         "--mutable on --follower-of PRIMARY_URL`",
+    "/admin/promote": "fleet replication is off — this process has no role "
+                      "to promote",
+}
+_OFF_GET = {
+    "/admin/wal-since": "mutable serving is off — there is no write-ahead "
+                        "log to export",
+    "/admin/snapshot": "mutable serving is off — there is no generation "
+                       "artifact to ship",
+}
+
+
+class AccessLog:
+    """One structured JSON line per terminal request outcome, written by
+    the HANDLER thread after its response went out. ``path='-'`` logs to
+    stderr; anything else appends to the file (line-buffered, one lock)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+        self._file = (sys.stderr if path == "-"
+                      else open(path, "a", buffering=1, encoding="utf-8"))
+
+    def write(self, record: dict) -> None:
+        line = json.dumps(record, separators=(",", ":"), default=str)
+        with self._lock:
+            try:
+                self._file.write(line + "\n")
+            except (OSError, ValueError):
+                pass  # a full disk / closed file must never fail a request
+
+    def close(self) -> None:
+        if self._file is not sys.stderr:
+            with self._lock:
+                try:
+                    self._file.close()
+                except OSError:
+                    pass
+
+
+class ReloadInProgress(OverloadError):
+    """A hot reload is already running; the admin endpoint maps this to
+    HTTP 409."""
+
+
+class ServeApp:
+    """Everything the handlers need, built once at boot.
+
+    ``batch_buckets`` is this app's bucket ladder: its batcher pads, stages
+    and tops up by it, and nothing outside the app sees it. ``device`` is
+    where a reloaded index runs (the boot model carries its own)."""
+
+    def __init__(self, model, *, max_batch: int = 256,
+                 max_wait_ms: float = 2.0, max_queue_rows: int = 4096,
+                 deadline_ms: Optional[float] = None,
+                 index_path: Optional[str] = None,
+                 index_version: Optional[str] = None,
+                 flight_recorder_size: int = 256, slowest_k: int = 32,
+                 access_log: Optional[str] = None,
+                 slo: Optional[SLOTracker] = None,
+                 cost_accounting: bool = False,
+                 capacity_window_s: int = 60,
+                 batch_buckets=None, result_cache_rows: int = 0,
+                 device=None):
+        self.model = model
+        self.device = device if device is not None else getattr(
+            model, "device", "cuda")
+        self.family = (
+            "classifier" if isinstance(model, KNNClassifier) else "regressor"
+        )
+        self.deadline_ms = deadline_ms
+        self.index_path = index_path
+        self.index_version = index_version
+        self.recorder = (
+            reqtrace.FlightRecorder(flight_recorder_size, slowest_k)
+            if flight_recorder_size > 0 else None
+        )
+        self.slo = slo if slo is not None else SLOTracker()
+        self.access_log = AccessLog(access_log) if access_log else None
+        if cost_accounting:
+            from knn_tpu_torch.obs.accounting import CostAccountant
+            from knn_tpu_torch.obs.capacity import CapacityTracker
+
+            self.accounting = CostAccountant()
+            self.capacity = CapacityTracker(
+                max_batch, window_s=capacity_window_s)
+        else:
+            self.accounting = None
+            self.capacity = None
+        self.batcher = MicroBatcher(
+            model, max_batch=max_batch, max_wait_ms=max_wait_ms,
+            max_queue_rows=max_queue_rows, index_version=index_version,
+            recorder=self.recorder, accounting=self.accounting,
+            capacity=self.capacity, buckets=batch_buckets,
+            result_cache_rows=result_cache_rows,
+        )
+        self.ready = False
+        self.draining = False
+        self.started_unix = time.time()
+        self.warmup_ms: dict = {}
+        self.reloads = 0
+        self._warm_sizes = None
+        self._reload_lock = threading.Lock()
+        self._inflight = 0
+        self._inflight_cond = threading.Condition()
+
+    @property
+    def primary_rung(self) -> str:
+        """The rung a healthy request rides — what the fast_rung SLI
+        scores against."""
+        return "fast"
+
+    def warm(self, batch_sizes=None) -> dict:
+        """Run every dispatch shape once, then report ready: 1 row,
+        ``max_batch`` rows and every bucket of the ladder (the first call
+        also builds the kernels when missing and uploads the train)."""
+        if batch_sizes is None:
+            buckets = self.batcher.buckets or ()
+            batch_sizes = tuple(sorted(
+                {1, self.batcher.max_batch, *buckets}))
+        self._warm_sizes = tuple(batch_sizes)
+        self.warmup_ms = artifact.warmup(
+            self.model, batch_sizes=batch_sizes, kinds=("predict",)
+        )
+        if self.capacity is not None:
+            self._seed_capacity_model(self.model)
+        self.ready = True
+        return self.warmup_ms
+
+    def _seed_capacity_model(self, model) -> None:
+        """Seed the headroom model's affine dispatch-cost fit
+        (``obs/capacity.py``) with timed retrievals at 1 row and
+        ``max_batch`` rows on ``model`` — warm, so they time dispatch. On
+        a reload this runs on the REPLACEMENT model before the swap: the
+        reload thread never touches a model the worker is serving."""
+        from knn_tpu_torch.data.dataset import Dataset
+
+        train = model.train_
+        self.capacity.reset_seeds()
+        for rows in sorted({1, self.batcher.max_batch}):
+            if rows <= train.num_instances:
+                feats = train.features[:rows]
+            else:
+                reps = -(-rows // train.num_instances)  # ceil
+                feats = np.tile(train.features, (reps, 1))[:rows]
+            ds = Dataset(feats, np.zeros(rows, np.int32))
+            best = None
+            for _ in range(2):  # best-of-2: stalls only ever add time
+                t0 = time.monotonic()
+                model.kneighbors(ds)
+                wall = (time.monotonic() - t0) * 1e3
+                best = wall if best is None else min(best, wall)
+            self.capacity.seed_dispatch_model(rows, best)
+
+    # -- hot reload --------------------------------------------------------
+
+    def reload(self, path: Optional[str] = None) -> dict:
+        """Hot-swap the serving index: load + validate ``path`` (default:
+        the boot index path), warm it OFF the serving path (the old index
+        keeps serving; the replacement's caches are touched by this thread
+        alone until the swap), then swap atomically. Any failure raises
+        typed and leaves the old index serving."""
+        if not self._reload_lock.acquire(blocking=False):
+            raise ReloadInProgress("a reload is already in progress")
+        try:
+            target = path or self.index_path
+            if target is None:
+                raise DataError(
+                    "no index path to reload from: the server was built "
+                    "without one and the request named none"
+                )
+            t0 = time.monotonic()
+            manifest = artifact.read_manifest(target)
+            version = artifact.index_version(manifest)
+            model = artifact.load_index(target, device=self.device)
+            new_family = ("classifier" if isinstance(model, KNNClassifier)
+                          else "regressor")
+            if new_family != self.family:
+                raise DataError(
+                    f"{target}: artifact family '{new_family}' does not "
+                    f"match the serving family '{self.family}' — that is a "
+                    f"new deployment, not a reload"
+                )
+            if (model.train_.num_features
+                    != self.model.train_.num_features):
+                raise DataError(
+                    f"{target}: feature width {model.train_.num_features} "
+                    f"does not match the serving width "
+                    f"{self.model.train_.num_features} — in-flight requests "
+                    f"were validated against the old schema; rejecting the "
+                    f"swap"
+                )
+            with _on_device(self.device):
+                warmup_ms = artifact.warmup(
+                    model,
+                    batch_sizes=self._warm_sizes or (1,
+                                                     self.batcher.max_batch),
+                    kinds=("predict",),
+                )
+                if self.capacity is not None:
+                    self._seed_capacity_model(model)
+            previous = self.batcher.swap_model(model, version)
+            self.model = model
+            self.index_version = version
+            self.reloads += 1
+            obs.counter_add(
+                "knn_serve_reloads_total",
+                help="hot index reloads, by outcome", outcome="ok",
+            )
+            return {
+                "index_version": version,
+                "previous_version": previous,
+                "warmup_ms": warmup_ms,
+                "ms": round((time.monotonic() - t0) * 1e3, 3),
+            }
+        except Exception as e:
+            obs.counter_add(
+                "knn_serve_reloads_total",
+                help="hot index reloads, by outcome",
+                outcome="rolled_back", type=type(e).__name__,
+            )
+            raise
+        finally:
+            self._reload_lock.release()
+
+    # -- graceful drain ----------------------------------------------------
+
+    @contextlib.contextmanager
+    def track_request(self):
+        """In-flight accounting for the drain barrier: a request is
+        in-flight from body parse to response written."""
+        with self._inflight_cond:
+            self._inflight += 1
+        try:
+            yield
+        finally:
+            with self._inflight_cond:
+                self._inflight -= 1
+                self._inflight_cond.notify_all()
+
+    def drain(self, timeout_s: float) -> dict:
+        """The SIGTERM path: flip to draining (healthz 503, new admissions
+        refused typed), then answer every in-flight request within
+        ``timeout_s``; what cannot be answered in time is failed
+        :class:`DeadlineExceededError` (504). Returns a summary."""
+        t0 = time.monotonic()
+        self.draining = True
+        self.batcher.begin_drain()
+        deadline = t0 + timeout_s
+        with self._inflight_cond:
+            while self._inflight > 0 and time.monotonic() < deadline:
+                self._inflight_cond.wait(
+                    min(0.1, max(0.0, deadline - time.monotonic()))
+                )
+            remaining = self._inflight
+        expired = 0
+        if remaining > 0 or self.batcher.pending_rows() > 0:
+            expired = self.batcher.fail_pending(
+                DeadlineExceededError(
+                    f"server drained for {timeout_s:.1f} s and shut down "
+                    f"before this request could be dispatched"
+                ),
+                outcome="expired",
+            )
+            if expired:
+                obs.counter_add(
+                    "knn_serve_drain_expired_total", expired,
+                    help="requests failed 504 because the drain window "
+                         "closed",
+                )
+            grace = time.monotonic() + min(2.0, timeout_s)
+            with self._inflight_cond:
+                while self._inflight > 0 and time.monotonic() < grace:
+                    self._inflight_cond.wait(0.05)
+        with self._inflight_cond:
+            remaining = self._inflight
+        return {
+            "drained_clean": expired == 0 and remaining == 0,
+            "expired": expired,
+            "inflight_at_exit": remaining,
+            "ms": round((time.monotonic() - t0) * 1e3, 3),
+        }
+
+    def close(self) -> None:
+        self.ready = False
+        self.batcher.close()
+        if self.access_log is not None:
+            self.access_log.close()
+
+    def health(self) -> dict:
+        h = {
+            "ready": self.ready,
+            "draining": self.draining,
+            "index_version": self.index_version,
+            "breaker": self.batcher.breaker.state,
+            "rung": self.batcher.current_rung,
+            "worker_restarts": self.batcher.restarts,
+            "reloads": self.reloads,
+            "family": self.family,
+            "k": self.model.k,
+            "train_rows": self.model.train_.num_instances,
+            "num_features": self.model.train_.num_features,
+            "uptime_s": round(time.time() - self.started_unix, 1),
+            "warmup_ms": self.warmup_ms,
+            "batching": {
+                "buckets": (list(self.batcher.buckets)
+                            if self.batcher.buckets else None),
+                "result_cache": (self.batcher.cache.stats()
+                                 if self.batcher.cache is not None
+                                 else None),
+            },
+            "slo": self.slo.export(),
+            "device": self._device_block(),
+            "quality": self.quality_block(),
+            "ivf": None,
+            "capacity": (self.capacity.export()
+                         if self.capacity is not None else None),
+            "mutable": None,
+            "workload": None,
+            "shard": None,
+            "fleet": None,
+            "control": None,
+            "history": None,
+            "alerts": None,
+        }
+        if self.recorder is not None:
+            h["flight_recorder"] = self.recorder.stats()
+        return h
+
+    def overload_retry_after_s(self) -> float:
+        """The Retry-After for 429/503: a jittered 1-2 s, never 0, so a
+        herd's retries spread."""
+        return 1.0 + random.random()
+
+    def quality_block(self) -> dict:
+        """The answer-quality summary: both layers come with a later slice
+        (ROADMAP A8b), so both report null — the distinct "off" state."""
+        return {"shadow": None, "drift": None}
+
+    @staticmethod
+    def _device_block() -> dict:
+        """The card's health summary (obs/devprof.py): memory per device
+        (also refreshing the ``knn_device_memory_bytes`` gauges), build
+        events and walls, signature hit/miss."""
+        from knn_tpu_torch.obs import devprof
+
+        return {
+            "memory": devprof.record_device_memory(),
+            "compile": devprof.compile_summary(),
+            "executable_cache": devprof.executable_cache_summary(),
+        }
+
+
+@contextlib.contextmanager
+def _on_device(device):
+    """Run the block with ``device`` as the thread's current card (a thread
+    that launches kernels names its card)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_available():
+        with torch.cuda.device(dev.index if dev.index is not None else 0):
+            yield
+    else:
+        yield
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server_version = "knn-tpu-serve/1"
+    protocol_version = "HTTP/1.1"
+    # Socket timeout: a client stalling mid-body must release its thread.
+    timeout = 60
+
+    @property
+    def app(self) -> ServeApp:
+        return self.server.app  # type: ignore[attr-defined]
+
+    def log_message(self, format, *args):  # noqa: A002 — stdlib signature
+        pass  # /metrics and the access log are the log
+
+    def _begin(self) -> bool:
+        """Adopt or mint the request id. A malformed ``x-request-id`` is a
+        400 with a generated id. Returns False when already answered."""
+        raw = self.headers.get("x-request-id")
+        if raw is None:
+            self._rid = reqtrace.gen_request_id()
+            return True
+        raw = raw.strip()
+        if not reqtrace.valid_request_id(raw):
+            self._rid = reqtrace.gen_request_id()
+            self.close_connection = True  # the body was never drained
+            self._send(400, {
+                "error": f"invalid x-request-id header: want 1-"
+                         f"{reqtrace.MAX_REQUEST_ID_LEN} printable "
+                         f"non-space ASCII characters, got {len(raw)} "
+                         f"byte(s)",
+            })
+            return False
+        self._rid = raw
+        return True
+
+    def _send(self, status: int, payload: dict,
+              content_type="application/json", tag_request_id=True,
+              retry_after: "Optional[float]" = None):
+        rid = getattr(self, "_rid", None)
+        if tag_request_id and rid is not None and "request_id" not in payload:
+            payload = {**payload, "request_id": rid}
+        body = (json.dumps(payload) + "\n").encode()
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        if retry_after is not None:
+            self.send_header("Retry-After",
+                             str(max(1, int(round(retry_after)))))
+        if rid is not None:
+            self.send_header("x-request-id", rid)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _send_text(self, status: int, text: str, content_type: str):
+        body = text.encode()
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        rid = getattr(self, "_rid", None)
+        if rid is not None:
+            self.send_header("x-request-id", rid)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    # -- GET ---------------------------------------------------------------
+
+    def do_GET(self):  # noqa: N802 — stdlib dispatch name
+        if not self._begin():
+            return
+        route = urlparse(self.path).path
+        if route == "/healthz":
+            h = self.app.health()
+            ok = h["ready"] and not h["draining"]
+            self._send(200 if ok else 503, h)
+        elif route == "/metrics":
+            self._do_metrics()
+        elif route in ("/debug/requests", "/debug/slowest"):
+            self._do_debug(route)
+        elif route == "/debug/quality":
+            self._do_quality()
+        elif route == "/debug/capacity":
+            self._do_capacity()
+        elif route == "/debug/capture":
+            self._send(200, {"enabled": False,
+                             "index_version": self.app.index_version},
+                       tag_request_id=False)
+        elif route == "/debug/control":
+            from knn_tpu_torch.resilience.degrade import DEGRADATION_ORDER
+
+            self._send(200, {
+                "enabled": {"admission": False, "brownout": False,
+                            "autotune": False},
+                "admission": None, "brownout": None, "autotune": None,
+                "degradation_order": list(DEGRADATION_ORDER),
+                "index_version": self.app.index_version,
+            }, tag_request_id=False)
+        elif route == "/debug/history":
+            self._send(200, {"enabled": False, "series": [],
+                             "index_version": self.app.index_version},
+                       tag_request_id=False)
+        elif route == "/debug/alerts":
+            self._send(200, {"enabled": False, "rules": [], "firing": [],
+                             "recent": [],
+                             "index_version": self.app.index_version},
+                       tag_request_id=False)
+        elif route == "/debug/profile":
+            self._do_profile()
+        elif route in _OFF_GET:
+            self._send(404, {"error": _OFF_GET[route]})
+        else:
+            self._send(404, {"error": f"no such endpoint: {self.path}"})
+
+    def _do_metrics(self):
+        # Refresh the scrape-time gauges (knn_slo_*, knn_device_memory_*,
+        # knn_capacity_*) before rendering.
+        self.app.slo.export()
+        from knn_tpu_torch.obs import devprof
+
+        devprof.record_device_memory()
+        if self.app.capacity is not None:
+            self.app.capacity.export()
+        accept = self.headers.get("Accept", "")
+        if "application/openmetrics-text" in accept:
+            self._send_text(
+                200, obs.registry().to_openmetrics(),
+                "application/openmetrics-text; version=1.0.0; "
+                "charset=utf-8",
+            )
+        else:
+            self._send_text(
+                200, obs.registry().to_prometheus(),
+                "text/plain; version=0.0.4",
+            )
+
+    def _do_quality(self):
+        """The answer-quality join, with both of its layers off (they come
+        with a later slice): 200 with null blocks, so dashboards can
+        hard-code the route."""
+        burns = self.app.slo.burn_rates()
+        payload = {
+            "enabled": {"shadow": False, "drift": False},
+            **self.app.quality_block(),
+            "slo_quality": {
+                "target": self.app.slo.targets["quality"],
+                "burn_rates": burns.get("quality", {}),
+            },
+            "index_version": self.app.index_version,
+        }
+        self._send(200, payload, tag_request_id=False)
+
+    def _do_capacity(self):
+        """The cost & capacity join and the live batching policy. Always
+        200: the layers report ``null`` while ``--cost-accounting off``."""
+        b = self.app.batcher
+        payload = {
+            "enabled": self.app.accounting is not None,
+            "capacity": (self.app.capacity.export()
+                         if self.app.capacity is not None else None),
+            "cost": (self.app.accounting.export()
+                     if self.app.accounting is not None else None),
+            "policy": {
+                "max_batch": b.max_batch,
+                "max_wait_ms": b.max_wait_ms,
+                "max_queue_rows": b.max_queue_rows,
+                "batch_buckets": list(b.buckets) if b.buckets else None,
+                "result_cache": (b.cache.stats()
+                                 if b.cache is not None else None),
+            },
+            "mutable": None,
+            "shard": None,
+            "index_version": self.app.index_version,
+        }
+        self._send(200, payload, tag_request_id=False)
+
+    def _do_profile(self):
+        """On-demand profile: ``?ms=N`` holds a ``torch.profiler`` capture
+        open for N ms on THIS handler thread while the other threads keep
+        serving, then returns the Chrome ``trace_event`` JSON. One capture
+        at a time (409); the window is capped."""
+        from knn_tpu_torch.obs import devprof
+
+        q = parse_qs(urlparse(self.path).query)
+        try:
+            ms = float(q.get("ms", ["200"])[0])
+            if not math.isfinite(ms) or ms < 0:
+                raise ValueError
+        except ValueError:
+            self._send(400, {"error": f"bad ms={q.get('ms', [''])[0]!r}: "
+                                      f"want a number of milliseconds >= 0"})
+            return
+        if ms > devprof.MAX_CAPTURE_MS:
+            self._send(400, {"error": f"ms={ms:.0f} exceeds the "
+                                      f"{devprof.MAX_CAPTURE_MS} ms capture "
+                                      f"bound"})
+            return
+        try:
+            trace = devprof.capture_for(ms)
+        except devprof.CaptureBusy as e:
+            self._send(409, {"error": str(e)})
+            return
+        self._send_text(200, json.dumps(trace, separators=(",", ":")),
+                        "application/json")
+
+    def _do_debug(self, route: str):
+        """The flight recorder's read side: ``/debug/requests`` (last-N,
+        newest first) and ``/debug/slowest``; ``?id=`` resolves one
+        timeline, ``?n=`` bounds the list, ``?format=perfetto`` returns
+        Chrome/Perfetto ``trace_event`` JSON."""
+        rec = self.app.recorder
+        if rec is None:
+            self._send(404, {"error": "request tracing is disabled "
+                                      "(--flight-recorder-size 0)"})
+            return
+        q = parse_qs(urlparse(self.path).query)
+        fmt = q.get("format", ["json"])[0]
+        rid = q.get("id", [None])[0]
+        if rid is not None:
+            tl = rec.find(rid)
+            if tl is None:
+                self._send(404, {"error": f"request_id {rid!r} not in the "
+                                          f"flight recorder (evicted or "
+                                          f"never traced)"})
+                return
+            timelines = [tl]
+        elif route == "/debug/slowest":
+            timelines = rec.slowest()
+        else:
+            try:
+                n = int(q["n"][0]) if "n" in q else None
+            except ValueError:
+                self._send(400, {"error": f"bad n={q['n'][0]!r}: want an "
+                                          f"integer"})
+                return
+            timelines = rec.recent(n)
+        if fmt == "perfetto":
+            self._send(200, rec.to_chrome_trace(timelines),
+                       tag_request_id=False)
+        elif fmt == "json":
+            self._send(200, {"requests": timelines, **rec.stats()},
+                       tag_request_id=False)
+        else:
+            self._send(400, {"error": f"bad format={fmt!r}: want json or "
+                                      f"perfetto"})
+
+    # -- POST --------------------------------------------------------------
+
+    def _read_json_body(self, required: bool):
+        """``(dict, None, None)`` or ``(None, error_string, http_status)``;
+        ``required=False`` treats an absent body as ``{}``."""
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            return None, "a JSON body with Content-Length is required", 400
+        if length <= 0:
+            if required:
+                return (None, "a JSON body with Content-Length is required",
+                        400)
+            return {}, None, None
+        if length > MAX_BODY_BYTES:
+            return None, (f"body {length} B exceeds the {MAX_BODY_BYTES} B "
+                          f"bound"), 413
+        try:
+            body = json.loads(self.rfile.read(length))
+        except ValueError as e:
+            return None, f"bad request body: {e}", 400
+        if not isinstance(body, dict):
+            return None, "the request body must be a JSON object", 400
+        return body, None, None
+
+    def do_POST(self):  # noqa: N802 — stdlib dispatch name
+        if not self._begin():
+            return
+        if self.path == "/admin/reload":
+            self._do_reload()
+            return
+        if self.path in _OFF_POST:
+            self.close_connection = True
+            self._send(404, {"error": _OFF_POST[self.path]})
+            return
+        if self.path not in ("/predict", "/kneighbors"):
+            self.close_connection = True
+            self._send(404, {"error": f"no such endpoint: {self.path}"})
+            return
+        with self.app.track_request():
+            self._do_inference(self.path[1:])
+
+    def _do_reload(self):
+        body, err, status = self._read_json_body(required=False)
+        if err is not None:
+            self.close_connection = True
+            self._send(status, {"error": err})
+            return
+        try:
+            result = self.app.reload(body.get("index"))
+        except ReloadInProgress as e:
+            self._send(409, {"error": str(e)})
+            return
+        except DataError as e:
+            self._send(400, {
+                "error": str(e), "rolled_back": True,
+                "index_version": self.app.index_version,
+            })
+            return
+        except Exception as e:  # noqa: BLE001 — warmup/build failures
+            self._send(500, {
+                "error": f"{type(e).__name__}: {e}", "rolled_back": True,
+                "index_version": self.app.index_version,
+            })
+            return
+        self._send(200, result)
+
+    def _account(self, kind: str, status: int, outcome: str, t0: float,
+                 trace=None, rung: Optional[str] = None,
+                 rows: Optional[int] = None,
+                 index_version: Optional[str] = None,
+                 req_class: Optional[str] = None) -> None:
+        """Terminal-outcome bookkeeping on the HANDLER thread after the
+        response went out: the SLO record (400s excluded), the trace's
+        HTTP status (+ finish, for requests the batcher never admitted),
+        and the access-log line."""
+        ms = (time.monotonic() - t0) * 1e3
+        if status != 400:
+            self.app.slo.record(status == 200, ms,
+                                degraded=(rung != self.app.primary_rung))
+        if trace is not None:
+            trace.annotate(status=status)
+            if not trace.finished:
+                trace.finish(outcome)
+        if self.app.access_log is not None:
+            entry = {
+                "ts": round(time.time(), 6),
+                "request_id": self._rid,
+                "kind": kind,
+                "status": status,
+                "outcome": outcome,
+                "ms": round(ms, 3),
+                "rows": rows,
+                "rung": rung,
+                "index_version": index_version,
+            }
+            if req_class is not None:
+                entry["class"] = req_class
+            if trace is not None:
+                tl = trace.to_dict()
+                phases: dict = {}
+                for p in tl["phases"]:
+                    phases[p["phase"]] = round(
+                        phases.get(p["phase"], 0.0) + (p["ms"] or 0.0), 3)
+                entry["phases"] = phases
+                if tl["attempts"]:
+                    entry["attempts"] = [
+                        f"{a['rung']}:{'ok' if a['ok'] else a.get('error', 'fail')}"
+                        for a in tl["attempts"]
+                    ]
+                if "batch_requests" in tl:
+                    entry["batch_requests"] = tl["batch_requests"]
+            self.app.access_log.write(entry)
+
+    def _do_inference(self, kind: str):
+        t_recv = time.monotonic()
+        body, err, status = self._read_json_body(required=True)
+        if err is not None:
+            self.close_connection = True
+            self._send(status, {"error": err})
+            self._account(kind, status, "invalid", t_recv)
+            return
+        try:
+            instances = body["instances"]
+            deadline_ms = body.get("deadline_ms", self.app.deadline_ms)
+            if deadline_ms is not None:
+                deadline_ms = float(deadline_ms)
+                if not math.isfinite(deadline_ms) or deadline_ms <= 0:
+                    raise ValueError(f"deadline_ms must be a finite value "
+                                     f"> 0, got {deadline_ms}")
+            x = np.asarray(instances, dtype=np.float32)
+        except (KeyError, TypeError, ValueError) as e:
+            self._send(400, {"error": f"bad request body: {e}"})
+            self._account(kind, 400, "invalid", t_recv)
+            return
+        # The request class (cost attribution) is parsed ONLY while the
+        # accounting layer exists; the body's "class" wins over the
+        # x-knn-class header.
+        req_class = None
+        if self.app.accounting is not None:
+            from knn_tpu_torch.obs import accounting as acct_mod
+
+            raw_cls = body.get("class")
+            if raw_cls is None:
+                raw_cls = self.headers.get("x-knn-class")
+            if raw_cls is not None:
+                raw_cls = str(raw_cls).strip()
+                if not acct_mod.valid_request_class(raw_cls):
+                    self._send(400, {
+                        "error": f"invalid request class: want 1-"
+                                 f"{acct_mod.MAX_CLASS_LEN} chars of "
+                                 f"[a-z0-9_.-] (x-knn-class header or "
+                                 f"\"class\" body field), got "
+                                 f"{raw_cls[:64]!r}",
+                    })
+                    self._account(kind, 400, "invalid", t_recv)
+                    return
+                req_class = raw_cls
+            else:
+                req_class = acct_mod.DEFAULT_CLASS
+        rows = int(x.shape[0]) if x.ndim > 1 else 1
+        t0 = time.monotonic()
+        trace = None
+        if self.app.recorder is not None:
+            trace = self.app.recorder.new_trace(kind, rows,
+                                                request_id=self._rid)
+            if deadline_ms is not None:
+                trace.annotate(deadline_ms=deadline_ms)
+        try:
+            handle = self.app.batcher.submit(x, kind, deadline_ms=deadline_ms,
+                                             trace=trace,
+                                             request_class=req_class)
+        except OverloadError as e:
+            st = 503 if self.app.draining else 429
+            self._send(st, {"error": str(e)},
+                       retry_after=self.app.overload_retry_after_s())
+            self._account(kind, st, "rejected", t0, trace=trace, rows=rows,
+                          req_class=req_class)
+            return
+        except ValueError as e:  # shape/kind rejection
+            self._send(400, {"error": str(e)})
+            self._account(kind, 400, "invalid", t0, trace=trace, rows=rows,
+                          req_class=req_class)
+            return
+        timeout = deadline_ms / 1e3 if deadline_ms is not None else None
+        try:
+            value = handle.result(timeout=timeout)
+        except DeadlineExceededError as e:
+            self._send(504, {"error": str(e)})
+            self._account(kind, 504, "expired", t0, trace=trace, rows=rows,
+                          rung=(handle.meta or {}).get("rung"),
+                          req_class=req_class)
+            return
+        except Exception as e:  # noqa: BLE001 — whatever the batcher
+            # delivers becomes the documented JSON 500, never a traceback.
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
+            self._account(kind, 500, "error", t0, trace=trace, rows=rows,
+                          rung=(handle.meta or {}).get("rung"),
+                          req_class=req_class)
+            return
+        ms = round((time.monotonic() - t0) * 1e3, 3)
+        meta = handle.meta or {}
+        if kind == "predict":
+            payload = {"predictions": np.asarray(value).tolist(),
+                       "index_version": meta.get("index_version"),
+                       "ms": ms}
+        else:
+            dists, idx = value
+            payload = {
+                "distances": np.asarray(dists).tolist(),
+                "indices": np.asarray(idx).tolist(),
+                "index_version": meta.get("index_version"),
+                "ms": ms,
+            }
+        self._send(200, payload)
+        self._account(kind, 200, "ok", t0, trace=trace,
+                      rung=meta.get("rung"), rows=rows,
+                      index_version=meta.get("index_version"),
+                      req_class=req_class)
+
+
+class KNNServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer carrying the :class:`ServeApp`. Daemon handler
+    threads: a hung client connection must not block process exit."""
+
+    daemon_threads = True
+
+    def __init__(self, address, app: ServeApp):
+        super().__init__(address, _Handler)
+        self.app = app
+        self._stopper = None  # the SIGTERM drain thread, when one runs
+
+    def handle_error(self, request, client_address):
+        exc = sys.exc_info()[1]
+        if isinstance(exc, (BrokenPipeError, ConnectionResetError)):
+            return  # the client went away mid-response
+        super().handle_error(request, client_address)
+
+
+def make_server(app: ServeApp, host: str = "127.0.0.1",
+                port: int = 0) -> KNNServer:
+    """Bind (port 0 → ephemeral; read ``server.server_address``)."""
+    return KNNServer((host, port), app)
+
+
+def drain_and_stop(server: KNNServer, drain_timeout_s: float) -> dict:
+    """The SIGTERM sequence: (1) stop the accept loop, (2) close the
+    LISTENING socket — from here a new connect is refused at the TCP
+    layer — and only THEN (3) flip healthz to draining and answer every
+    in-flight request. In-flight connections ride their own sockets."""
+    server.shutdown()
+    server.server_close()
+    return server.app.drain(drain_timeout_s)
+
+
+def serve_forever(server: KNNServer, *, banner=None,
+                  drain_timeout_s: float = 10.0) -> int:
+    """Run until a stop signal, then shut down cleanly. Returns 0.
+
+    - SIGINT: fast clean stop.
+    - SIGTERM: graceful drain (listener first), exit 0 either way.
+    - SIGHUP: hot index reload from the boot path (rollback on failure).
+    """
+    import signal
+
+    def on_sigint(signum, frame):
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    def on_sigterm(signum, frame):
+        def drain_then_stop():
+            summary = drain_and_stop(server, drain_timeout_s)
+            print(f"knn-tpu serve: drained "
+                  f"(clean={summary['drained_clean']}, "
+                  f"expired={summary['expired']}, "
+                  f"{summary['ms']:.0f} ms); shutting down",
+                  file=sys.stderr, flush=True)
+
+        t = threading.Thread(target=drain_then_stop, daemon=True)
+        server._stopper = t  # registered BEFORE start
+        t.start()
+
+    def on_sighup(signum, frame):
+        def work():
+            try:
+                r = server.app.reload()
+                print(f"knn-tpu serve: reloaded index -> "
+                      f"{r['index_version']} "
+                      f"(was {r['previous_version']}, {r['ms']:.0f} ms)",
+                      file=sys.stderr, flush=True)
+            except Exception as e:  # noqa: BLE001 — rollback is implicit
+                print(f"warning: reload failed ({type(e).__name__}: {e}); "
+                      f"the previous index keeps serving",
+                      file=sys.stderr, flush=True)
+
+        threading.Thread(target=work, daemon=True).start()
+
+    previous = {}
+    handlers = {signal.SIGINT: on_sigint, signal.SIGTERM: on_sigterm}
+    if hasattr(signal, "SIGHUP"):
+        handlers[signal.SIGHUP] = on_sighup
+    for sig, handler in handlers.items():
+        try:
+            previous[sig] = signal.signal(sig, handler)
+        except ValueError:
+            pass  # not the main thread (embedded use): caller manages stop
+    if banner:
+        print(banner, flush=True)
+    try:
+        server.serve_forever(poll_interval=0.2)
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+        stopper = getattr(server, "_stopper", None)
+        if stopper is not None and stopper.is_alive():
+            stopper.join(timeout=drain_timeout_s + 5.0)
+        server.server_close()
+        server.app.close()
+    return 0

@@ -7,6 +7,7 @@ host (``.cpu()``), which waits for the kernels, so ``ms`` includes them."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 import time
@@ -52,3 +53,34 @@ class RegionTimer:
     @property
     def ms(self) -> int:
         return self.ns // 1_000_000
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: Optional[str]):
+    """Wrap a region in a ``torch.profiler`` trace (CPU and, with a card,
+    CUDA activities) when ``trace_dir`` is set, writing
+    ``knn_tpu_torch.<pid>.<ms>.pt.trace.json`` into it on the way out.
+
+    The directory is validated/created UP FRONT, so an unwritable path
+    fails before the region runs (as a ``ValueError`` with a clear
+    message) instead of discarding the computed region."""
+    if not trace_dir:
+        yield
+        return
+    try:
+        os.makedirs(trace_dir, exist_ok=True)
+        ensure_writable_dir(trace_dir)
+    except OSError as e:
+        raise ValueError(f"--trace-dir {trace_dir!r} is not writable: {e}")
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        trace_dir,
+        f"knn_tpu_torch.{os.getpid()}.{time.time_ns() // 1_000_000}"
+        f".pt.trace.json"))

@@ -546,3 +546,83 @@ def test_oom_halving_reruns_the_tile_kernel(card, monkeypatch, d, k, form):
     assert tile_knn.knn_tile_scan.launches[form] == before + 2
     np.testing.assert_array_equal(res.predictions,
                                   knn_oracle(x, y, x[:300], k, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["stripe", "xla"])
+def test_staged_block_on_the_card_is_bit_identical(card, engine):
+    # The batcher's staged upload read in place of the retrieval's own,
+    # rows past Q garbage on purpose, on both routes.
+    from knn_tpu_torch.models.knn import _kneighbors_arrays
+
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 4, (2000, 11)).astype(np.float32)
+    q = rng.integers(0, 4, (37, 11)).astype(np.float32)
+    block = torch.full((64, 11), 7e7, device=card)
+    block[:37] = torch.from_numpy(q).to(card)
+    want = _kneighbors_arrays(x, q, 10, engine=engine)
+    got = _kneighbors_arrays(x, q, 10, engine=engine,
+                             prefetched_queries=block)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_batcher_stages_on_a_side_stream_bit_identically(card, monkeypatch):
+    # Requests queued ahead of the worker: each next batch is staged in
+    # pinned memory and copied on the side stream while the current batch
+    # runs; the answers equal the synchronous retrieval's, bit for bit.
+    from knn_tpu_torch.models.knn import KNNClassifier
+    from knn_tpu_torch.serve import batcher as batcher_mod
+
+    hits = []
+    take = batcher_mod._UploadStager.take
+    monkeypatch.setattr(batcher_mod._UploadStager, "take",
+                        lambda self, live: hits.append(1) or take(self, live))
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(30000, 11)).astype(np.float32)
+    y = rng.integers(0, 10, 30000).astype(np.int32)
+    model = KNNClassifier(k=5).fit(dataset_from_arrays(x, y))
+    q = rng.normal(size=(400, 11)).astype(np.float32)
+    want_d, want_i = model.kneighbors(dataset_from_arrays(q, y[:400]))
+    scans = cuda_knn.knn_stripe_scan.launches
+    with batcher_mod.MicroBatcher(model, max_batch=32, max_wait_ms=200.0,
+                                  buckets=(16, 32)) as b:
+        handles = [b.submit(q[i:i + 4], "kneighbors")
+                   for i in range(0, 400, 4)]
+        got = [h.result(timeout=60) for h in handles]
+        staged = [blk for blk in b._stager._buffers.values()]
+    assert hits and cuda_knn.knn_stripe_scan.launches > scans
+    assert all(buf.is_pinned() for buf in staged)
+    np.testing.assert_array_equal(np.concatenate([g[0] for g in got]),
+                                  want_d)
+    np.testing.assert_array_equal(np.concatenate([g[1] for g in got]),
+                                  want_i)
+
+
+@pytest.mark.cuda
+def test_devprof_reads_the_card_and_captures_the_kernels(card):
+    from knn_tpu_torch import obs
+    from knn_tpu_torch.obs import devprof
+
+    x = torch.randn(20000, 11, device=card)
+    mem = devprof.device_memory_stats()
+    assert mem[0]["source"] == "memory_stats"
+    assert mem[0]["in_use"] >= x.numel() * 4 and mem[0]["total"] > 0
+    q = torch.randn(100, 11, device=card)
+    cuda_knn.knn_stripe_candidates(x, q, 20000, 5)
+    torch.cuda.synchronize()
+    was = obs.enabled()
+    obs.enable()
+    try:
+        with devprof.capture() as cap:
+            with obs.span("serve.dispatch"):
+                cuda_knn.knn_stripe_candidates(x, q, 20000, 5)
+                torch.cuda.synchronize()
+    finally:
+        if not was:
+            obs.disable()
+    names = [e.get("name", "") for e in cap.trace["traceEvents"]]
+    assert any("stripe_scan" in n for n in names)
+    assert any("stripe_merge" in n for n in names)
+    assert "serve.dispatch" in names

@@ -67,6 +67,50 @@ def test_import_leaves_jax_and_knn_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_serving_leaves_jax_and_knn_tpu_out():
+    # The serving slice: import its modules, save an index through the
+    # CLI, serve one request in-process, capture a profile, then look.
+    code = (
+        "import io, os, sys, tempfile, threading, json, urllib.request\n"
+        "import knn_tpu_torch.serve, knn_tpu_torch.serve.server\n"
+        "import knn_tpu_torch.serve.cache, knn_tpu_torch.obs.devprof\n"
+        "import knn_tpu_torch.obs.reqtrace, knn_tpu_torch.obs.slo\n"
+        "import knn_tpu_torch.obs.accounting, knn_tpu_torch.obs.capacity\n"
+        "import knn_tpu_torch.obs.drift, knn_tpu_torch.resilience.breaker\n"
+        "from knn_tpu_torch import cli\n"
+        "from knn_tpu_torch.obs import devprof\n"
+        "from knn_tpu_torch.serve import artifact, server\n"
+        "tr = sys.argv[1]\n"
+        "idx = os.path.join(tempfile.mkdtemp(), 'idx')\n"
+        "assert cli.run(['save-index', tr, idx, '--k', '3'],\n"
+        "               stdout=io.StringIO()) == 0\n"
+        "assert cli.run(['serve', '/no/such/index', '--device', 'cpu']) == 2\n"
+        "app = server.ServeApp(artifact.load_index(idx, device='cpu'),\n"
+        "                      cost_accounting=True, batch_buckets=(16,))\n"
+        "srv = server.make_server(app)\n"
+        "threading.Thread(target=srv.serve_forever, daemon=True).start()\n"
+        "app.warm((1,))\n"
+        "row = app.model.train_.features[:1].tolist()\n"
+        "host, port = srv.server_address[:2]\n"
+        "req = urllib.request.Request(\n"
+        "    f'http://{host}:{port}/predict',\n"
+        "    data=json.dumps({'instances': row}).encode(),\n"
+        "    headers={'Content-Type': 'application/json'})\n"
+        "assert urllib.request.urlopen(req, timeout=30).status == 200\n"
+        "assert devprof.capture_for(10)['traceEvents']\n"
+        "srv.shutdown(); srv.server_close(); app.close()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'knn_tpu'))\n"
+        "print(bad)\n"
+    )
+    d = fixtures.datasets_dir()
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(d / "small-train.arff")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 # A path component "knn_tpu" in a string the code uses (not a docstring),
 # apart from a "knn_tpu/....py:LINE" reference to the reference's source.
 _JAX_PATH = re.compile(r"(^|[/\\])knn_tpu([/\\]|$)")
