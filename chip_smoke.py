@@ -117,7 +117,26 @@ Phases, each printed as it runs; any failure exits non-zero:
                         version at block_n 8, 256 and 1,024, and timed
                         beside it and the library's bfloat16 matmul with
                         float32 output.
-18. ``kernels``       — one JSON line describing every kernel.
+18. ``ivf``           — the IVF index family at xl (1,024 cells): the
+                        k-means build timed in its parts (k-means++ seeding
+                        on the host, the assignment steps on the card, the
+                        float64 updates), saved and loaded back; the
+                        assignment on the card against its CPU version on a
+                        65,536-row slice (equal but for counted near ties);
+                        full probe with the device scorer bit-identical to
+                        the oracle and equal to the stripe kernel's answer
+                        (its launches counted around it); the two scorers
+                        bit-identical at nprobe 32; recall@10 and q/s at
+                        16-row dispatches at nprobe 8, 32 and 128 beside
+                        the fast rung; the segment scorer, the assignment
+                        step and the centroid ranking against their bounds
+                        and library calls; the host and device scorers at
+                        1-256 rows (the auto rule's crossing); then
+                        ``ServeApp(ivf_probes=32)`` under closed-loop
+                        clients (200 requests at c = 1, 800 at c = 8),
+                        ``/healthz``'s ivf block, and one injected failure
+                        of the ivf rung answered by the stripe kernels.
+19. ``kernels``       — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -2383,6 +2402,386 @@ def _serve_lifecycle(train_path, idx_large, q_all, knn_oracle, train) -> dict:
     return out
 
 
+# The IVF phase (ROADMAP A9): the index family at xl.
+IVF_CELLS = 1024         # ~sqrt(N) at xl (docs/INDEXES.md's rule of thumb)
+IVF_SWEEP = (8, 32, 128)
+IVF_SERVE_PROBES = 32
+# (rows, nprobe) at which the host and device scorers are timed: the auto
+# rule's crossing, in candidate elements (rows x largest count x d).
+IVF_SCORER_GRID = ((1, 1), (1, 2), (1, 4), (1, 8), (1, 32), (16, 32),
+                   (64, 32), (256, 32))
+IVF_SERVE_LEVELS = (("predict", 1, 1, 200), ("predict", 1, 8, 800))
+
+
+def recall_at_k(served_i, oracle_i, oracle_d, true_d) -> np.ndarray:
+    """Per-row recall@k, tie-aware, by the rule of
+    ``knn_tpu/obs/quality.py:68`` ``recall_at_k``: a served neighbor is a
+    hit when it is in the exact top-k or its true distance ties the exact
+    k-th; each distinct index counts once."""
+    q, k = served_i.shape
+    out = np.empty(q, np.float64)
+    for row in range(q):
+        ok = (np.isin(served_i[row], oracle_i[row])
+              | (true_d[row] <= oracle_d[row, -1]))
+        out[row] = len({int(t) for t, o in zip(served_i[row], ok) if o}) / k
+    return out
+
+
+def f64_dists(x: np.ndarray, queries: np.ndarray, idx: np.ndarray):
+    """float64 squared distances of each query to the rows ``idx [Q, k]``."""
+    diff = x[idx].astype(np.float64) - queries[:, None, :].astype(np.float64)
+    return (diff * diff).sum(axis=-1)
+
+
+def phase_ivf(torch, cuda_knn, xl_x, xl_y, q_all, smi) -> dict:
+    """The IVF index family on the card at xl: the k-means build (seeding
+    on the host, the assignment steps on the card), save and load,
+    parity (the assignment against its CPU version, full probe against
+    the stripe kernel and the oracle, the two scorers bit for bit), the
+    recall and rate sweep, the scorers' crossing, and ``serve
+    --ivf-probes`` under closed-loop clients with one typed failure of the
+    ivf rung answered by the stripe kernels."""
+    import gc
+    import statistics
+    import threading
+
+    from knn_tpu_torch import obs
+    from knn_tpu_torch.backends.oracle import oracle_kneighbors
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.index import ivf as ivf_mod
+    from knn_tpu_torch.index.ivf import IVFIndex
+    from knn_tpu_torch.index.kmeans import (
+        DEFAULT_BATCH_ROWS,
+        _assign_batched,
+        assign_batch,
+    )
+    from knn_tpu_torch.models.knn import (
+        KNNClassifier,
+        DEFAULT_BATCH_BUCKETS,
+        candidate_padded_rows,
+    )
+    from knn_tpu_torch.ops import segment_score as seg
+    from knn_tpu_torch.resilience import faults
+    from knn_tpu_torch.serve.artifact import load_index, save_index
+    from knn_tpu_torch.serve.server import ServeApp, make_server
+
+    scan, merge = cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge
+    dev = torch.device("cuda")
+    n, d = xl_x.shape
+    k = 10
+    res = {"shape": f"n={n} d={d} cells={IVF_CELLS} k={k}", "smi": smi}
+
+    def fail(msg):
+        raise SystemExit(f"ivf: {msg}")
+
+    # 1. The build, split: seeding (host), assignment steps (card), the
+    # float64 updates (host).
+    t = {}
+    t0 = time.perf_counter()
+    ivf = IVFIndex.build(xl_x, IVF_CELLS, seed=0, device=dev, timings=t)
+    build_s = time.perf_counter() - t0
+    batches = -(-n // DEFAULT_BATCH_ROWS)
+    res["build"] = {
+        "s": build_s, **t, "assign_launches": t["assign_steps"] * batches,
+        "iterations": ivf.meta["iterations"], "imbalance": ivf.imbalance(),
+        "empty_cells": ivf.meta["empty_cells"],
+        "inertia": ivf.meta["inertia"],
+    }
+    print(f"ivf build at {n}x{d}, {IVF_CELLS} cells: {json.dumps(res['build'])}")
+    model = KNNClassifier(k=k).fit(Dataset(xl_x, xl_y))
+    idx_ivf = REPO / "build" / "chip_smoke" / "idx-xl-ivf"
+    t0 = time.perf_counter()
+    save_index(model, idx_ivf, ivf=ivf)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_index(idx_ivf)
+    load_s = time.perf_counter() - t0
+    for key, arr in ivf.to_arrays().items():
+        if not np.array_equal(loaded.ivf_.to_arrays()[key], arr):
+            fail(f"{key} differs after save and load")
+    res["save_s"], res["load_s"] = save_s, load_s
+    print(f"saved to {idx_ivf} in {save_s:.2f} s and loaded back in "
+          f"{load_s:.2f} s: the partition's arrays equal")
+
+    # 2a. The assignment on the card against its CPU version on a slice.
+    sl = np.ascontiguousarray(xl_x[:DEFAULT_BATCH_ROWS])
+    ga, gd = _assign_batched(sl, ivf.centroids, DEFAULT_BATCH_ROWS, dev)
+    ca, cd = _assign_batched(sl, ivf.centroids, DEFAULT_BATCH_ROWS,
+                             torch.device("cpu"))
+    diff_rows = np.nonzero(ga != ca)[0]
+    x64, c64 = sl.astype(np.float64), ivf.centroids.astype(np.float64)
+    for r in diff_rows:
+        dg = ((x64[r] - c64[ga[r]]) ** 2).sum()
+        dc = ((x64[r] - c64[ca[r]]) ** 2).sum()
+        scale = (x64[r] ** 2).sum() + (c64[ga[r]] ** 2).sum() + (
+            c64[ca[r]] ** 2).sum()
+        if abs(dg - dc) > 2.0 ** -20 * scale:
+            fail(f"assignment row {r}: card cell {ga[r]}, cpu cell {ca[r]}, "
+                 f"float64 distances {dg} and {dc} are no near tie")
+    res["assign_parity"] = {"rows": len(sl), "differing_near_ties":
+                            int(diff_rows.size),
+                            "max_abs_min_d2": float(np.abs(gd - cd).max())}
+    print(f"assignment on the card vs the CPU version, {len(sl)} rows: "
+          f"{diff_rows.size} rows differ, each a near tie (tolerance "
+          f"2^-20 (|x|^2 + |c|^2)); min_d2 max_abs_err "
+          f"{res['assign_parity']['max_abs_min_d2']}")
+
+    # 2b. Full probe, 64 queries, device scorer, against the stripe kernel
+    # (counted around its call) and the oracle's einsum form.
+    q64 = np.array(q_all[:64])
+    fd, fi, fst = loaded.ivf_.search(xl_x, q64, k, IVF_CELLS,
+                                     scorer="device", device=dev)
+    scan.launches = merge.launches = 0
+    sd, si = loaded.kneighbors(Dataset(q64, np.zeros(64, np.int32)))
+    stripe_launches = {"scan": scan.launches, "merge": merge.launches}
+    if stripe_launches != {"scan": 1, "merge": 1}:
+        fail(f"the stripe kernel's kneighbors launched {stripe_launches}")
+    full_diff = int((fi != si).any(axis=1).sum())
+    if not _near_tie_ok(xl_x, q64, fi, si, d):
+        fail("full-probe IVF differs from the stripe kernel beyond near ties")
+    od, oi = oracle_kneighbors(xl_x, q64, k)
+    if not (np.array_equal(fi, oi)
+            and np.array_equal(fd.view(np.uint32), od.view(np.uint32))):
+        fail("full-probe IVF is not bit-identical to the oracle")
+    res["full_probe"] = {"queries": 64, "stats": fst._asdict(),
+                         "rows_differing_from_stripe_near_ties": full_diff,
+                         "stripe_launches": stripe_launches}
+    print(f"full probe (nprobe {IVF_CELLS}, 64 queries, device scorer): "
+          f"indices and distances bit-identical to the oracle; indices "
+          f"equal to the stripe kernel's ({stripe_launches}) in "
+          f"{64 - full_diff}/64 rows, the rest near ties (rtol d*2^-24)")
+
+    # 2c. nprobe 32: the two scorers bit for bit.
+    hd, hi, _ = loaded.ivf_.search(xl_x, q64, k, 32, scorer="host")
+    dd, di, _ = loaded.ivf_.search(xl_x, q64, k, 32, scorer="device",
+                                   device=dev)
+    if not (np.array_equal(hi, di)
+            and np.array_equal(hd.view(np.uint32), dd.view(np.uint32))):
+        fail("host and device scorers differ at nprobe 32")
+    print("nprobe 32, 64 queries: host and device scorers bit-identical")
+
+    # 3. The sweep: recall@10 against the exact answer (the stripe kernel
+    # on every query), q/s at 16-row dispatches beside the fast rung.
+    ex_d, ex_i = loaded.kneighbors(Dataset(q_all, np.zeros(len(q_all),
+                                                           np.int32)))
+    ex_d64 = f64_dists(xl_x, q_all, ex_i)
+    blocks = [np.array(q_all[s:s + 16]) for s in range(0, 512, 16)]
+
+    def rate(fn, blks):
+        fn(blks[0])
+        t0 = time.perf_counter()
+        for b in blks:
+            fn(b)
+        return 16 * len(blks) / (time.perf_counter() - t0)
+
+    fast_qps = rate(lambda b: loaded.kneighbors(
+        Dataset(b, np.zeros(16, np.int32))), blocks)
+    res["sweep"] = {}
+    for nprobe in IVF_SWEEP:
+        sd_, si_, st = loaded.ivf_.search(xl_x, q_all, k, nprobe,
+                                          scorer="device", device=dev)
+        rec = recall_at_k(si_, ex_i, ex_d64, f64_dists(xl_x, q_all, si_))
+        ent = {"recall_at_10": float(rec.mean()),
+               "recall_min": float(rec.min()),
+               "candidate_rows_per_query": st.candidate_rows / len(q_all),
+               "forced_widenings": st.forced_widenings}
+        for scorer in ("device", "host"):
+            ent[f"qps_16_{scorer}"] = rate(
+                lambda b, s=scorer: loaded.ivf_.search(
+                    xl_x, b, k, nprobe, scorer=s, device=dev),
+                blocks if scorer == "device" else blocks[:4])
+        ent["fast_qps_16"] = fast_qps
+        res["sweep"][nprobe] = ent
+        print(f"nprobe {nprobe}: {json.dumps(ent)}")
+
+    # The segment scorer at 16 rows and nprobe 32 against its bound, the
+    # assignment step and the centroid ranking beside theirs.
+    perm_rows, perm_ids = loaded.ivf_._device_operands(
+        np.asarray(xl_x, np.float32), dev)
+    seg_blocks = []
+    for b in blocks[:12]:
+        sel, counts = loaded.ivf_._coverage(b, k, 32, None, dev)[:2]
+        m_pad = candidate_padded_rows(int(counts.max()))
+        seg_blocks.append((
+            torch.from_numpy(b).to(dev),
+            torch.from_numpy(loaded.ivf_.cell_offsets[:-1][sel].astype(
+                np.int32)).to(dev),
+            torch.from_numpy(loaded.ivf_.cell_sizes[sel].astype(
+                np.int32)).to(dev),
+            int(counts.sum()), m_pad))
+    kk = k + seg.RERANK_PAD
+    ok16 = torch.ones(16, dtype=torch.bool, device=dev)
+    seg_ms = cuda_ms(lambda qb, st_, ln, _c, mp: seg.segment_topk_core(
+        perm_rows, perm_ids, qb, st_, ln, ok16, mp, kk), seg_blocks, reps=12)
+    cand = statistics.median(b[3] for b in seg_blocks)
+    seg_bound = bound_ms(int(cand * 3 * d), int(
+        cand * (d * 4 + 4) + 16 * d * 4 + 16 * kk * 8))
+    xb = [torch.from_numpy(np.ascontiguousarray(
+        xl_x[i * DEFAULT_BATCH_ROWS:(i + 1) * DEFAULT_BATCH_ROWS])).to(dev)
+        for i in range(4)]
+    cents = torch.from_numpy(ivf.centroids).to(dev)
+    asg_ms = cuda_ms(lambda xx: assign_batch(xx, cents), [(x_,) for x_ in xb],
+                     reps=12)
+    asg_lib = cuda_ms(lambda xx: torch.cdist(xx, cents).argmin(dim=1),
+                      [(x_,) for x_ in xb], reps=12)
+    asg_bound = bound_ms(DEFAULT_BATCH_ROWS * IVF_CELLS * d * 2, (
+        DEFAULT_BATCH_ROWS * d + IVF_CELLS * d) * 4 + DEFAULT_BATCH_ROWS * 12,
+        rate=PEAK_FP32_FLOPS)
+    q16 = [torch.from_numpy(b).to(dev) for b in blocks[:12]]
+    from knn_tpu_torch.ops.distance import pairwise_sq_dists_dot
+    from knn_tpu_torch.ops.topk import topk_smallest
+
+    rank_ms = cuda_ms(lambda qb: topk_smallest(
+        pairwise_sq_dists_dot(qb, cents), 32), [(x_,) for x_ in q16], reps=12)
+    rank_lib = cuda_ms(lambda qb: torch.topk(
+        torch.cdist(qb, cents), 32, largest=False), [(x_,) for x_ in q16],
+        reps=12)
+    rank_bound = bound_ms(16 * IVF_CELLS * d * 2, (16 * d + IVF_CELLS * d) * 4
+                          + 16 * 32 * 8, rate=PEAK_FP32_FLOPS)
+    res["device_programs"] = {
+        "segment_scorer": {"ms": seg_ms, "bound_ms": seg_bound[0],
+                           "bound_by": seg_bound[1], "library_ms": None,
+                           "shape": f"16 queries, nprobe 32, median "
+                                    f"{cand:.0f} candidate rows over the "
+                                    f"16, kk {kk}"},
+        "kmeans_assign": {"ms": asg_ms, "bound_ms": asg_bound[0],
+                          "bound_by": asg_bound[1], "library_ms": asg_lib,
+                          "library": "torch.cdist(...).argmin",
+                          "shape": f"{DEFAULT_BATCH_ROWS} rows x "
+                                   f"{IVF_CELLS} cells"},
+        "rank_cells": {"ms": rank_ms, "bound_ms": rank_bound[0],
+                       "bound_by": rank_bound[1], "library_ms": rank_lib,
+                       "library": "torch.topk(torch.cdist(...))",
+                       "shape": f"16 queries x {IVF_CELLS} cells, need 32"},
+    }
+    print(f"device programs (CUDA events, median of 12): "
+          f"{json.dumps(res['device_programs'])}")
+
+    # 4. The auto rule's crossing: host and device scorers from one row at
+    # one probe to 256 rows at 32 (host clock, the whole search).
+    res["scorers"] = {}
+    for rows, nprobe in IVF_SCORER_GRID:
+        qb = np.array(q_all[:rows])
+        counts = loaded.ivf_._coverage(qb, k, nprobe, None, dev)[1]
+        ent = {"rows": rows, "nprobe": nprobe,
+               "elems": rows * int(counts.max()) * d}
+        for scorer in ("host", "device"):
+            reps = 3 if scorer == "host" and rows > 16 else 7
+            ent[f"{scorer}_ms"] = wall_ms(
+                lambda s=scorer: loaded.ivf_.search(
+                    xl_x, qb, k, nprobe, scorer=s, device=dev), reps)[0]
+        res["scorers"][f"{rows}x{nprobe}"] = ent
+    grid = sorted(res["scorers"].values(), key=lambda e: e["elems"])
+    slower = [e["elems"] for e in grid if e["device_ms"] >= e["host_ms"]]
+    # The smallest work past the last point where the host still won.
+    res["crossing_elems"] = next(
+        (e["elems"] for e in grid if not slower or e["elems"] > max(slower)),
+        None)
+    print(f"scorers (host-clock ms; median of 7, host past 16 rows of 3): "
+          f"{json.dumps(grid)}; device faster from {res['crossing_elems']} "
+          f"elements (DEVICE_SCORER_MIN_ELEMS "
+          f"{ivf_mod.DEVICE_SCORER_MIN_ELEMS})")
+    mem0 = torch.cuda.memory_allocated()
+    del perm_rows, perm_ids
+    loaded.ivf_._cache.pop("device", None)
+    gc.collect()
+    res["perm_train_bytes"] = mem0 - torch.cuda.memory_allocated()
+    print(f"the permuted train copy on the card: {res['perm_train_bytes']} B")
+
+    # 5. serve --ivf-probes 32 on the xl IVF artifact.
+    obs.enable()
+    obs.reset()
+    buckets = tuple(sorted({b for b in DEFAULT_BATCH_BUCKETS if b < 256}
+                           | {256}))
+    app = ServeApp(load_index(idx_ivf), max_batch=256, max_wait_ms=2.0,
+                   batch_buckets=buckets, cost_accounting=True,
+                   index_version="xl-ivf", ivf_probes=IVF_SERVE_PROBES)
+    warmed = app.warm()
+    server = make_server(app, "127.0.0.1", 0)
+    th = threading.Thread(target=server.serve_forever,
+                          kwargs={"poll_interval": 0.05}, daemon=True)
+    th.start()
+    host, port = server.server_address[:2]
+    base = f"http://{host}:{port}"
+    smodel = app.model
+    sync_p = smodel.predict_from_candidates(
+        *smodel.ivf_.search(xl_x, q_all, k, IVF_SERVE_PROBES,
+                            scorer="host")[:2])
+    registry = obs.registry()
+
+    def ivf_counter(name):
+        return sum(i.value for i in registry.instruments() if i.name == name)
+
+    # The path's kernels: counts 0 just before, read just after.
+    scan.launches = merge.launches = 0
+    res["serve"] = {"warmed": warmed, "levels": {}}
+    for kind, rows, clients, total in IVF_SERVE_LEVELS:
+        name = f"{kind}_r{rows}_c{clients}"
+        starts = [(j * rows) % (len(q_all) - rows) for j in range(total)]
+        blocks_ = np.stack([q_all[s:s + rows] for s in starts])
+        q0 = ivf_counter("knn_ivf_queries_total")
+        b0 = _hist(registry, "knn_serve_batch_size")
+        answers, lat, wall = _closed_loop(base, kind, blocks_, clients)
+        b1 = _hist(registry, "knn_serve_batch_size")
+        moved = ivf_counter("knn_ivf_queries_total") - q0
+        if moved != total * rows:
+            fail(f"{name}: knn_ivf_queries_total moved {moved}, not "
+                 f"{total * rows}")
+        for j, doc in answers.items():
+            s = starts[j]
+            if doc["predictions"] != sync_p[s:s + rows].tolist():
+                fail(f"{name}: request {j} differs from the synchronous "
+                     f"ivf answer")
+        lat.sort()
+        lv = {"requests": total, "clients": clients,
+              "p50_ms": lat[len(lat) // 2],
+              "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+              "qps": total / wall, "batches": b1[0] - b0[0],
+              "knn_ivf_queries_moved": moved}
+        res["serve"]["levels"][name] = lv
+        print(f"serve --ivf-probes {IVF_SERVE_PROBES} {name}: "
+              f"{json.dumps(lv)}")
+    cl = _Client(base)
+    _, _, body = cl.call("GET", "/healthz")
+    cl.close()
+    hz = json.loads(body)["ivf"]
+    if hz is None or hz["nprobe"] != IVF_SERVE_PROBES or \
+            hz["num_cells"] != IVF_CELLS:
+        fail(f"/healthz ivf block: {hz}")
+    res["serve"]["healthz_ivf"] = hz
+    before = (scan.launches, merge.launches)
+    with faults.inject("serve.dispatch=once") as plan:
+        h = app.batcher.submit(q_all[:1], "predict")
+        pred = h.result(timeout=60)
+    moved = (scan.launches - before[0], merge.launches - before[1])
+    fallbacks = [(dict(i.labels)["from_rung"], dict(i.labels)["to"], i.value)
+                 for i in registry.instruments()
+                 if i.name == "knn_serve_fallback_total"]
+    exact_p = smodel.predict_from_candidates(ex_d[:1], ex_i[:1])
+    if (plan.stats()["serve.dispatch"]["fired"] != 1
+            or h.meta["rung"] != "fast" or moved != (1, 1)
+            or fallbacks != [("ivf", "fast", 1)]
+            or not np.array_equal(pred, exact_p)):
+        fail(f"the injected ivf failure: rung {h.meta['rung']}, stripe "
+             f"launches moved {moved}, moves {fallbacks}")
+    launches = {"stripe_scan": scan.launches, "stripe_merge": merge.launches}
+    server.shutdown()
+    server.server_close()
+    th.join(timeout=30)
+    app.close()
+    obs.disable()
+    if min(launches.values()) < 1:
+        fail(f"the path's kernels were not launched: {launches}")
+    res["serve"]["fault"] = {"rung": "fast", "stripe_launches_moved": moved,
+                             "fallbacks": fallbacks}
+    res["serve"]["launches"] = launches
+    print(f"one injected failure of the ivf rung: answered by 'fast', the "
+          f"stripe scan and merge launched {moved} more, the answer equal "
+          f"to the exact one; the path's kernel launches {launches}")
+    print("ivf: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2581,6 +2980,9 @@ def main() -> int:
     phase("serve")
     phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
                 smi)
+
+    phase("ivf")
+    phase_ivf(torch, cuda_knn, xl_x, xl_y, test.features, smi)
 
     phase("probe_selection")
     sel = phase_probe_selection(torch, dev, cuda_knn)

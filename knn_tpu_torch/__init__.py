@@ -25,10 +25,16 @@ the caller asks for the host (``device="cpu"``).
   ``oracle`` (numpy).
 - ``knn_tpu_torch.models``   — ``KNNClassifier``, ``KNNRegressor`` and
   ``sweep_k`` on the retrieval core (the kernels, or the XLA route's scan).
+- ``knn_tpu_torch.index``    — the IVF index family: the k-means partition
+  (its assignment steps on the card) and probed retrieval, scored on the
+  host or by the segment scorer (``ops/segment_score.py``) on the card.
+- ``knn_tpu_torch.serve``    — ``save-index`` and ``serve``: the index
+  artifact, the micro-batcher (the ``ivf`` rung above ``fast``) and the
+  HTTP front-end.
 - ``knn_tpu_torch.cli``      — ``python -m knn_tpu_torch TRAIN TEST k
   [threads]``, with the JAX CLI's personas and classify flags.
-- ``knn_tpu_torch.convert``  — a ``knn_tpu`` dataset's fields in, the
-  port's :class:`Dataset` out.
+- ``knn_tpu_torch.convert``  — a ``knn_tpu`` dataset's fields (or IVF
+  partition's arrays) in, the port's :class:`Dataset` (``IVFIndex``) out.
 
 The behavioral contract (SURVEY.md §3.5) is the JAX package's: squared
 Euclidean over the first D-1 attributes, first-seen train index wins

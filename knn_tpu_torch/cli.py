@@ -47,13 +47,16 @@ activities) of the classify region, the host spans inside it as
 trace file into ``DIR``.
 
 ``save-index TRAIN OUT`` (``--k``, ``--family``, ``--backend``,
-``--metric``, ``--weights``, ``--engine``) writes the JAX package's index
-artifact (format 3, readable by either package). ``serve INDEX`` loads
-one, warms every batch shape on the card and answers ``/predict``,
-``/kneighbors``, ``/healthz``, ``/metrics``, ``/debug/*`` and
-``/admin/reload`` (``serve/server.py``), with the default path's flags and
-``--device {cuda,cpu}``; the flags of the layers later slices bring are
-not in the parser, so argparse refuses them (exit 2).
+``--metric``, ``--weights``, ``--engine``; ``--ivf-cells N``,
+``--ivf-seed``, ``--ivf-iters`` also build an IVF partition, its k-means
+assignment steps on ``--device``) writes the JAX package's index artifact
+(format 3, readable by either package). ``serve INDEX`` loads one, warms
+every batch shape on the card and answers ``/predict``, ``/kneighbors``,
+``/healthz``, ``/metrics``, ``/debug/*`` and ``/admin/reload``
+(``serve/server.py``), with the default path's flags, ``--ivf-probes P``
+and ``--ivf-recall-floor`` (the ``ivf`` rung over the artifact's
+partition) and ``--device {cuda,cpu}``; the flags of the layers later
+slices bring are not in the parser, so argparse refuses them (exit 2).
 
 Exit codes, as the JAX package's (knn_tpu/cli.py:45-54): 0 success; 2 the
 input was rejected before classification (bad flags, bad k, missing or
@@ -282,6 +285,17 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--capacity-window-s", type=int, default=60,
                    help="trailing observation window for the capacity "
                    "rate rings / duty cycle / headroom model")
+    p.add_argument("--ivf-probes", type=int, default=None, metavar="P",
+                   help="serve the approximate ivf rung over the artifact's "
+                   "IVF partition, probing the nearest P cells per query "
+                   "(needs a format-3 artifact built with `save-index "
+                   "--ivf-cells`); a typed failure of the rung is answered "
+                   "by the exact kernels. Omitted (default): exact-only "
+                   "serving, no IVF machinery")
+    p.add_argument("--ivf-recall-floor", type=float, default=0.95,
+                   help="recall@k floor the ivf rung is held to (reported "
+                   "in /healthz; shadow scoring, which burns the quality "
+                   "SLO against it, comes with a later slice)")
 
 
 def _add_save_index_args(p: argparse.ArgumentParser) -> None:
@@ -302,6 +316,19 @@ def _add_save_index_args(p: argparse.ArgumentParser) -> None:
                    default="auto",
                    help="candidate engine (regressor; for the classifier it "
                    "is recorded as a backend option when not auto)")
+    p.add_argument("--ivf-cells", type=int, default=None, metavar="N",
+                   help="also build an IVF partition: k-means the train rows "
+                   "into N cells and persist centroids + the cell-sorted "
+                   "row layout in the artifact (format 3) — what `serve "
+                   "--ivf-probes` answers from. Euclidean metric only")
+    p.add_argument("--ivf-seed", type=int, default=0,
+                   help="k-means seed (deterministic partitions; recorded in "
+                   "the manifest)")
+    p.add_argument("--ivf-iters", type=int, default=25,
+                   help="max Lloyd iterations for the partition build")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the partition build's k-means assignment "
+                   "steps run (with --ivf-cells)")
 
 
 def _normalize_argv(argv: Optional[Sequence[str]]) -> "list[str]":
@@ -640,6 +667,20 @@ def _run_save_index(args, stdout) -> int:
     if args.family == "classifier" and not degrade.known_backend(args.backend):
         _error(f"backend '{args.backend}' unavailable")
         return EXIT_USAGE
+    if args.ivf_cells is not None:
+        # Partition-build validation BEFORE the parse: flag contradictions
+        # are usage errors, not compute failures.
+        if args.ivf_cells < 1:
+            _error(f"--ivf-cells must be >= 1, got {args.ivf_cells}")
+            return EXIT_USAGE
+        if args.metric != "euclidean":
+            _error(f"--ivf-cells partitions by squared-euclidean k-means; "
+                   f"--metric {args.metric} would probe cells under the "
+                   f"wrong geometry (docs/INDEXES.md)")
+            return EXIT_USAGE
+        if args.ivf_iters < 1:
+            _error(f"--ivf-iters must be >= 1, got {args.ivf_iters}")
+            return EXIT_USAGE
     try:
         train = load_arff(args.train)
         if args.family == "classifier":
@@ -657,18 +698,39 @@ def _run_save_index(args, stdout) -> int:
     except (OSError, ValueError) as e:
         _error(e)
         return EXIT_USAGE
+    ivf = None
+    if args.ivf_cells is not None:
+        if args.ivf_cells > train.num_instances:
+            _error(f"--ivf-cells {args.ivf_cells} exceeds the train rows "
+                   f"({train.num_instances})")
+            return EXIT_USAGE
+        from knn_tpu_torch.index.ivf import IVFIndex
+
+        try:
+            ivf = IVFIndex.build(
+                train.features, args.ivf_cells, seed=args.ivf_seed,
+                iters=args.ivf_iters, device=args.device,
+            )
+        except ResilienceError as e:  # no card, a failed assignment step
+            _error(f"{type(e).__name__}: {e}")
+            return EXIT_RUNTIME
     try:
-        out = save_index(model, args.out)
+        out = save_index(model, args.out, ivf=ivf)
     except ValueError as e:  # clobber refusal / non-directory target
         _error(e)
         return EXIT_USAGE
     except OSError as e:  # the write itself failed
         _error(e)
         return EXIT_RUNTIME
+    ivf_note = ""
+    if ivf is not None:
+        ivf_note = (f", ivf_cells={ivf.num_cells} "
+                    f"(imbalance {ivf.imbalance()}, "
+                    f"{ivf.meta['iterations']} iters)")
     print(
         f"wrote index {out}: {train.num_instances} rows x "
         f"{train.num_features} features, family={args.family}, "
-        f"k={args.k}",
+        f"k={args.k}{ivf_note}",
         file=stdout,
     )
     return 0
@@ -749,6 +811,11 @@ def _run_serve(args, stdout) -> int:
         (args.result_cache_rows < 0,
          f"--result-cache-rows must be >= 0, got "
          f"{args.result_cache_rows}"),
+        (args.ivf_probes is not None and args.ivf_probes < 1,
+         f"--ivf-probes must be >= 1, got {args.ivf_probes}"),
+        (not 0 < args.ivf_recall_floor <= 1,
+         f"--ivf-recall-floor must be in (0, 1], got "
+         f"{args.ivf_recall_floor}"),
     ):
         if bad:
             _error(msg)
@@ -806,8 +873,13 @@ def _run_serve(args, stdout) -> int:
             capacity_window_s=args.capacity_window_s,
             batch_buckets=batch_buckets,
             result_cache_rows=args.result_cache_rows, device=args.device,
+            ivf_probes=args.ivf_probes,
+            ivf_recall_floor=args.ivf_recall_floor,
         )
     except OSError as e:  # an unwritable --access-log path
+        _error(e)
+        return EXIT_USAGE
+    except DataError as e:  # --ivf-probes against an exact-only artifact
         _error(e)
         return EXIT_USAGE
     try:
@@ -829,6 +901,9 @@ def _run_serve(args, stdout) -> int:
         bucket_note = f", buckets={'/'.join(str(b) for b in batch_buckets)}"
     if args.result_cache_rows > 0:
         bucket_note += f", result_cache_rows={args.result_cache_rows}"
+    if app.ivf is not None:
+        bucket_note += (f", ivf_probes={args.ivf_probes}/"
+                        f"{model.ivf_.num_cells}")
     print(
         f"knn-tpu serve: ready on http://{host}:{port} "
         f"(family={app.family}, k={model.k}, "

@@ -7,8 +7,9 @@ stable lexicographic sort over (distance, index) reproduces exactly that
 (SURVEY.md §3.5). The port's copy of ``knn_tpu/models/ordering.py``'s host
 helper: the oracle backend selects through :func:`lexicographic_topk`, and
 the stripe kernel (``csrc/stripe_knn.cu``) implements the same packed-key
-order in registers. The device twin ``lexicographic_topk_jax`` is ROADMAP
-B5.
+order in registers, and :func:`lexicographic_topk_torch` is the device
+realization (the twin of ``lexicographic_topk_jax``) that the IVF segment
+scorer's exact branch selects through.
 
 NaN handling is the caller's job (the framework-wide NaN → +inf policy is
 applied where distances are computed); this module only orders.
@@ -17,6 +18,9 @@ applied where distances are computed); this module only orders.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from knn_tpu_torch.ops.topk import sort_keys
 
 
 def lexicographic_topk(dists: np.ndarray, indices: np.ndarray, k: int):
@@ -72,6 +76,24 @@ def lexicographic_topk(dists: np.ndarray, indices: np.ndarray, k: int):
         i_out[row] = row_idx[order]
         d_out[row] = dists[row][order]
     return d_out, i_out
+
+
+def lexicographic_topk_torch(dists: torch.Tensor, indices: torch.Tensor,
+                             k: int, *payload: torch.Tensor):
+    """The device realization of the same order, on tensors of any device:
+    a stable sort of each row's ``ops/topk.py::sort_keys`` (distance,
+    index) keys, ascending, the first ``k`` kept (``k`` clamped to the row
+    width). ``indices`` — non-negative, below 2**32, the same shape as
+    ``dists``; ``payload`` — extra tensors of that shape carried through
+    the same permutation without entering the key.
+
+    A NaN distance counts as +inf (it comes back as +inf), so it ties with
+    +inf and the index decides. Returns ``(d, i)`` or ``(d, i, *payload)``,
+    each ``[..., min(k, M)]``."""
+    dists = torch.where(torch.isnan(dists), torch.inf, dists)
+    order = torch.sort(sort_keys(dists, indices), dim=-1,
+                       stable=True).indices[..., :k]
+    return tuple(t.gather(-1, order) for t in (dists, indices, *payload))
 
 
 def _packed_topk_f32(dists: np.ndarray, indices: np.ndarray, k: int,

@@ -85,10 +85,12 @@ def padded_query_rows(engine: str, rows: int) -> int:
 
 
 def padded_candidate_rows(rows: int) -> int:
-    """Compiled-shape candidate rows for one device IVF gather+score
-    dispatch of ``rows`` gathered candidates per query — resolved from
-    ``models/knn.candidate_padded_rows`` (the index family, ROADMAP A9,
-    pads with the same definition)."""
+    """Candidate rows for one device IVF gather+score dispatch of ``rows``
+    gathered candidates per query — resolved from
+    ``models/knn.candidate_padded_rows``, the definition the segment
+    scorer's pad (``ops/segment_score.py``) and its executable-cache key
+    also use, so ``knn_ivf_padded_candidate_rows_total`` counts the pad
+    that happens."""
     from knn_tpu_torch.models.knn import candidate_padded_rows
 
     return candidate_padded_rows(rows)
@@ -116,7 +118,11 @@ def dispatch_padded_rows(model, rung: str, rows: int, cap: int) -> int:
         engine = "xla"
     elif rung == "fast":
         engine = resolved_retrieval_engine(model)
-    else:  # no other rung runs on the card
+    else:
+        # The ivf rung (index/ivf.py) ranks cells and gathers exact
+        # candidate sets per query: rows in == rows swept. Its own pad, on
+        # the candidate axis of the device scorer, is counted in
+        # knn_ivf_padded_candidate_rows_total (padded_candidate_rows).
         engine = rung
     rows, cap = int(rows), max(1, int(cap))
     return sum(padded_query_rows(engine, min(cap, rows - s))

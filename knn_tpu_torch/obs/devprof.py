@@ -26,7 +26,10 @@ hit/miss counters.
   signature) since enable/reset is a ``miss``, repeats are ``hit``s
   (``knn_executable_cache_total{backend,outcome}``). The port's signature
   is (route, form, swept rows, k, d): what a kernel launch is configured
-  by.
+  by. The IVF index family keys its device programs as JAX does:
+  ``("ivf-segment", padded queries, probes, padded candidates, d, kept,
+  0)`` for the segment scorer and ``("ivf-rank-approx", queries, cells,
+  need)`` for the device centroid ranking (``ops/segment_score.py``).
 
 Everything gates on ``obs.enabled()``: one predicate per call site while
 off, nothing recorded.

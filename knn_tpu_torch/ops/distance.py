@@ -56,9 +56,11 @@ def sq_norms(x: torch.Tensor) -> torch.Tensor:
     return (x * x).sum(dim=1)
 
 
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def cross_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b.T`` in full float32: on the card TF32 would round the
-    operands to 10 mantissa bits, so it is switched off."""
+    operands to 10 mantissa bits, so it is switched off. Every float32
+    matmul of the port goes through here (the distance forms, the IVF
+    k-means assignment and centroid ranking)."""
     if a.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     return a @ b.T
@@ -73,7 +75,7 @@ def _expand(q2, t2, cross) -> torch.Tensor:
 def pairwise_sq_dists_dot(queries: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
     """[Q, D], [N, D] float32 -> [Q, N] ``max((q2 + t2) - 2 q.t, 0)``,
     NaN -> +inf (the ``fast`` form)."""
-    return _expand(sq_norms(queries), sq_norms(train), _cross(queries, train))
+    return _expand(sq_norms(queries), sq_norms(train), cross_f32(queries, train))
 
 
 def pairwise_sq_dists_bf16(queries: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
@@ -85,7 +87,7 @@ def pairwise_sq_dists_bf16(queries: torch.Tensor, train: torch.Tensor) -> torch.
         return x.to(torch.bfloat16).float()
 
     return _expand(sq_norms(queries), sq_norms(train),
-                   _cross(bf16(queries), bf16(train)))
+                   cross_f32(bf16(queries), bf16(train)))
 
 
 def pairwise_manhattan(queries: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
@@ -116,7 +118,7 @@ def pairwise_cosine(queries: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
     round above ``|q||t|``."""
     qn = sq_norms(queries).sqrt()[:, None]
     tn = sq_norms(train).sqrt()[None, :]
-    cross = _cross(queries, train)
+    cross = cross_f32(queries, train)
     denom = qn * tn
     pos = denom > 0
     sim = torch.where(pos, cross / torch.where(pos, denom, 1.0), 0.0)

@@ -17,7 +17,9 @@ low-latency request serving over a prebuilt index.
 
 The serving ladder stops at the card: a failing kernel is retried in place
 (transient), rerun in halved batches (out of memory), or reported typed —
-never answered by another route or by the host. A circuit breaker fails
+never answered by another route or by the host. With ``serve
+--ivf-probes`` the ``ivf`` rung (probed retrieval over the artifact's IVF
+partition) sits above it and degrades to it on any typed failure. A circuit breaker fails
 batches at once while the card keeps failing and re-closes when it
 recovers.
 

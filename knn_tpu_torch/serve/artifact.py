@@ -27,10 +27,15 @@ loader accepts and maps them on load, by one table
 host rungs as they are. Run-time choices of the port (``device``) are
 never manifest fields: :func:`load_index` takes the device as an argument.
 
+**The IVF partition** (format 3, the index family): ``save_index(model,
+path, ivf=...)`` writes the ``ivf`` manifest block and the three ``ivf_*``
+arrays as the JAX package does, and :func:`load_index` validates them
+(metric, row count, cell count, corrupt arrays: each a typed
+:class:`DataError`) and attaches the partition as ``model.ivf_``.
+
 **What the port does not load yet** fails typed, never with a part
-silently dropped: an IVF partition (the manifest's ``ivf`` block, ROADMAP
-A9) and a mutable base (``epochs/``, ``CURRENT.json`` or a ``mutable``
-manifest block, ROADMAP A10).
+silently dropped: a mutable base (``epochs/``, ``CURRENT.json`` or a
+``mutable`` manifest block, ROADMAP A10).
 
 :func:`warmup` is the boot step between load and ready. The card has no
 compile to hide, but the first retrieval builds the kernel library when it
@@ -139,17 +144,38 @@ def _model_manifest(model) -> dict:
     )
 
 
-def save_index(model, path) -> Path:
+def save_index(model, path, ivf=None) -> Path:
     """Write a fitted model to ``path`` (a directory; created if missing).
+
+    ``ivf`` — an optional :class:`~knn_tpu_torch.index.ivf.IVFIndex` to
+    persist with the model (``save-index --ivf-cells``); when None, a
+    partition already attached to the model (``model.ivf_``, the load and
+    re-save round trip) is kept. It must span exactly the train rows, and
+    the model's metric must be euclidean (``ValueError`` otherwise).
 
     Refuses to clobber a non-empty directory that is not already an
     artifact (no ``manifest.json``) — re-saving over an existing artifact
     is fine. Raises ``ValueError``/``OSError`` for bad inputs/paths (the
     CLI maps both to exit 2). The manifest lands last and atomically."""
+    from knn_tpu_torch.index.ivf import IVF_ATTR
     from knn_tpu_torch.obs.drift import StreamSketch
 
     train = model.train_  # RuntimeError before fit
     manifest = _model_manifest(model)
+    if ivf is None:
+        ivf = getattr(model, IVF_ATTR, None)
+    if ivf is not None and ivf.num_rows != train.num_instances:
+        raise ValueError(
+            f"ivf partition spans {ivf.num_rows} rows but the train set "
+            f"has {train.num_instances} — rebuild the partition from "
+            f"this data"
+        )
+    if ivf is not None and manifest.get("metric") != "euclidean":
+        # The cells are Voronoi regions of squared-euclidean k-means.
+        raise ValueError(
+            f"ivf partitions are euclidean-only; this model uses metric "
+            f"{manifest.get('metric')!r}"
+        )
     out = Path(path)
     if out.exists():
         if not out.is_dir():
@@ -164,6 +190,9 @@ def save_index(model, path) -> Path:
     arrays = {"features": train.features, "labels": train.labels}
     if train.raw_targets is not None:
         arrays["raw_targets"] = train.raw_targets
+    if ivf is not None:
+        arrays.update(ivf.to_arrays())
+        manifest["ivf"] = ivf.manifest_entry()
     np.savez(out / ARRAYS_NAME, **arrays)
     manifest.update(
         format=ARTIFACT_FORMAT,
@@ -238,12 +267,6 @@ def _read_manifest(root: Path) -> dict:
 def _refuse_later_layers(root: Path, manifest: dict) -> None:
     """An artifact part the port cannot serve yet is a typed refusal,
     never a load with the part dropped."""
-    if isinstance(manifest.get("ivf"), dict):
-        raise DataError(
-            f"{root}: the artifact carries an IVF partition; the port "
-            f"serves it with the index family (ROADMAP A9) — rebuild "
-            f"without --ivf-cells, or serve it with the JAX package"
-        )
     if (isinstance(manifest.get("mutable"), dict)
             or (root / EPOCHS_DIR).exists()
             or (root / CURRENT_NAME).exists()):
@@ -264,11 +287,19 @@ def load_index(path, device="cuda"):
     root = Path(path)
     manifest = _read_manifest(root)
     _refuse_later_layers(root, manifest)
+    ivf_manifest = manifest.get("ivf")
+    ivf_arrays = None
     try:
         with np.load(root / ARRAYS_NAME, allow_pickle=False) as z:
             features = z["features"]
             labels = z["labels"]
             raw_targets = z["raw_targets"] if "raw_targets" in z else None
+            if isinstance(ivf_manifest, dict):
+                # Validated into an IVFIndex below, after the dataset's
+                # own schema checks pass.
+                ivf_arrays = {k: z[k] for k in
+                              ("ivf_centroids", "ivf_row_perm",
+                               "ivf_cell_offsets") if k in z}
     except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
         raise DataError(f"{root / ARRAYS_NAME}: unreadable arrays: {e}") from e
     attrs = [
@@ -324,6 +355,22 @@ def load_index(path, device="cuda"):
             raise
         raise DataError(f"{root}: manifest does not describe a loadable "
                         f"model: {e}") from e
+    if isinstance(ivf_manifest, dict):
+        from knn_tpu_torch.index.ivf import IVF_ATTR, IVFIndex
+
+        if manifest.get("metric") != "euclidean":
+            # save_index refuses this pairing; an artifact carrying it was
+            # hand-edited (schema_hash does not cover the metric field).
+            raise DataError(
+                f"{root}: artifact pairs an ivf partition with metric "
+                f"{manifest.get('metric')!r}; ivf partitions are "
+                f"euclidean-only — rebuild the index"
+            )
+        setattr(model, IVF_ATTR, IVFIndex.from_arrays(
+            ivf_arrays or {}, ivf_manifest,
+            train_rows=train.num_instances,
+            num_features=train.num_features, where=str(root),
+        ))
     return model
 
 

@@ -18,11 +18,20 @@ request, whatever batch its rows landed in.
 ``fast → xla → oracle`` when a dispatch fails. On the card ``xla`` is the
 torch scan (the kernel's failure answered by another route) and
 ``oracle`` is the host, the fallbacks the port must not have (the classify
-ladder's rule, ``resilience/degrade.py``). So the ladder here is the
+ladder's rule, ``resilience/degrade.py``). So the exact ladder here is the
 model's configured retrieval alone, the rung ``fast``: the hand-written
 kernels (the stripe scan and merge, or the tile kernel's exact form and
 the merge), or the torch scan when the model is configured with
-``engine="xla"`` or another metric. What it keeps:
+``engine="xla"`` or another metric.
+
+With ``ivf`` (an :class:`~knn_tpu_torch.index.ivf.IVFServing`, ``serve
+--ivf-probes``) and a model that carries a partition, the rung ``ivf``
+(probed retrieval, ``index/ivf.py``) sits ABOVE ``fast``, as in JAX: it is
+the primary rung, the fault point and the breaker's; on ANY typed failure
+(the whole taxonomy, a ``DataError`` included) it degrades to ``fast`` —
+the card's kernels, so the ladder still stops at the card — counted in
+``knn_serve_fallback_total{from_rung="ivf", to="fast"}``; while the
+breaker is open, batches go straight to ``fast``. What ``fast`` keeps:
 
 - a transient failure is retried in place (the retry budget of
   ``resilience/retry.py``), with deadlines re-checked between attempts;
@@ -93,6 +102,7 @@ from knn_tpu_torch.resilience.errors import (
     DeadlineExceededError,
     DeviceError,
     OverloadError,
+    ResilienceError,
 )
 
 KINDS = ("predict", "kneighbors")
@@ -358,7 +368,13 @@ class MicroBatcher:
                          with no staging;
     ``result_cache_rows`` — capacity of the exact-match result cache
                          (:mod:`knn_tpu_torch.serve.cache`); 0 constructs
-                         nothing.
+                         nothing. An ivf answer is cached and replayed only
+                         at the probe policy's operating point (``nprobe``
+                         rides the key);
+    ``ivf``            — an optional
+                         :class:`~knn_tpu_torch.index.ivf.IVFServing`:
+                         slots the ``ivf`` rung above ``fast`` for models
+                         that carry a partition (``model.ivf_``).
     """
 
     def __init__(self, model, *, max_batch: int = 256,
@@ -366,7 +382,7 @@ class MicroBatcher:
                  index_version: Optional[str] = None,
                  recorder: "Optional[reqtrace.FlightRecorder]" = None,
                  accounting=None, capacity=None, buckets=None,
-                 result_cache_rows: int = 0):
+                 result_cache_rows: int = 0, ivf=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_wait_ms < 0:
@@ -392,6 +408,7 @@ class MicroBatcher:
             self.cache = ResultCache(result_cache_rows)
         else:
             self.cache = None
+        self.ivf = ivf
         self._model = model
         self._index_version = index_version
         self.recorder = recorder
@@ -689,11 +706,19 @@ class MicroBatcher:
 
     # -- the serving rung --------------------------------------------------
 
+    def _ivf_active(self, model) -> bool:
+        """Whether this batch's model snapshot is served by the ivf rung."""
+        return self.ivf is not None and getattr(model, "ivf_", None) \
+            is not None
+
     def _stager_for(self, model) -> "Optional[_UploadStager]":
         """The worker's stager for ``model`` (a new one after a swap, so the
         old model's pinned buffers go with it); None without a bucket
-        ladder, or for a card this process cannot reach."""
-        if self.buckets is None:
+        ladder, for a card this process cannot reach, or while the ivf
+        rung answers (it scores host rows; the staged block would be an
+        upload for nothing)."""
+        if self.buckets is None or self._ivf_active(model):
+            self._stager = None
             return None
         if self._stager is None or self._stager.model is not model:
             dev = _model_device(model)
@@ -702,11 +727,12 @@ class MicroBatcher:
                 self._stager = _UploadStager(model, self.buckets, dev)
         return self._stager
 
-    def _rung(self, model):
-        """The serving ladder for this batch's model snapshot: the one rung
+    def _rungs(self, model):
+        """The serving ladder for this batch's model snapshot: ``ivf`` (when
+        the batcher has a serving wrapper and the model a partition), then
         ``fast``, the model's own configured retrieval (engine selection,
         device and device cache). The ladder stops at the card: no other
-        route and no host rung answers for it."""
+        route and no host rung answers for ``fast``."""
         train = model.train_
         k, metric = model.k, model.metric
         if isinstance(model, KNNClassifier):
@@ -737,7 +763,13 @@ class MicroBatcher:
                 Dataset(feats, np.zeros(feats.shape[0], np.int32))
             )
 
-        return "fast", fast
+        rungs = []
+        if self._ivf_active(model):
+            ivf = self.ivf
+            rungs.append(("ivf", lambda feats, prefetched=None:
+                          ivf.kneighbors(model, np.asarray(feats))))
+        rungs.append(("fast", fast))
+        return rungs
 
     def _call_rung(self, fn, feats, prefetched=None):
         """Dispatch ``feats`` through the rung, chunked to the CURRENT
@@ -819,25 +851,37 @@ class MicroBatcher:
 
     def _retrieve(self, model, live: "list[_Request]", prefetch=None):
         """Candidate retrieval for the coalesced batch, through the breaker
-        and the one rung. Returns ``(live, dists, idx, rung,
-        padded_rows)`` — ``live`` may have shrunk (mid-retry deadline
-        expiries, already failed typed). ``prefetch`` is the stager's
-        ``(host_rows, staged_block)`` for exactly this batch, used while
-        ``live`` is unshrunk. Raises the typed error when the rung fails
-        for good, or at once while the breaker is open."""
-        name, fn = self._rung(model)
+        and the ladder. Returns ``(live, dists, idx, rung, padded_rows)`` —
+        ``live`` may have shrunk (mid-retry deadline expiries, already
+        failed typed). ``prefetch`` is the stager's ``(host_rows,
+        staged_block)`` for exactly this batch, used while ``live`` is
+        unshrunk.
+
+        The first rung carries the ``serve.dispatch`` fault point and the
+        breaker. ``ivf`` degrades to ``fast`` on any typed failure (an OOM
+        first halves ``max_batch`` on the same rung, as JAX does);
+        ``fast`` retries transient failures in place, halves on OOM, and
+        raises the typed error when it fails for good. While the breaker
+        is open, a ladder with ``ivf`` starts at ``fast`` and a ladder of
+        ``fast`` alone fails at once."""
+        rungs = self._rungs(model)
         decision = self.breaker.decide()
         traced = [r.trace for r in live if r.trace is not None]
         for t in traced:
             t.annotate(breaker=decision)
+        pos = 0
         if decision == "open":
+            if len(rungs) == 1:
+                for t in traced:
+                    t.event("breaker.short_circuit", rung=rungs[0][0])
+                raise DeviceError(
+                    f"serving circuit breaker '{self.breaker.name}' is open "
+                    f"after repeated card failures; failing the batch "
+                    f"without a dispatch (the ladder stops at the card — no "
+                    f"other route answers)", transient=False)
+            pos = 1
             for t in traced:
-                t.event("breaker.short_circuit", rung=name)
-            raise DeviceError(
-                f"serving circuit breaker '{self.breaker.name}' is open "
-                f"after repeated card failures; failing the batch without "
-                f"a dispatch (the ladder stops at the card — no other "
-                f"route answers)", transient=False)
+                t.event("breaker.short_circuit", to_rung=rungs[pos][0])
         sleeps = retry.retry_schedule()
         retries = 0
         last_err: Optional[Exception] = None
@@ -854,6 +898,7 @@ class MicroBatcher:
                     live = kept
                     if not live:
                         return live, None, None, None, None
+                name, fn = rungs[pos]
                 if feats is None:
                     feats = (
                         live[0].features if len(live) == 1
@@ -861,21 +906,27 @@ class MicroBatcher:
                     )
                 t_rung = time.monotonic()
                 try:
-                    if decision == "probe":
-                        with obs.span("breaker.probe",
-                                      breaker=self.breaker.name):
+                    if pos == 0:
+                        if decision == "probe":
+                            with obs.span("breaker.probe",
+                                          breaker=self.breaker.name):
+                                faults.fault_point(DISPATCH_SITE)
+                                out = self._call_rung(fn, feats, block)
+                        else:
                             faults.fault_point(DISPATCH_SITE)
                             out = self._call_rung(fn, feats, block)
+                        self.breaker.record_success()
                     else:
-                        faults.fault_point(DISPATCH_SITE)
                         out = self._call_rung(fn, feats, block)
-                    self.breaker.record_success()
                     self._last_rung = name
                     pad = self._account_attempt(model, live, traced, name,
                                                 t_rung, feats, out=out)
                     return live, out[0], out[1], name, pad
-                except (DeviceError, CompileError, CollectiveError,
-                        OSError) as e:
+                except (ResilienceError, OSError) as e:
+                    if name == "fast" and not isinstance(
+                            e, (DeviceError, CompileError, CollectiveError,
+                                OSError)):
+                        raise  # the request's own typed outcome
                     self._account_attempt(model, live, traced, name,
                                           t_rung, feats, error=e)
                     last_err = e
@@ -898,8 +949,9 @@ class MicroBatcher:
                                       reason="oom_halve_batch",
                                       max_batch=self.max_batch)
                         _release_cached_blocks()
-                        continue  # same rung, same kernels, smaller chunks
-                    if retry.is_transient(e) and retries < len(sleeps):
+                        continue  # same rung, smaller chunks
+                    if (name == "fast" and retry.is_transient(e)
+                            and retries < len(sleeps)):
                         obs.counter_add(
                             "knn_retry_total",
                             help="transient-failure re-attempts at guarded "
@@ -912,8 +964,25 @@ class MicroBatcher:
                                 time.sleep(sleeps[retries] / 1e3)
                         retries += 1
                         continue
-                self.breaker.record_failure()
-                raise last_err
+                if pos == 0:
+                    self.breaker.record_failure()
+                if pos + 1 >= len(rungs):
+                    raise last_err
+                nxt = rungs[pos + 1][0]
+                self._warn(
+                    f"serving rung '{name}' failed "
+                    f"({type(last_err).__name__}: {last_err}); falling back "
+                    f"to '{nxt}'"
+                )
+                obs.counter_add(
+                    "knn_serve_fallback_total",
+                    help="serving-ladder moves (rung -> fallback rung; "
+                         "from==to is an in-place max_batch halving)",
+                    from_rung=name, to=nxt, reason=type(last_err).__name__,
+                )
+                reqtrace.emit("fallback", from_rung=name, to=nxt,
+                              reason=type(last_err).__name__)
+                pos += 1
 
     # -- dispatch ----------------------------------------------------------
 
@@ -992,14 +1061,17 @@ class MicroBatcher:
             live.append(req)
         if not live:
             return
+        ivf_active = self._ivf_active(model)
         miss_keys: "Optional[dict]" = None
         if self.cache is not None:
-            # Keyed on the snapshot's version: a hit is bit-identical to
-            # what a fresh dispatch under this snapshot would return.
+            # Keyed on the snapshot's version and the live ivf operating
+            # point: a hit is bit-identical to what a fresh dispatch under
+            # this snapshot would return.
+            nprobe = self.ivf.policy.current() if ivf_active else None
             misses: "list[_Request]" = []
             miss_keys = {}
             for req in live:
-                key = self.cache.key(version, None, None, req.features)
+                key = self.cache.key(version, None, nprobe, req.features)
                 ent = self.cache.get(key)
                 if ent is not None:
                     hit_d, hit_i, hit_rung = ent
@@ -1033,12 +1105,17 @@ class MicroBatcher:
                     return
                 if padded is not None and hasattr(dispatch_span, "attrs"):
                     dispatch_span.attrs["padded_rows"] = padded
+                # Only the primary rung's answers are cached: a degraded
+                # (ivf -> fast) answer is not what the key's operating
+                # point would return.
+                cacheable = miss_keys is not None and rung == (
+                    "ivf" if ivf_active else "fast")
                 off = 0
                 for req in live:
                     d = dists[off:off + req.rows]
                     i = idx[off:off + req.rows]
                     off += req.rows
-                    if miss_keys is not None:
+                    if cacheable:
                         key = miss_keys.get(id(req))
                         if key is not None:
                             # Frozen copies: handed to every later hit.
@@ -1054,13 +1131,14 @@ class MicroBatcher:
             )
             if self.capacity is not None:
                 # Only the XLA route pads to a shape (query tiles); the
-                # kernels sweep the live rows, so there occupancy keeps
-                # its rows/max_batch coalescing meaning instead of a
-                # vacuous 1.0 from padded == rows.
+                # kernels and the ivf rung sweep the live rows, so there
+                # occupancy keeps its rows/max_batch coalescing meaning
+                # instead of a vacuous 1.0 from padded == rows.
                 self.capacity.note_dispatch(
                     batch_ms, served_rows, padded or served_rows,
                     self.max_batch,
-                    compiled=acct.resolved_retrieval_engine(model) == "xla",
+                    compiled=(rung == "fast" and
+                              acct.resolved_retrieval_engine(model) == "xla"),
                 )
         except Exception as e:  # noqa: BLE001 — delivered per-future
             obs.counter_add(

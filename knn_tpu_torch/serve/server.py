@@ -146,7 +146,14 @@ class ServeApp:
 
     ``batch_buckets`` is this app's bucket ladder: its batcher pads, stages
     and tops up by it, and nothing outside the app sees it. ``device`` is
-    where a reloaded index runs (the boot model carries its own)."""
+    where a reloaded index runs (the boot model carries its own).
+
+    ``ivf_probes`` (``serve --ivf-probes``) opts in to the ``ivf`` rung
+    over the artifact's IVF partition (``index/ivf.py``), probing that many
+    cells per query, held to ``ivf_recall_floor``. It is validated before
+    anything is built (a partition-less artifact or probes out of range:
+    :class:`DataError`); None (the default) constructs nothing of the
+    index family."""
 
     def __init__(self, model, *, max_batch: int = 256,
                  max_wait_ms: float = 2.0, max_queue_rows: int = 4096,
@@ -159,7 +166,26 @@ class ServeApp:
                  cost_accounting: bool = False,
                  capacity_window_s: int = 60,
                  batch_buckets=None, result_cache_rows: int = 0,
-                 device=None):
+                 device=None, ivf_probes: Optional[int] = None,
+                 ivf_recall_floor: float = 0.95):
+        # Validated FIRST: a DataError here must abort before any worker
+        # thread exists.
+        if ivf_probes is not None:
+            from knn_tpu_torch.index.ivf import IVF_ATTR
+
+            partition = getattr(model, IVF_ATTR, None)
+            if partition is None:
+                raise DataError(
+                    "--ivf-probes needs an artifact with an IVF partition "
+                    "(format 3, built with `save-index --ivf-cells N`); "
+                    "this one is exact-only"
+                )
+            if not 1 <= ivf_probes <= partition.num_cells:
+                raise DataError(
+                    f"--ivf-probes {ivf_probes} out of range: the "
+                    f"partition has {partition.num_cells} cells"
+                )
+        self.ivf_recall_floor = float(ivf_recall_floor)
         self.model = model
         self.device = device if device is not None else getattr(
             model, "device", "cuda")
@@ -185,12 +211,21 @@ class ServeApp:
         else:
             self.accounting = None
             self.capacity = None
+        if ivf_probes is not None:
+            from knn_tpu_torch.index.ivf import IVFServing
+
+            self.ivf = IVFServing(
+                ivf_probes, partition.num_cells, slo=self.slo,
+                recall_floor=self.ivf_recall_floor, buckets=batch_buckets,
+            )
+        else:
+            self.ivf = None
         self.batcher = MicroBatcher(
             model, max_batch=max_batch, max_wait_ms=max_wait_ms,
             max_queue_rows=max_queue_rows, index_version=index_version,
             recorder=self.recorder, accounting=self.accounting,
             capacity=self.capacity, buckets=batch_buckets,
-            result_cache_rows=result_cache_rows,
+            result_cache_rows=result_cache_rows, ivf=self.ivf,
         )
         self.ready = False
         self.draining = False
@@ -205,13 +240,17 @@ class ServeApp:
     @property
     def primary_rung(self) -> str:
         """The rung a healthy request rides — what the fast_rung SLI
-        scores against."""
-        return "fast"
+        scores against: ``ivf`` when approximate serving is on (an ivf
+        answer is the designed operating point, a fall to exact the
+        degradation), ``fast`` otherwise."""
+        return "ivf" if self.ivf is not None else "fast"
 
     def warm(self, batch_sizes=None) -> dict:
         """Run every dispatch shape once, then report ready: 1 row,
         ``max_batch`` rows and every bucket of the ladder (the first call
-        also builds the kernels when missing and uploads the train)."""
+        also builds the kernels when missing and uploads the train; with
+        the ivf rung on, its probed search runs at each shape too, so the
+        permuted train reaches the card before the first request)."""
         if batch_sizes is None:
             buckets = self.batcher.buckets or ()
             batch_sizes = tuple(sorted(
@@ -220,10 +259,32 @@ class ServeApp:
         self.warmup_ms = artifact.warmup(
             self.model, batch_sizes=batch_sizes, kinds=("predict",)
         )
+        self.warmup_ms.update(self._warm_ivf(self.model, batch_sizes))
         if self.capacity is not None:
             self._seed_capacity_model(self.model)
         self.ready = True
         return self.warmup_ms
+
+    def _warm_ivf(self, model, batch_sizes) -> dict:
+        """The ivf rung's probed search at each batch shape on ``model``
+        (no instruments: nothing is served): ``{f"ivf@{rows}": wall_ms}``;
+        empty without the rung."""
+        if self.ivf is None:
+            return {}
+        from knn_tpu_torch.index.ivf import IVF_ATTR
+
+        index, train = getattr(model, IVF_ATTR), model.train_
+        out = {}
+        for rows in sorted({int(b) for b in batch_sizes}):
+            reps = -(-rows // train.num_instances)  # ceil
+            feats = np.tile(train.features, (reps, 1))[:rows]
+            t0 = time.monotonic()
+            index.search(train.features, feats, model.k,
+                         self.ivf.policy.current(), scorer=self.ivf.scorer,
+                         device=getattr(model, "device", "cuda"),
+                         buckets=self.ivf.buckets)
+            out[f"ivf@{rows}"] = round((time.monotonic() - t0) * 1e3, 3)
+        return out
 
     def _seed_capacity_model(self, model) -> None:
         """Seed the headroom model's affine dispatch-cost fit
@@ -288,19 +349,30 @@ class ServeApp:
                     f"were validated against the old schema; rejecting the "
                     f"swap"
                 )
+            new_partition = getattr(model, "ivf_", None)
+            if self.ivf is not None and new_partition is None:
+                raise DataError(
+                    f"{target}: this process serves the ivf rung "
+                    f"(--ivf-probes) but the replacement artifact has no "
+                    f"IVF partition — rebuild it with `save-index "
+                    f"--ivf-cells N` or redeploy exact-only"
+                )
+            sizes = self._warm_sizes or (1, self.batcher.max_batch)
             with _on_device(self.device):
                 warmup_ms = artifact.warmup(
-                    model,
-                    batch_sizes=self._warm_sizes or (1,
-                                                     self.batcher.max_batch),
-                    kinds=("predict",),
+                    model, batch_sizes=sizes, kinds=("predict",),
                 )
+                warmup_ms.update(self._warm_ivf(model, sizes))
                 if self.capacity is not None:
                     self._seed_capacity_model(model)
             previous = self.batcher.swap_model(model, version)
             self.model = model
             self.index_version = version
             self.reloads += 1
+            if self.ivf is not None:
+                # The new partition may have another cell count: the
+                # operating point clamps into it.
+                self.ivf.set_num_cells(new_partition.num_cells)
             obs.counter_add(
                 "knn_serve_reloads_total",
                 help="hot index reloads, by outcome", outcome="ok",
@@ -410,7 +482,8 @@ class ServeApp:
             "slo": self.slo.export(),
             "device": self._device_block(),
             "quality": self.quality_block(),
-            "ivf": None,
+            "ivf": (self.ivf.export(self.model)
+                    if self.ivf is not None else None),
             "capacity": (self.capacity.export()
                          if self.capacity is not None else None),
             "mutable": None,

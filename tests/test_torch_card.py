@@ -626,3 +626,106 @@ def test_devprof_reads_the_card_and_captures_the_kernels(card):
     assert any("stripe_scan" in n for n in names)
     assert any("stripe_merge" in n for n in names)
     assert "serve.dispatch" in names
+
+
+def _ivf_problem(rng, n=6000, q=64, d=11):
+    x = rng.integers(0, 6, (n, d)).astype(np.float32)
+    x[n // 2 : n // 2 + 200] = x[:200]  # dist == 0 ties across cells
+    qx = rng.integers(0, 6, (q, d)).astype(np.float32)
+    qx[3, 2] = np.nan
+    return x, qx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nprobe", [1, 7, 32])
+def test_ivf_device_scorer_on_the_card_equals_the_host_scorer(card, nprobe):
+    from knn_tpu_torch.index.ivf import IVFIndex
+
+    rng = np.random.default_rng(nprobe)
+    x, qx = _ivf_problem(rng)
+    ivf = IVFIndex.build(x, 32, seed=0, device="cpu")
+    host = ivf.search(x, qx, 10, nprobe, scorer="host")
+    dev = ivf.search(x, qx, 10, nprobe, scorer="device", device=card)
+    np.testing.assert_array_equal(dev[1], host[1])
+    np.testing.assert_array_equal(dev[0].view(np.uint32),
+                                  host[0].view(np.uint32))
+    assert dev[2].scorer == "device" and dev[2]._replace(
+        scorer="host", padded_candidate_rows=0) == host[2]
+    assert ivf._cache["device"][2].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_ivf_full_probe_on_the_card_equals_the_stripe_kernel(card):
+    from knn_tpu_torch.index.ivf import IVFIndex
+
+    rng = np.random.default_rng(3)
+    x, qx = _ivf_problem(rng)
+    qx = np.nan_to_num(qx)
+    ivf = IVFIndex.build(x, 16, seed=0, device=card)
+    _, di, _ = ivf.search(x, qx, 10, 16, scorer="device", device=card)
+    t = torch.from_numpy(x).to(card)
+    _, ki = cuda_knn.knn_stripe_candidates(t, torch.from_numpy(qx).to(card),
+                                           x.shape[0], 10)
+    np.testing.assert_array_equal(di, ki.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_kmeans_assignment_on_the_card_equals_the_cpu_and_ignores_tf32(card):
+    """The assignment step on the card against the same torch function on
+    the CPU: equal cells except rows whose two nearest centroids lie within
+    2^-20 of |x|^2 + |c|^2 (the matmul sums in another order), with TF32
+    allowed or not."""
+    import importlib
+
+    # The module: knn_tpu_torch.index re-exports the kmeans function.
+    kmeans = importlib.import_module("knn_tpu_torch.index.kmeans")
+
+    rng = np.random.default_rng(0)
+    x = rng.random((65536, 11)).astype(np.float32)
+    cents = rng.random((1024, 11)).astype(np.float32)
+    ca, cd = kmeans._assign_batched(x, cents, 65536, torch.device("cpu"))
+    was = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        ga, gd = kmeans._assign_batched(x, cents, 65536, card)
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    diff = np.nonzero(ga != ca)[0]
+    x64, c64 = x.astype(np.float64), cents.astype(np.float64)
+    for r in diff:
+        dg = ((x64[r] - c64[ga[r]]) ** 2).sum()
+        dc = ((x64[r] - c64[ca[r]]) ** 2).sum()
+        scale = (x64[r] ** 2).sum() + (c64[ga[r]] ** 2).sum() + (
+            c64[ca[r]] ** 2).sum()
+        assert abs(dg - dc) <= 2.0 ** -20 * scale, r
+    assert diff.size <= 64
+    np.testing.assert_allclose(gd, cd, rtol=0, atol=2.0 ** -20 * 23)
+
+
+@pytest.mark.cuda
+def test_ivf_rung_serves_on_the_card_and_degrades_to_the_kernels(card):
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.index.ivf import IVFIndex, IVFServing
+    from knn_tpu_torch.models.knn import KNNClassifier
+    from knn_tpu_torch.resilience import faults
+    from knn_tpu_torch.serve.batcher import MicroBatcher
+
+    rng = np.random.default_rng(5)
+    x, qx = _ivf_problem(rng)
+    qx = np.nan_to_num(qx)
+    model = KNNClassifier(k=5).fit(Dataset(x, np.zeros(len(x), np.int32)))
+    model.ivf_ = IVFIndex.build(x, 16, seed=0, device=card)
+    want = model.ivf_.search(x, qx[:8], 5, 4, scorer="host")
+    with MicroBatcher(model, max_batch=16, max_wait_ms=0.0,
+                      ivf=IVFServing(4, 16, scorer="device")) as b:
+        h = b.submit(qx[:8], "kneighbors")
+        d, i = h.result(timeout=60)
+        assert h.meta["rung"] == "ivf"
+        np.testing.assert_array_equal(i, want[1])
+        scans = cuda_knn.knn_stripe_scan.launches
+        with faults.inject("serve.dispatch=once"):
+            h = b.submit(qx[:8], "kneighbors")
+            _, i = h.result(timeout=60)
+        assert h.meta["rung"] == "fast"
+        assert cuda_knn.knn_stripe_scan.launches == scans + 1

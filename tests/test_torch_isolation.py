@@ -111,6 +111,38 @@ def test_serving_leaves_jax_and_knn_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_index_family_leaves_jax_and_knn_tpu_out():
+    # The index family: import its modules, build a partition through the
+    # CLI, serve one request on the ivf rung in-process, then look.
+    code = (
+        "import io, os, sys, tempfile\n"
+        "import knn_tpu_torch.index, knn_tpu_torch.index.ivf\n"
+        "import knn_tpu_torch.index.kmeans, knn_tpu_torch.index.probe_policy\n"
+        "import knn_tpu_torch.ops.segment_score, knn_tpu_torch.convert\n"
+        "from knn_tpu_torch import cli\n"
+        "from knn_tpu_torch.serve import artifact, server\n"
+        "tr = sys.argv[1]\n"
+        "idx = os.path.join(tempfile.mkdtemp(), 'idx')\n"
+        "assert cli.run(['save-index', tr, idx, '--k', '3', '--ivf-cells',\n"
+        "                '8', '--device', 'cpu'], stdout=io.StringIO()) == 0\n"
+        "app = server.ServeApp(artifact.load_index(idx, device='cpu'),\n"
+        "                      ivf_probes=2, max_wait_ms=0.0)\n"
+        "h = app.batcher.submit(app.model.train_.features[:2], 'predict')\n"
+        "h.result(timeout=30)\n"
+        "assert h.meta['rung'] == 'ivf', h.meta\n"
+        "app.close()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'knn_tpu'))\n"
+        "print(bad)\n"
+    )
+    d = fixtures.datasets_dir()
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(d / "small-train.arff")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 # A path component "knn_tpu" in a string the code uses (not a docstring),
 # apart from a "knn_tpu/....py:LINE" reference to the reference's source.
 _JAX_PATH = re.compile(r"(^|[/\\])knn_tpu([/\\]|$)")

@@ -716,7 +716,7 @@ class TestQueryBucketLadder:
 
 
 # ---------------------------------------------------------------------------
-# test_ivf.py::TestTieOrderEveryRung (the IVF leg waits for ROADMAP A9) and
+# test_ivf.py::TestTieOrderEveryRung (with its IVF leg since ROADMAP A9) and
 # test_oracle.py
 
 
@@ -741,6 +741,35 @@ class TestTieOrderEveryRung:
             np.testing.assert_array_equal(got_d, want_d, err_msg=engine)
             jd, ji = jknn._kneighbors_arrays(x, qx, k, engine=engine)
             np.testing.assert_array_equal(got_i, ji, err_msg=engine)
+
+    @pytest.mark.parametrize("scorer", ["host", "device"])
+    def test_ivf_full_probe_matches_helper(self, scorer):
+        """The IVF leg: at full probe both scorers give the helper's order
+        and distances, bit for bit, as the JAX package's IVF does. (Its own
+        generator: drawing from the shared ``rng`` fixture would shift the
+        data of the tests after it.)"""
+        from knn_tpu.index.ivf import IVFIndex as JIVFIndex
+
+        from knn_tpu_torch.index.ivf import IVFIndex
+
+        rng = np.random.default_rng(11)
+        x = rng.integers(0, 4, (400, 6)).astype(np.float32)
+        x[200:260] = x[:60]
+        qx = np.concatenate([x[:10], rng.integers(0, 4, (15, 6))
+                             .astype(np.float32)])
+        k = 7
+        full = pairwise_sq_dists(torch.from_numpy(qx),
+                                 torch.from_numpy(x)).numpy()
+        want_d, want_i = lexicographic_topk(full, np.arange(x.shape[0]), k)
+        ivf = IVFIndex.build(x, 8, seed=0, **CPU)
+        got_d, got_i, _ = ivf.search(x, qx, k, 8, scorer=scorer, **CPU)
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(got_d, want_d)
+        jd, ji, _ = JIVFIndex.build(x, 8, seed=0).search(x, qx, k, 8,
+                                                          scorer=scorer)
+        np.testing.assert_array_equal(got_i, ji)
+        np.testing.assert_array_equal(got_d.view(np.uint32),
+                                      jd.view(np.uint32))
 
 
 def test_kneighbors_matches_oracle_order(rng):

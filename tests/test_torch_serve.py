@@ -526,14 +526,37 @@ class TestArtifact:
             is not None
 
     def test_ivf_artifact_refused_typed(self, rng, tmp_path):
+        """Since the index family (ROADMAP A9) an IVF artifact is no longer
+        refused: a JAX-built one round-trips through the port (load, serve
+        on the ivf rung, re-save) with the JAX package's partition and
+        answers, and the re-saved artifact loads back in JAX."""
         from knn_tpu.index.ivf import IVFIndex
+        from knn_tpu.serve.server import ServeApp as JServeApp
 
-        _, _, jtrain, _ = problem(rng)
+        from knn_tpu_torch.serve.server import ServeApp
+
+        _, test, jtrain, jtest = problem(rng)
+        jivf = IVFIndex.build(jtrain.features, 4, seed=0)
         out = jartifact.save_index(
-            jknn.KNNClassifier(k=3).fit(jtrain), tmp_path / "ivf",
-            ivf=IVFIndex.build(jtrain.features, 4, seed=0))
-        with pytest.raises(DataError, match="A9"):
-            load_index(out, device="cpu")
+            jknn.KNNClassifier(k=3).fit(jtrain), tmp_path / "ivf", ivf=jivf)
+        loaded = load_index(out, device="cpu")
+        for key, arr in jivf.to_arrays().items():
+            np.testing.assert_array_equal(loaded.ivf_.to_arrays()[key], arr)
+        app = ServeApp(loaded, max_batch=8, max_wait_ms=0.0, ivf_probes=2)
+        japp = JServeApp(jartifact.load_index(out), max_batch=8,
+                         max_wait_ms=0.0, ivf_probes=2)
+        try:
+            h = app.batcher.submit(test.features[:5], "kneighbors")
+            jh = japp.batcher.submit(jtest.features[:5], "kneighbors")
+            for g, w in zip(h.result(timeout=30), jh.result(timeout=30)):
+                np.testing.assert_array_equal(g, w)
+            assert h.meta["rung"] == jh.meta["rung"] == "ivf"
+        finally:
+            app.close()
+            japp.close()
+        resaved = save_index(loaded, tmp_path / "resaved")
+        np.testing.assert_array_equal(
+            jartifact.load_index(resaved).ivf_.row_perm, jivf.row_perm)
 
     @pytest.mark.parametrize("part", ["epochs", "CURRENT.json"])
     def test_mutable_base_refused_typed(self, rng, tmp_path, part):

@@ -4,9 +4,12 @@ cases of ``tests/test_cli.py`` and of ``scripts/serve_smoke.py`` steps
 
 - The validation tables and exit codes are the JAX CLI's: each bad value
   exits 2 before any compute in both CLIs, with one ``error:`` line.
-- The flags of later slices (quality, capture, IVF, mutable, fleet,
-  shards, control, history) are not in the port's parser: argparse exits
-  2 on each, where the JAX CLI accepts it (ROADMAP A8b-A12).
+- The flags of later slices (quality, capture, mutable, fleet, shards,
+  control, history) are not in the port's parser: argparse exits 2 on
+  each, where the JAX CLI accepts it (ROADMAP A8b, A10-A12). The index
+  family's flags (``save-index --ivf-cells/--ivf-seed/--ivf-iters``,
+  ``serve --ivf-probes/--ivf-recall-floor``, ROADMAP A9) are, with JAX's
+  validation lines and exit codes.
 - One subprocess lifecycle with ``--device cpu --port 0``: the ready
   banner, ``/healthz``, ``/predict`` (equal to the JAX package's answer),
   a re-save and SIGHUP (a new ``index_version``, the same predictions),
@@ -102,8 +105,21 @@ class TestSaveIndex:
     @pytest.mark.parametrize("flag", ["--ivf-cells", "--ivf-seed",
                                       "--ivf-iters"])
     def test_later_slice_flags_exit_2(self, paths, tmp_path, capsys, flag):
-        assert cli.run(["save-index", paths[0], str(tmp_path / "x"), flag,
-                        "4"]) == 2
+        """The index family's flags, ported (ROADMAP A9): a bad value of
+        each exits 2 in both CLIs with JAX's one error line, before any
+        build."""
+        bad = {"--ivf-cells": ["--ivf-cells", "0"],
+               "--ivf-seed": ["--ivf-cells", "99999", "--ivf-seed", "4"],
+               "--ivf-iters": ["--ivf-cells", "4", "--ivf-iters", "0"]}[flag]
+        got = cli.run(["save-index", paths[0], str(tmp_path / "x"), *bad,
+                       "--device", "cpu"], stdout=io.StringIO())
+        err = capsys.readouterr().err
+        want = jrun(["save-index", paths[0], str(tmp_path / "j"), *bad],
+                    stdout=io.StringIO())
+        jerr = capsys.readouterr().err
+        assert got == want == 2
+        assert err.strip().splitlines() == jerr.strip().splitlines()[-1:]
+        assert not (tmp_path / "x").exists()
 
 
 class TestServeExitCodes:
@@ -129,6 +145,8 @@ class TestServeExitCodes:
         ["--batch-buckets", "a,b"], ["--batch-buckets", "0"],
         ["--batch-buckets", "16,512"], ["--result-cache-rows", "-1"],
         ["--cost-accounting", "maybe"], ["--device", "tpu"],
+        ["--ivf-probes", "0"], ["--ivf-recall-floor", "1.5"],
+        ["--ivf-recall-floor", "0"],
     ])
     def test_bad_policy_exits_2_before_compute(self, capsys, extra):
         got = cli.run(["serve", "/irrelevant/index", *extra])
@@ -145,7 +163,8 @@ class TestServeExitCodes:
         ["--shadow-rate", "0.5"], ["--drift-rate", "0.5"],
         ["--quality-queue", "8"], ["--quality-seed", "1"],
         ["--capture-dir", "/tmp/x"], ["--capture-rate", "1"],
-        ["--ivf-probes", "2"], ["--mutable", "on"], ["--delta-cap", "8"],
+        ["--capture-max-requests", "8"], ["--mutable", "on"],
+        ["--delta-cap", "8"],
         ["--follower-of", "http://127.0.0.1:1"],
         ["--replicate-to", "http://127.0.0.1:1"], ["--shards", "2"],
         ["--priority", "a=0"], ["--brownout", "on"],
