@@ -136,7 +136,27 @@ Phases, each printed as it runs; any failure exits non-zero:
                         clients (200 requests at c = 1, 800 at c = 8),
                         ``/healthz``'s ivf block, and one injected failure
                         of the ivf rung answered by the stripe kernels.
-19. ``kernels``       — one JSON line describing every kernel.
+19. ``quality``       — answer quality, drift, workload capture and replay
+                        (run after ``ivf``): ``ServeApp`` on the xl index
+                        under closed-loop clients at c = 1 and 8 with the
+                        layers off, then shadow scoring at 0.1 and at 1.0
+                        with drift and an armed capture window (one stripe
+                        scan and one merge per batch in every case, the
+                        answers equal to the synchronous ones); the
+                        shadow-scored recall, divergences and shed count,
+                        the drift of the large test rows; corruption caught
+                        and attributed to ``fast``; the exact rung against
+                        the host oracle on xl and large rows, each
+                        divergence a near tie by the ulp rule; the probe
+                        policy's loop on the large fixture's IVF (176
+                        cells, ``ivf_probes=1``, shadow rate 1.0): nprobe
+                        widens, recall before and after; the captured xl
+                        window replayed twice in process (zero
+                        divergences); ``python -m knn_tpu_torch replay`` on
+                        the committed fixture (120 ok, every predict
+                        digest equal, each differing kneighbors answer the
+                        oracle's within the ulp rule).
+20. ``kernels``       — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -1022,9 +1042,13 @@ def phase_classify_xla(torch, dev, cuda_knn, tile_knn, vote_neighbors,
     res["ms"] = cuda_ms(xla_route, [(qb,) for qb in queries], reps=6)
     res["tile_ms"] = cuda_ms(tile_route, [(qb,) for qb in queries], reps=6)
     res["shape"] = f"q={q} n={n} d={d} k={k}"
+    # The same function's bound: the exact form's 3*d + 1 instructions per
+    # (query, row), the inputs read once and the [Q, k] answer written.
+    res["bound"] = stripe_bound_ms(q, n, d, k)
     print(f"XLA route (forward_tiled_core, query_tile 256, train_tile "
           f"{tile_rows}; torch ops, no hand kernel) at {res['shape']}: "
-          f"{res['ms']} ms (median of 6, CUDA events); cuda-tile (tile scan, "
+          f"{res['ms']} ms (median of 6, CUDA events), bound "
+          f"{res['bound'][0]} ms ({res['bound'][1]}); cuda-tile (tile scan, "
           f"merge, vote) {res['tile_ms']} ms; result lines "
           f"{[_ms_of(x) for x in res['lines'].values()]} ms "
           f"(k32, cosine, engine-xla)")
@@ -2413,20 +2437,6 @@ IVF_SCORER_GRID = ((1, 1), (1, 2), (1, 4), (1, 8), (1, 32), (16, 32),
 IVF_SERVE_LEVELS = (("predict", 1, 1, 200), ("predict", 1, 8, 800))
 
 
-def recall_at_k(served_i, oracle_i, oracle_d, true_d) -> np.ndarray:
-    """Per-row recall@k, tie-aware, by the rule of
-    ``knn_tpu/obs/quality.py:68`` ``recall_at_k``: a served neighbor is a
-    hit when it is in the exact top-k or its true distance ties the exact
-    k-th; each distinct index counts once."""
-    q, k = served_i.shape
-    out = np.empty(q, np.float64)
-    for row in range(q):
-        ok = (np.isin(served_i[row], oracle_i[row])
-              | (true_d[row] <= oracle_d[row, -1]))
-        out[row] = len({int(t) for t, o in zip(served_i[row], ok) if o}) / k
-    return out
-
-
 def f64_dists(x: np.ndarray, queries: np.ndarray, idx: np.ndarray):
     """float64 squared distances of each query to the rows ``idx [Q, k]``."""
     diff = x[idx].astype(np.float64) - queries[:, None, :].astype(np.float64)
@@ -2460,6 +2470,7 @@ def phase_ivf(torch, cuda_knn, xl_x, xl_y, q_all, smi) -> dict:
         DEFAULT_BATCH_BUCKETS,
         candidate_padded_rows,
     )
+    from knn_tpu_torch.obs.quality import recall_at_k
     from knn_tpu_torch.ops import segment_score as seg
     from knn_tpu_torch.resilience import faults
     from knn_tpu_torch.serve.artifact import load_index, save_index
@@ -2782,6 +2793,369 @@ def phase_ivf(torch, cuda_knn, xl_x, xl_y, q_all, smi) -> dict:
     return res
 
 
+# The quality phase: the xl index under closed-loop single-row /predict with
+# the answer-quality and capture layers off, then on at two shadow rates
+# (drift at 1.0 and an armed capture window with each).
+QUALITY_LEVELS = (("predict", 1, 1, 200), ("predict", 1, 8, 800))
+QUALITY_CONFIGS = (("off", {}),
+                   ("shadow_0.1", {"shadow_rate": 0.1, "drift_rate": 1.0}),
+                   ("shadow_1.0", {"shadow_rate": 1.0, "drift_rate": 1.0}))
+# The shadow and drift queues: a full queue sheds; at xl each shadow
+# sample is a ~1 M-row host oracle, so a short queue bounds the drain.
+QUALITY_QUEUE = 64
+# The probe policy's loop: the large fixture's IVF at ~sqrt(N) cells.
+QUALITY_IVF_CELLS = 176
+QUALITY_IVF_K = 5
+# Exact-rung rows checked against the host oracle: xl (its oracle is ~1 M
+# rows a query) and every large test row.
+QUALITY_XL_ROWS = 128
+
+
+def _exact_divergences(model, x, queries, k, d) -> list:
+    """Rows where the card's exact answer scores recall < 1 against the
+    host oracle by the shadow scorer's rule, each with the ulp check that
+    clears it: the float64 distances of the card's list and the oracle's
+    agree within rtol = d * 2^-24 (a near tie the two sums order
+    differently)."""
+    from knn_tpu_torch.backends.oracle import oracle_kneighbors
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.obs.quality import recall_at_k, true_distances
+
+    kd, ki = model.kneighbors(Dataset(queries,
+                                      np.zeros(len(queries), np.int32)))
+    od, oi = oracle_kneighbors(x, queries, k)
+    r = recall_at_k(ki, oi, od, true_distances(x, queries, ki, "euclidean"))
+    return [{"row": int(row), "recall": float(r[row]),
+             "ulp_check": _near_tie_ok(x, queries[row:row + 1],
+                                       ki[row:row + 1], oi[row:row + 1], d)}
+            for row in np.nonzero(r < 1.0)[0]]
+
+
+def phase_quality(torch, cuda_knn, train_path, test_path, xl_x, smi) -> dict:
+    """Answer quality, drift, workload capture and replay on the card
+    (ROADMAP A8b): the xl index served with the three layers off and on
+    (launches per batch unchanged), corruption caught and attributed, the
+    ivf probe policy's loop closed on the large fixture, and replays of a
+    captured workload and of the committed fixture."""
+    import tempfile
+    import threading
+
+    from knn_tpu_torch import obs
+    from knn_tpu_torch.backends.oracle import oracle_kneighbors
+    from knn_tpu_torch.data.arff import load_arff
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.index.ivf import IVFIndex
+    from knn_tpu_torch.models.knn import DEFAULT_BATCH_BUCKETS, KNNClassifier
+    from knn_tpu_torch.obs.quality import recall_at_k, true_distances
+    from knn_tpu_torch.obs.replay import replay_workload
+    from knn_tpu_torch.obs.slo import window_label
+    from knn_tpu_torch.obs.workload import answer_digest, load_workload
+    from knn_tpu_torch.serve import artifact
+    from knn_tpu_torch.serve.batcher import MicroBatcher
+    from knn_tpu_torch.serve.server import ServeApp, make_server
+
+    scan, merge = cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge
+    res = {"smi": smi, "configs": {}}
+    data_dir = REPO / "build" / "chip_smoke"
+    idx_xl = data_dir / "idx-xl"  # written by the serve phase
+    train, test = load_arff(str(train_path)), load_arff(str(test_path))
+    q_all = test.features
+    buckets = tuple(sorted({b for b in DEFAULT_BATCH_BUCKETS if b < 256}
+                           | {256}))
+    manifest = artifact.read_manifest(idx_xl)
+    version = artifact.index_version(manifest)
+    capture_root = Path(tempfile.mkdtemp(prefix="capture-", dir=data_dir))
+
+    def fail(msg):
+        raise SystemExit(f"quality: {msg}")
+
+    def start(app):
+        server = make_server(app, "127.0.0.1", 0)
+        th = threading.Thread(target=server.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+        th.start()
+        host, port = server.server_address[:2]
+        return server, th, f"http://{host}:{port}"
+
+    def stop(server, th, app):
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=30)
+        app.close()
+
+    def quality_burn(app):
+        label = window_label(min(app.slo.windows_s))
+        return app.slo.burn_rates()["quality"][label]
+
+    obs.enable()
+    registry = obs.registry()
+    sync_p = None
+    captured = None
+    # 1. The exact rung on xl with the layers off, then on.
+    for name, layers in QUALITY_CONFIGS:
+        obs.reset()
+        model = artifact.load_index(idx_xl)
+        kw = dict(layers)
+        if layers:
+            kw.update(quality_queue=QUALITY_QUEUE,
+                      reference_sketch=artifact.reference_sketch(manifest),
+                      capture_dir=str(capture_root / name))
+        app = ServeApp(model, max_batch=256, max_wait_ms=2.0,
+                       batch_buckets=buckets, cost_accounting=True,
+                       index_version=version, **kw)
+        app.warm()
+        if sync_p is None:
+            sync_p = model.predict_from_candidates(*model.kneighbors(test))
+        server, th, base = start(app)
+        cl = _Client(base)
+        if layers:
+            st, _, body = cl.call("POST", "/admin/capture",
+                                  {"action": "start", "reason": name})
+            if st != 200:
+                fail(f"{name}: POST /admin/capture start {st} {body!r}")
+        cfg = {"levels": {}}
+        for kind, rows, clients, total in QUALITY_LEVELS:
+            level = f"{kind}_r{rows}_c{clients}"
+            starts = [(j * rows) % (len(q_all) - rows) for j in range(total)]
+            blocks = np.stack([q_all[s:s + rows] for s in starts])
+            b0 = _hist(registry, "knn_serve_batch_size")
+            scan.launches = merge.launches = 0
+            answers, lat, wall = _closed_loop(base, kind, blocks, clients)
+            launches = {"stripe_scan": scan.launches,
+                        "stripe_merge": merge.launches}
+            batches = _hist(registry, "knn_serve_batch_size")[0] - b0[0]
+            if launches != {"stripe_scan": batches, "stripe_merge": batches}:
+                fail(f"{name} {level}: {batches} batches but launches "
+                     f"{launches}")
+            for j, doc in answers.items():
+                s = starts[j]
+                if doc["predictions"] != sync_p[s:s + rows].tolist():
+                    fail(f"{name} {level}: request {j} differs from the "
+                         f"synchronous answer")
+            lat.sort()
+            cfg["levels"][level] = {
+                "requests": total, "clients": clients,
+                "p50_ms": lat[len(lat) // 2],
+                "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+                "qps": total / wall, "batches": batches,
+                "launches_per_batch": {k: v / batches
+                                       for k, v in launches.items()},
+            }
+            print(f"quality {name} xl {level}: "
+                  f"{json.dumps(cfg['levels'][level])}")
+        if layers:
+            if not (app.quality.drain(120) and app.drift.drain(60)):
+                fail(f"{name}: the shadow or drift queue did not drain")
+            block = app.quality_block()
+            fast = block["shadow"]["rungs"].get("fast", {})
+            cfg["shadow"] = {
+                key: block["shadow"][key]
+                for key in ("offered", "scored", "shed", "score_errors")}
+            cfg["shadow"]["knn_quality_scored_total"] = sum(
+                i.value for i in registry.instruments()
+                if i.name == "knn_quality_scored_total")
+            cfg["shadow"]["fast"] = fast
+            cfg["quality_burn"] = quality_burn(app)
+            cfg["drift"] = block["drift"]
+            if block["shadow"]["score_errors"] or not fast.get("scored"):
+                fail(f"{name}: shadow scoring {block['shadow']}")
+            st, _, body = cl.call("POST", "/admin/capture",
+                                  {"action": "stop"})
+            if st != 200:
+                fail(f"{name}: POST /admin/capture stop {st} {body!r}")
+            cap = json.loads(body)
+            wl = load_workload(cap["path"])
+            cfg["capture"] = {key: cap[key] for key in (
+                "requests", "total_rows", "shed", "duration_ms")}
+            cfg["capture"]["digests"] = sum(
+                1 for e in wl.read_events if e.get("digest"))
+            print(f"quality {name}: shadow {json.dumps(cfg['shadow'])}; "
+                  f"quality burn {cfg['quality_burn']}; drift of the large "
+                  f"test rows against the xl train's sketch "
+                  f"{json.dumps(cfg['drift'])}; capture "
+                  f"{json.dumps(cfg['capture'])}")
+        if name == "shadow_1.0":
+            # 2. Corruption: every served neighbor off by one train row.
+            before = dict(fast.get("divergence", {}))
+            burn0 = cfg["quality_burn"]
+            app.batcher.corrupt_serving = True
+            for j in range(16):
+                app.batcher.submit(q_all[j:j + 1], "predict").result(
+                    timeout=60)
+            app.batcher.corrupt_serving = False
+            if not app.quality.drain(120):
+                fail("corruption: the shadow queue did not drain")
+            after = app.quality_block()["shadow"]["rungs"]["fast"]
+            burn1 = quality_burn(app)
+            moved = (after["divergence"].get("neighbors", 0)
+                     - before.get("neighbors", 0))
+            if moved < 1 or burn1 <= 1.0 or burn1 <= burn0:
+                fail(f"corruption not caught: neighbors +{moved}, quality "
+                     f"burn {burn0} -> {burn1}")
+            res["corruption"] = {"requests": 16, "fast_neighbors_moved": moved,
+                                 "quality_burn_before": burn0,
+                                 "quality_burn_after": burn1}
+            print(f"corruption: 16 single-row requests with the indices "
+                  f"rotated; 'fast' neighbors divergence +{moved}, quality "
+                  f"burn {burn0} -> {burn1}")
+            captured = (load_workload(cap["path"]), model)
+        cl.close()
+        stop(server, th, app)
+        res["configs"][name] = cfg
+
+    # The exact rung's honest divergences against the host oracle.
+    xl_rows = _exact_divergences(captured[1], xl_x, q_all[:QUALITY_XL_ROWS],
+                                 10, xl_x.shape[1])
+    large_model = KNNClassifier(k=QUALITY_IVF_K).fit(train)
+    large_rows = _exact_divergences(large_model, train.features, q_all,
+                                    QUALITY_IVF_K, train.num_features)
+    res["exact_divergences"] = {
+        "xl": {"rows_checked": QUALITY_XL_ROWS, "rows": xl_rows},
+        "large": {"rows_checked": len(q_all), "rows": large_rows}}
+    if not all(r["ulp_check"] for r in xl_rows + large_rows):
+        fail(f"an exact-rung divergence is no near tie: "
+             f"{res['exact_divergences']}")
+    print(f"exact rung against the host oracle (the shadow scorer's rule): "
+          f"{json.dumps(res['exact_divergences'])}")
+
+    # 3. The probe policy's loop on the large fixture's IVF.
+    obs.reset()
+    t0 = time.perf_counter()
+    ivf = IVFIndex.build(train.features, QUALITY_IVF_CELLS, seed=0,
+                         device=torch.device("cuda"))
+    build_s = time.perf_counter() - t0
+    idx_ivf = data_dir / "idx-large-ivf"
+    artifact.save_index(large_model, idx_ivf, ivf=ivf)
+    app = ServeApp(artifact.load_index(idx_ivf), max_batch=256,
+                   max_wait_ms=2.0, batch_buckets=buckets, ivf_probes=1,
+                   shadow_rate=1.0, quality_queue=QUALITY_QUEUE,
+                   index_version="large-ivf")
+    app.warm()
+    policy = app.ivf.policy
+    trace = []
+    halt = threading.Event()
+
+    def poll():
+        while not halt.is_set():
+            queries = sum(i.value for i in registry.instruments()
+                          if i.name == "knn_ivf_queries_total")
+            trace.append((time.perf_counter(), queries, policy.export()))
+            time.sleep(0.005)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    server, th, base = start(app)
+    poller.start()
+    blocks = np.stack([q_all[j % len(q_all)][None] for j in range(3000)])
+    _closed_loop(base, "predict", blocks, 4)
+    halt.set()
+    poller.join(timeout=10)
+    if not app.quality.drain(120):
+        fail("ivf: the shadow queue did not drain")
+    first = next((t for t, q, _ in trace if q > 0), None)
+    widen = next((t for t, _, p in trace if p["moves"]["widen"]), None)
+    nprobe_final = policy.current()
+    if first is None or widen is None or nprobe_final <= 1:
+        fail(f"ivf: the policy did not widen nprobe: {policy.export()}")
+    steps = sorted({p["nprobe"] for _, _, p in trace})
+    ivf_stats = app.quality_block()["shadow"]["rungs"]["ivf"]
+    stop(server, th, app)
+    loaded = artifact.load_index(idx_ivf)
+    sample = q_all[:256]
+    od, oi = oracle_kneighbors(train.features, sample, QUALITY_IVF_K)
+    recall = {}
+    for nprobe in (1, nprobe_final):
+        _, ii, _ = loaded.ivf_.search(train.features, sample, QUALITY_IVF_K,
+                                      nprobe)
+        recall[nprobe] = float(recall_at_k(ii, oi, od, true_distances(
+            train.features, sample, ii, "euclidean")).mean())
+    res["ivf_loop"] = {
+        "cells": QUALITY_IVF_CELLS, "build_s": build_s,
+        "nprobe_before": 1, "nprobe_after": nprobe_final,
+        "nprobe_steps": steps, "moves": policy.moves,
+        "first_widen_ms": (widen - first) * 1e3,
+        "recall_at_k": recall, "shadow_ivf": ivf_stats,
+    }
+    print(f"ivf loop, large fixture, {QUALITY_IVF_CELLS} cells, k "
+          f"{QUALITY_IVF_K}, --ivf-probes 1, shadow rate 1.0: "
+          f"{json.dumps(res['ivf_loop'])}")
+
+    # 4. Replay: the window captured with every layer on, twice, in
+    # process on the card; then the committed fixture through the CLI.
+    wl, model = captured
+    res["replay"] = []
+    for _ in range(2):
+        batcher = MicroBatcher(model, max_batch=256, max_wait_ms=2.0,
+                               index_version=version, buckets=buckets)
+        scan.launches = merge.launches = 0
+        try:
+            v = replay_workload(wl, batcher=batcher, speed=1.0, verify="tag")
+        finally:
+            batcher.close()
+        m, ver = v["measured"], v["verify"]
+        if (m["errors"] or ver["divergences"] or ver["skipped_tag_mismatch"]
+                or ver["verified"] != wl.manifest["requests"]
+                or min(scan.launches, merge.launches) < 1):
+            fail(f"replay of the captured window: {json.dumps(v)[:2000]}")
+        res["replay"].append({**m, "verified": ver["verified"],
+                              "launches": {"stripe_scan": scan.launches,
+                                           "stripe_merge": merge.launches}})
+        print(f"replay of the captured xl window in process: "
+              f"{json.dumps(res['replay'][-1])}")
+    rng = np.random.default_rng(1234)  # tests/fixtures.py:78
+    fx = rng.normal(0.0, 2.0, (512, 8)).astype(np.float32)
+    fy = rng.integers(0, 6, 512).astype(np.int32)
+    idx_fx = data_dir / "idx-replay-fixture"
+    artifact.save_index(KNNClassifier(k=3).fit(Dataset(fx, fy)), idx_fx)
+    verdict_path = data_dir / "replay-fixture-verdict.json"
+    out = subprocess.run(
+        [sys.executable, "-m", "knn_tpu_torch", "replay",
+         str(REPO / "tests" / "data" / "replay-workload"), "--index",
+         str(idx_fx), "--verify", "always", "--verdict-out",
+         str(verdict_path)], capture_output=True, text=True, timeout=300,
+        cwd=REPO)
+    if out.returncode != 0:
+        fail(f"replay CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    verdict = json.loads(verdict_path.read_text())
+    m, ver = verdict["measured"], verdict["verify"]
+    if m["ok"] != 120 or m["errors"]:
+        fail(f"fixture replay: {json.dumps(verdict)[:2000]}")
+    fwl = load_workload(REPO / "tests" / "data" / "replay-workload")
+    fmodel = artifact.load_index(idx_fx)
+    mismatched = {"predict": 0, "kneighbors": 0}
+    for ev in fwl.read_events:
+        q = fwl.rows_for(ev)
+        ds = Dataset(q, np.zeros(len(q), np.int32))
+        if ev["kind"] == "predict":
+            if answer_digest("predict", fmodel.predict(ds)) != ev["digest"]:
+                mismatched["predict"] += 1
+            continue
+        kd, ki = fmodel.kneighbors(ds)
+        if answer_digest("kneighbors", (kd, ki)) == ev["digest"]:
+            continue
+        mismatched["kneighbors"] += 1
+        od, oi = oracle_kneighbors(fx, q, 3)
+        if not (np.array_equal(ki, oi) and np.allclose(
+                kd, od, rtol=8 * 2.0 ** -24, atol=0)):
+            fail(f"fixture event {ev['id']}: the card's neighbors differ "
+                 f"from the oracle's beyond the ulp rule")
+    if mismatched["predict"] or ver["divergences"] != mismatched["kneighbors"]:
+        fail(f"fixture replay digests: {mismatched}, verdict {ver}")
+    res["fixture_replay"] = {
+        key: m[key] for key in ("requests", "ok", "errors", "p50_ms",
+                                "p99_ms", "qps", "late_fires")}
+    res["fixture_replay"].update(
+        verified=ver["verified"], divergences=ver["divergences"],
+        kneighbors_digests_differing=mismatched["kneighbors"],
+        captured=verdict["captured"])
+    print(f"replay tests/data/replay-workload through the CLI on the card: "
+          f"{json.dumps(res['fixture_replay'])} (each differing kneighbors "
+          f"digest: indices equal to the host oracle's, distances within "
+          f"rtol 8 * 2^-24)")
+    obs.disable()
+    print("quality: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2983,6 +3357,9 @@ def main() -> int:
 
     phase("ivf")
     phase_ivf(torch, cuda_knn, xl_x, xl_y, test.features, smi)
+
+    phase("quality")
+    phase_quality(torch, cuda_knn, train_path, test_path, xl_x, smi)
 
     phase("probe_selection")
     sel = phase_probe_selection(torch, dev, cuda_knn)

@@ -52,11 +52,19 @@ trace file into ``DIR``.
 assignment steps on ``--device``) writes the JAX package's index artifact
 (format 3, readable by either package). ``serve INDEX`` loads one, warms
 every batch shape on the card and answers ``/predict``, ``/kneighbors``,
-``/healthz``, ``/metrics``, ``/debug/*`` and ``/admin/reload``
-(``serve/server.py``), with the default path's flags, ``--ivf-probes P``
-and ``--ivf-recall-floor`` (the ``ivf`` rung over the artifact's
-partition) and ``--device {cuda,cpu}``; the flags of the layers later
-slices bring are not in the parser, so argparse refuses them (exit 2).
+``/healthz``, ``/metrics``, ``/debug/*``, ``/admin/reload`` and
+``/admin/capture`` (``serve/server.py``), with the default path's flags,
+``--ivf-probes P`` and ``--ivf-recall-floor`` (the ``ivf`` rung over the
+artifact's partition), the answer-quality and capture flags
+(``--shadow-rate``, ``--drift-rate``, ``--quality-queue``,
+``--quality-seed``, ``--capture-dir``, ``--capture-rate``,
+``--capture-max-requests``, ``--capture-queue``,
+``--capture-burn-threshold``, ``--capture-burn-objective``,
+``--capture-burn-window-s``) and ``--device {cuda,cpu}``; the flags of the
+layers later slices bring are not in the parser, so argparse refuses them
+(exit 2). ``replay WORKLOAD (--url BASE | --index DIR)`` re-drives a
+captured workload (``obs/replay.py``) against a live server or an
+in-process micro-batcher on ``--device`` and prints the verdict.
 
 Exit codes, as the JAX package's (knn_tpu/cli.py:45-54): 0 success; 2 the
 input was rejected before classification (bad flags, bad k, missing or
@@ -85,7 +93,7 @@ from knn_tpu_torch.utils.timing import RegionTimer, maybe_profile
 EXIT_USAGE = 2
 EXIT_RUNTIME = 1
 
-_SUBCOMMANDS = ("classify", "serve", "save-index")
+_SUBCOMMANDS = ("classify", "serve", "save-index", "replay")
 
 # persona -> its default backend
 _PERSONAS = {"main": "native", "multi-thread": "native-mt", "cuda": "cuda"}
@@ -97,7 +105,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="KNN classify on a CUDA card (PyTorch port of knn_tpu)",
     )
     sub = p.add_subparsers(dest="command",
-                           metavar="{classify,serve,save-index}")
+                           metavar="{classify,serve,save-index,replay}")
     _add_serve_args(sub.add_parser(
         "serve",
         help="long-lived micro-batching HTTP server over a prebuilt index",
@@ -113,6 +121,18 @@ def build_parser() -> argparse.ArgumentParser:
                     "(arrays.npz + manifest.json) that `serve` boots from "
                     "without re-parsing ARFF; the JAX package's format, "
                     "readable by either package.",
+    ))
+    _add_replay_args(sub.add_parser(
+        "replay",
+        help="re-drive a captured workload against a live server or an "
+             "in-process batcher and verify the answers",
+        description="Replay a workload artifact (serve --capture-dir / "
+                    "POST /admin/capture, of either package) open-loop "
+                    "with its original inter-arrival timing, verify "
+                    "answers bit-identical wherever index_version and "
+                    "mutation_seq match the capture, and emit a verdict "
+                    "JSON (p50/p99/QPS, divergence counts, captured vs "
+                    "replayed).",
     ))
     c = sub.add_parser(
         "classify",
@@ -273,8 +293,9 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
                    help="degradation SLO: target fraction of requests "
                    "served by the model's own engine")
     p.add_argument("--slo-quality-target", type=float, default=0.999,
-                   help="quality SLO target (scored once shadow scoring "
-                   "comes with a later slice)")
+                   help="quality SLO: target fraction of shadow-scored "
+                   "requests whose answers match the oracle exactly (the "
+                   "ivf rung: meet --ivf-recall-floor)")
     p.add_argument("--slo-windows", default=None, metavar="S1,S2,...",
                    help="burn-rate windows in seconds (default: 300,3600)")
     p.add_argument("--cost-accounting", choices=["on", "off"], default="on",
@@ -293,9 +314,96 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
                    "by the exact kernels. Omitted (default): exact-only "
                    "serving, no IVF machinery")
     p.add_argument("--ivf-recall-floor", type=float, default=0.95,
-                   help="recall@k floor the ivf rung is held to (reported "
-                   "in /healthz; shadow scoring, which burns the quality "
-                   "SLO against it, comes with a later slice)")
+                   help="recall@k floor the ivf rung is held to: a "
+                   "shadow-scored ivf answer under this mean recall burns "
+                   "the quality SLO (the signal the probe policy widens "
+                   "--ivf-probes on)")
+    p.add_argument("--shadow-rate", type=float, default=0.0,
+                   help="shadow-score this fraction of served requests "
+                   "against the host oracle in a background thread "
+                   "(knn_quality_* metrics, /debug/quality); 0 (default) "
+                   "constructs nothing")
+    p.add_argument("--drift-rate", type=float, default=0.0,
+                   help="fold this fraction of served query rows into the "
+                   "query-drift sketch, scored against the artifact's "
+                   "training sketch (knn_drift_* gauges); 0 disables")
+    p.add_argument("--quality-queue", type=int, default=256,
+                   help="bounded shadow/drift sample queue: a full queue "
+                   "sheds samples (counted), never blocks serving")
+    p.add_argument("--quality-seed", type=int, default=0,
+                   help="RNG seed for shadow/drift sampling")
+    p.add_argument("--capture-dir", default=None, metavar="DIR",
+                   help="workload capture: finalized capture windows land "
+                   "versioned workload artifacts under DIR that `replay` "
+                   "re-drives; windows are armed by POST /admin/capture "
+                   "or the burn trigger. Omitted (default): no capture "
+                   "machinery")
+    p.add_argument("--capture-rate", type=float, default=1.0,
+                   help="per-request sampling probability while a capture "
+                   "window is armed")
+    p.add_argument("--capture-max-requests", type=int, default=65536,
+                   help="a capture window finalizes itself at this many "
+                   "captured events")
+    p.add_argument("--capture-queue", type=int, default=1024,
+                   help="bounded capture sample queue: a full queue sheds "
+                   "records (counted), never blocks serving")
+    p.add_argument("--capture-burn-threshold", type=float, default=None,
+                   metavar="BURN",
+                   help="arm a capture window when the chosen SLO "
+                   "objective's short-window burn rate exceeds BURN. "
+                   "Omitted (default): manual arming only")
+    p.add_argument("--capture-burn-objective",
+                   choices=["availability", "latency", "fast_rung",
+                            "quality"],
+                   default="availability",
+                   help="which SLO objective's burn rate arms the "
+                   "burn-triggered capture")
+    p.add_argument("--capture-burn-window-s", type=float, default=60.0,
+                   help="burn-triggered capture windows auto-stop after "
+                   "this many seconds (or at --capture-max-requests)")
+
+
+def _add_replay_args(p: argparse.ArgumentParser) -> None:
+    """``replay``'s flags, with the JAX CLI's names and defaults;
+    ``--device`` is the port's own (where the in-process batcher runs)."""
+    p.add_argument("workload", help="workload artifact directory "
+                   "(manifest.json + queries.npz + events.jsonl)")
+    target = p.add_mutually_exclusive_group(required=True)
+    target.add_argument("--url", default=None, metavar="BASE_URL",
+                        help="replay against a live server (e.g. "
+                        "http://127.0.0.1:8099)")
+    target.add_argument("--index", default=None, metavar="DIR",
+                        help="replay against an in-process micro-batcher "
+                        "over this index artifact (no HTTP overhead)")
+    p.add_argument("--speed", type=float, default=1.0,
+                   help="arrival-clock multiplier: 1 = original "
+                   "inter-arrival timing, 2 = twice as fast, 0 = no "
+                   "pacing")
+    p.add_argument("--verify", choices=["tag", "always", "off"],
+                   default="tag",
+                   help="answer verification: 'tag' (default) requires "
+                   "bit-identical digests wherever index_version and "
+                   "mutation_seq match the capture; 'always' compares "
+                   "every answered pair; 'off' skips verification")
+    p.add_argument("--max-batch", type=int, default=None,
+                   help="in-process batcher policy (default: the "
+                   "workload's captured policy, else 256)")
+    p.add_argument("--max-wait-ms", type=float, default=None,
+                   help="in-process batcher policy (default: the "
+                   "workload's captured policy, else 2.0)")
+    p.add_argument("--mutable", choices=["on", "off"], default="off",
+                   help="in-process mutation replay: 'on' needs the "
+                   "mutable tier (ROADMAP A10) and exits 2; 'off' "
+                   "(default) skips a workload's mutations with a "
+                   "warning, its reads still replay")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the in-process batcher serves the index "
+                   "(cpu: the kernels' plain PyTorch versions)")
+    p.add_argument("--verdict-out", default=None, metavar="FILE",
+                   help="write the verdict JSON to FILE (stdout always "
+                   "gets the one-line summary + the JSON)")
+    p.add_argument("--fail-on-divergence", action="store_true",
+                   help="exit 1 when any verified answer diverged")
 
 
 def _add_save_index_args(p: argparse.ArgumentParser) -> None:
@@ -376,6 +484,8 @@ def _run(argv: Optional[Sequence[str]], stdout) -> int:
         return _run_serve(args, stdout)
     if args.command == "save-index":
         return _run_save_index(args, stdout)
+    if args.command == "replay":
+        return _run_replay(args, stdout)
     return _run_classify(args, stdout)
 
 
@@ -816,6 +926,30 @@ def _run_serve(args, stdout) -> int:
         (not 0 < args.ivf_recall_floor <= 1,
          f"--ivf-recall-floor must be in (0, 1], got "
          f"{args.ivf_recall_floor}"),
+        (not 0 <= args.shadow_rate <= 1,
+         f"--shadow-rate must be in [0, 1], got {args.shadow_rate}"),
+        (not 0 <= args.drift_rate <= 1,
+         f"--drift-rate must be in [0, 1], got {args.drift_rate}"),
+        (args.quality_queue < 1,
+         f"--quality-queue must be >= 1, got {args.quality_queue}"),
+        (not 0 < args.capture_rate <= 1,
+         f"--capture-rate must be in (0, 1], got {args.capture_rate}"),
+        (args.capture_max_requests < 1,
+         f"--capture-max-requests must be >= 1, got "
+         f"{args.capture_max_requests}"),
+        (args.capture_queue < 1,
+         f"--capture-queue must be >= 1, got {args.capture_queue}"),
+        (args.capture_burn_threshold is not None
+         and args.capture_burn_threshold <= 0,
+         f"--capture-burn-threshold must be > 0, got "
+         f"{args.capture_burn_threshold}"),
+        (args.capture_burn_window_s <= 0,
+         f"--capture-burn-window-s must be > 0, got "
+         f"{args.capture_burn_window_s}"),
+        (args.capture_burn_threshold is not None
+         and args.capture_dir is None,
+         "--capture-burn-threshold needs --capture-dir (the trigger "
+         "has nowhere to write its artifact)"),
     ):
         if bad:
             _error(msg)
@@ -875,12 +1009,25 @@ def _run_serve(args, stdout) -> int:
             result_cache_rows=args.result_cache_rows, device=args.device,
             ivf_probes=args.ivf_probes,
             ivf_recall_floor=args.ivf_recall_floor,
+            shadow_rate=args.shadow_rate, drift_rate=args.drift_rate,
+            quality_queue=args.quality_queue, quality_seed=args.quality_seed,
+            reference_sketch=artifact.reference_sketch(manifest),
+            capture_dir=args.capture_dir,
+            capture_rate=args.capture_rate,
+            capture_max_requests=args.capture_max_requests,
+            capture_queue=args.capture_queue,
+            capture_burn_threshold=args.capture_burn_threshold,
+            capture_burn_objective=args.capture_burn_objective,
+            capture_burn_window_s=args.capture_burn_window_s,
         )
-    except OSError as e:  # an unwritable --access-log path
+    except OSError as e:  # an unwritable --access-log / --capture-dir path
         _error(e)
         return EXIT_USAGE
     except DataError as e:  # --ivf-probes against an exact-only artifact
         _error(e)
+        return EXIT_USAGE
+    except ValueError as e:  # a malformed/mismatched manifest drift sketch
+        _error(f"{args.index}: {e}")
         return EXIT_USAGE
     try:
         server = make_server(app, args.host, args.port)
@@ -913,6 +1060,119 @@ def _run_serve(args, stdout) -> int:
         file=stdout, flush=True,
     )
     return serve_forever(server, drain_timeout_s=args.drain_timeout_s)
+
+
+def _run_replay(args, stdout) -> int:
+    """``replay WORKLOAD (--url BASE | --index DIR)``: re-drive a captured
+    workload and print/write the verdict JSON. A bad workload or index
+    artifact, or a flag the port cannot honor, exits 2 before any
+    compute; a replay that cannot run exits 1; a completed replay exits 0
+    — unless ``--fail-on-divergence`` and a verified answer diverged."""
+    from knn_tpu_torch.obs.replay import replay_workload
+    from knn_tpu_torch.obs.workload import load_workload
+    from knn_tpu_torch.resilience.errors import DataError
+
+    for bad, msg in (
+        (args.speed < 0, f"--speed must be >= 0, got {args.speed}"),
+        (args.max_batch is not None and args.max_batch < 1,
+         f"--max-batch must be >= 1, got {args.max_batch}"),
+        (args.max_wait_ms is not None and args.max_wait_ms < 0,
+         f"--max-wait-ms must be >= 0, got {args.max_wait_ms}"),
+        (args.url is not None and args.mutable == "on",
+         "--mutable applies to the in-process --index mode only (a live "
+         "server owns its own mutable engine)"),
+        (args.mutable == "on",
+         "--mutable on: in-process mutation replay needs the mutable tier "
+         "(ROADMAP A10)"),
+    ):
+        if bad:
+            _error(msg)
+            return EXIT_USAGE
+    try:
+        wl = load_workload(args.workload)
+    except DataError as e:
+        _error(e)
+        return EXIT_USAGE
+    policy = wl.manifest.get("policy") or {}
+    batcher = None
+    try:
+        if args.index is not None:
+            from knn_tpu_torch.obs.capacity import CapacityTracker
+            from knn_tpu_torch.serve import artifact
+            from knn_tpu_torch.serve.batcher import MicroBatcher
+
+            try:
+                model = artifact.load_index(args.index, device=args.device)
+                version = artifact.index_version(
+                    artifact.read_manifest(args.index))
+            except DataError as e:
+                _error(e)
+                return EXIT_USAGE
+            if model.train_.num_features != wl.manifest["num_features"]:
+                _error(f"{args.index}: feature width "
+                       f"{model.train_.num_features} does not match the "
+                       f"workload's {wl.manifest['num_features']} — this "
+                       f"workload was captured against a different schema")
+                return EXIT_USAGE
+            max_batch = args.max_batch or policy.get("max_batch") or 256
+            max_wait = (args.max_wait_ms if args.max_wait_ms is not None
+                        else policy.get("max_wait_ms", 2.0))
+            if wl.manifest.get("mutations", 0) > 0:
+                print(f"warning: the workload carries "
+                      f"{wl.manifest['mutations']} mutations but --mutable "
+                      f"is off; skipping them (reads still replay; their "
+                      f"mutation_seq tags will not match)", file=sys.stderr)
+            capacity = CapacityTracker(max_batch)
+            artifact.warmup(model, batch_sizes=(1, max_batch),
+                            kinds=("predict",))
+            batcher = MicroBatcher(
+                model, max_batch=max_batch, max_wait_ms=max_wait,
+                max_queue_rows=max(4096, max_batch), index_version=version,
+                capacity=capacity,
+            )
+            verdict = replay_workload(
+                wl, batcher=batcher, speed=args.speed, verify=args.verify,
+                replay_mutations=False)
+            verdict["capacity"] = capacity.export()
+        else:
+            verdict = replay_workload(wl, base_url=args.url.rstrip("/"),
+                                      speed=args.speed, verify=args.verify)
+    except ResilienceError as e:  # no card, a failed build or launch
+        _error(f"replay failed: {type(e).__name__}: {e}")
+        return EXIT_RUNTIME
+    except (OSError, RuntimeError, ValueError) as e:
+        _error(f"replay failed: {type(e).__name__}: {e}")
+        return EXIT_RUNTIME
+    finally:
+        if batcher is not None:
+            batcher.close()
+    m, v = verdict["measured"], verdict["verify"]
+    print(
+        f"replayed {m['requests']} requests "
+        f"({verdict['mutations']['fired']} mutations) at speed "
+        f"{args.speed}: p50 {m['p50_ms']} ms / p99 {m['p99_ms']} ms / "
+        f"{m['qps']} q/s; verified {v['verified']}, divergences "
+        f"{v['divergences']}, tag-mismatch skipped "
+        f"{v['skipped_tag_mismatch']}",
+        file=stdout,
+    )
+    doc = json.dumps(verdict)
+    if args.verdict_out:
+        try:
+            from pathlib import Path
+
+            Path(args.verdict_out).parent.mkdir(parents=True, exist_ok=True)
+            with open(args.verdict_out, "w", encoding="utf-8") as f:
+                f.write(doc + "\n")
+        except OSError as e:
+            _error(e)
+            return EXIT_RUNTIME
+    print(doc, file=stdout)
+    if args.fail_on_divergence and v["divergences"] > 0:
+        _error(f"{v['divergences']} verified answer(s) diverged from the "
+               f"capture")
+        return EXIT_RUNTIME
+    return 0
 
 
 def main() -> None:

@@ -23,8 +23,22 @@
 - :mod:`knn_tpu_torch.obs.devprof` — the card's side: ``torch.profiler``
   captures (``--profile-out``, ``/debug/profile``), device-memory gauges,
   the kernel builds as compile events, executable-signature hit/miss;
+- :mod:`knn_tpu_torch.obs.shedqueue` — the bounded shed-on-overload sample
+  queue the answer-quality and workload layers ride (the serving worker
+  never blocks on them);
+- :mod:`knn_tpu_torch.obs.quality` — shadow-scored answer quality: sampled
+  served requests re-answered on the host oracle, recall and divergences
+  by answering rung, the ``quality`` SLI (``knn_quality_*``, ``GET
+  /debug/quality``);
 - :mod:`knn_tpu_torch.obs.drift` — the training-distribution sketch an
-  index artifact carries.
+  index artifact carries, and query drift scored against it
+  (``knn_drift_*``);
+- :mod:`knn_tpu_torch.obs.workload` — workload capture: serving traffic
+  recorded into the JAX package's workload artifact (``POST
+  /admin/capture``, ``knn_workload_*``);
+- :mod:`knn_tpu_torch.obs.replay` — open-loop replay of a captured
+  workload against a live server or an in-process batcher, verified by
+  answer digest (the ``replay`` subcommand).
 
 Everything is OFF by default and zero-cost when off: ``span()`` returns a
 shared no-op context manager and the metric helpers return at once, so the

@@ -13,7 +13,10 @@ low-latency request serving over a prebuilt index.
 - :mod:`knn_tpu_torch.serve.cache`    — the exact-match result cache;
 - :mod:`knn_tpu_torch.serve.server`   — the HTTP front-end (stdlib
   ``ThreadingHTTPServer``): ``/predict``, ``/kneighbors``, ``/healthz``,
-  ``/metrics``, ``/debug/*``, ``/admin/reload``.
+  ``/metrics``, ``/debug/*``, ``/admin/reload``, ``/admin/capture``; with
+  ``--shadow-rate``, ``--drift-rate`` and ``--capture-dir`` it builds the
+  answer-quality and workload layers of :mod:`knn_tpu_torch.obs` and taps
+  the batcher into them (host threads; nothing more on the card).
 
 The serving ladder stops at the card: a failing kernel is retried in place
 (transient), rerun in halved batches (out of memory), or reported typed —

@@ -120,13 +120,15 @@ class _Request:
     __slots__ = (
         "features", "kind", "rows", "enqueued_ns", "deadline_ns", "event",
         "value", "error", "meta", "trace", "request_class", "accounting",
+        "workload",
     )
 
     def __init__(self, features: np.ndarray, kind: str,
                  deadline_ns: Optional[int],
                  trace: "Optional[reqtrace.RequestTrace]" = None,
                  request_class: Optional[str] = None,
-                 accounting: "Optional[acct.CostAccountant]" = None):
+                 accounting: "Optional[acct.CostAccountant]" = None,
+                 workload=None):
         self.features = features
         self.kind = kind
         self.rows = features.shape[0]
@@ -139,6 +141,7 @@ class _Request:
         self.trace = trace
         self.request_class = request_class
         self.accounting = accounting
+        self.workload = workload
 
     # -- completion (worker side) -----------------------------------------
 
@@ -152,6 +155,12 @@ class _Request:
             )
             if self.accounting is not None:
                 self.accounting.note_outcome(self.request_class, outcome)
+            if self.workload is not None:
+                # Workload capture tap: one predicate while no window is
+                # armed; during one, a seeded draw + an O(1) bounded
+                # append, shed when full, never blocking. Annotates the
+                # trace with the record id.
+                self.workload.note_request(self, outcome)
             if self.trace is not None:
                 if self.error is not None:
                     self.trace.annotate(
@@ -374,7 +383,23 @@ class MicroBatcher:
     ``ivf``            — an optional
                          :class:`~knn_tpu_torch.index.ivf.IVFServing`:
                          slots the ``ivf`` rung above ``fast`` for models
-                         that carry a partition (``model.ivf_``).
+                         that carry a partition (``model.ivf_``);
+    ``quality``        — an optional
+                         :class:`~knn_tpu_torch.obs.quality.ShadowScorer`:
+                         each served request is offered for shadow scoring
+                         after its future is signalled, carrying its
+                         batch's own (model, version) snapshot;
+    ``drift``          — an optional
+                         :class:`~knn_tpu_torch.obs.drift.DriftMonitor`:
+                         served query rows are offered to the drift sketch;
+    ``workload``       — an optional
+                         :class:`~knn_tpu_torch.obs.workload.WorkloadCapture`:
+                         every terminal request outcome (ok, expired,
+                         error, rejected) is offered for capture.
+
+    The three layers are host work on threads of their own: a layer that
+    is off costs one ``is None`` test per call site, and none of them
+    launches anything on the card.
     """
 
     def __init__(self, model, *, max_batch: int = 256,
@@ -382,7 +407,8 @@ class MicroBatcher:
                  index_version: Optional[str] = None,
                  recorder: "Optional[reqtrace.FlightRecorder]" = None,
                  accounting=None, capacity=None, buckets=None,
-                 result_cache_rows: int = 0, ivf=None):
+                 result_cache_rows: int = 0, ivf=None, quality=None,
+                 drift=None, workload=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_wait_ms < 0:
@@ -409,6 +435,15 @@ class MicroBatcher:
         else:
             self.cache = None
         self.ivf = ivf
+        self.quality = quality
+        self.drift = drift
+        self.workload = workload
+        # TEST-ONLY corruption hook: when set, served neighbor indices are
+        # rotated by one train row — a silently-wrong index whose
+        # responses still look healthy to every other SLI. The shadow
+        # scorer must catch it; nothing but tests and the server's
+        # KNN_TPU_TEST_QUALITY_CORRUPT + SIGUSR2 hook sets it.
+        self.corrupt_serving = False
         self._model = model
         self._index_version = index_version
         self.recorder = recorder
@@ -482,7 +517,7 @@ class MicroBatcher:
             trace = self.recorder.new_trace(kind, x.shape[0])
         req = _Request(x, kind, deadline_ns, trace,
                        request_class=request_class,
-                       accounting=self.accounting)
+                       accounting=self.accounting, workload=self.workload)
         if trace is not None:
             req.meta["request_id"] = trace.request_id
             if self.accounting is not None:
@@ -518,6 +553,10 @@ class MicroBatcher:
                 self.accounting.note_outcome(request_class, "rejected")
             if self.capacity is not None:
                 self.capacity.note_arrival(req.rows)
+            if self.workload is not None:
+                # A refused admission is still workload: a capture without
+                # its 429s would replay as lighter load than was offered.
+                self.workload.note_request(req, "rejected")
             if trace is not None:
                 trace.annotate(error=f"{type(e).__name__}: {e}")
                 trace.finish("rejected")
@@ -1008,7 +1047,8 @@ class MicroBatcher:
     def _finish_served(self, req: "_Request", d, i, model, version,
                        rung: str, cache_hit: bool = False) -> None:
         """Complete ONE request from its retrieval slice: meta tags, the
-        per-kind value (vote/aggregate on host), future signal, capacity."""
+        per-kind value (vote/aggregate on host), future signal, capacity,
+        then the quality and drift taps."""
         req.meta["index_version"] = version
         req.meta["rung"] = rung
         if cache_hit:
@@ -1029,6 +1069,17 @@ class MicroBatcher:
                 req.rows,
                 (time.monotonic_ns() - req.enqueued_ns) / 1e6,
             )
+        # Quality taps, AFTER the future is signalled: one RNG draw + an
+        # O(1) append per layer, shed when full — the response is already
+        # on its way to the client.
+        if self.quality is not None:
+            self.quality.offer(
+                features=req.features, kind=req.kind, dists=d, idx=i,
+                preds=(value if req.kind == "predict" else None),
+                rung=rung, model=model, version=version,
+            )
+        if self.drift is not None:
+            self.drift.offer(req.features)
 
     def _dispatch(self, batch: "list[_Request]") -> None:
         self._admit_topup(batch)
@@ -1105,11 +1156,16 @@ class MicroBatcher:
                     return
                 if padded is not None and hasattr(dispatch_span, "attrs"):
                     dispatch_span.attrs["padded_rows"] = padded
+                if self.corrupt_serving:
+                    # Test-only (see __init__): every served neighbor is
+                    # off by one train row while distances stay plausible.
+                    idx = (idx + 1) % model.train_.num_instances
                 # Only the primary rung's answers are cached: a degraded
                 # (ivf -> fast) answer is not what the key's operating
                 # point would return.
-                cacheable = miss_keys is not None and rung == (
+                cacheable = (miss_keys is not None and rung == (
                     "ivf" if ivf_active else "fast")
+                    and not self.corrupt_serving)
                 off = 0
                 for req in live:
                     d = dists[off:off + req.rows]

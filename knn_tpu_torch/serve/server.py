@@ -29,14 +29,25 @@ Endpoint contract (the JAX package's, docs/SERVING.md):
 - ``GET /debug/profile?ms=N`` → a ``torch.profiler`` capture of N ms
   (``obs/devprof.py``) while the other threads keep serving; 409 while
   another capture runs.
+- ``GET /debug/quality`` → the answer-quality join: shadow-scored recall,
+  vote accuracy and divergence per answering rung (``obs/quality.py``,
+  ``--shadow-rate``), the drift summary against the artifact's training
+  sketch (``obs/drift.py``, ``--drift-rate``; a pre-sketch artifact
+  reports ``baseline: "absent"``) and the ``quality`` SLO's burn rates.
+  Always 200: a layer that is off reports ``null``.
+- ``GET /debug/capture`` → the workload-capture status (``enabled: false``
+  while ``--capture-dir`` is unset); ``POST /admin/capture`` body
+  ``{"action": "start"|"stop"}`` arms or finalizes a capture window
+  (``obs/workload.py``): 404 while the layer is off, 409 on a state
+  contradiction; ``stop`` returns the artifact's path and counts.
 
 The routes of the layers later slices bring answer as the JAX package
-answers them with the layer off: ``/debug/quality``, ``/debug/capture``,
-``/debug/control``, ``/debug/history`` and ``/debug/alerts`` are 200 with
-``enabled`` false and null blocks; the mutation and replication routes
-(``/insert``, ``/delete``, ``/admin/compact``, ``/admin/capture``,
-``/admin/wal-append``, ``/admin/promote``, ``/admin/bootstrap``,
-``/admin/wal-since``, ``/admin/snapshot``) are 404 with the layer named.
+answers them with the layer off: ``/debug/control``, ``/debug/history``
+and ``/debug/alerts`` are 200 with ``enabled`` false and null blocks; the
+mutation and replication routes (``/insert``, ``/delete``,
+``/admin/compact``, ``/admin/wal-append``, ``/admin/promote``,
+``/admin/bootstrap``, ``/admin/wal-since``, ``/admin/snapshot``) are 404
+with the layer named.
 
 Every request carries a **request id** (a valid ``x-request-id``, else a
 generated one), echoed on every response (header + JSON body), resolvable
@@ -50,8 +61,11 @@ Status mapping: :class:`OverloadError` → 429 (503 while draining),
 the error class in the body.
 
 Signals: SIGTERM drains (the LISTENER closes first, then healthz flips to
-503, in-flight answered within ``--drain-timeout-s``, remainders 504,
-exit 0); SIGINT stops; SIGHUP reloads.
+503, in-flight answered within ``--drain-timeout-s``, remainders 504, the
+quality and capture layers closed, an armed capture window finalized,
+exit 0); SIGINT stops; SIGHUP reloads. Under
+``KNN_TPU_TEST_QUALITY_CORRUPT``, and only then, SIGUSR2 arms the
+batcher's test-only corruption hook (the shadow scorer must catch it).
 """
 
 from __future__ import annotations
@@ -59,6 +73,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import random
 import sys
 import threading
@@ -93,8 +108,6 @@ _OFF_POST = {
                       "--mutable on`",
     "/admin/bootstrap": "mutable serving is off — boot with `serve INDEX "
                         "--mutable on`",
-    "/admin/capture": "workload capture is off — boot with `serve INDEX "
-                      "--capture-dir DIR`",
     "/admin/wal-append": "fleet replication is off — boot with `serve INDEX "
                          "--mutable on --follower-of PRIMARY_URL`",
     "/admin/promote": "fleet replication is off — this process has no role "
@@ -153,7 +166,17 @@ class ServeApp:
     cells per query, held to ``ivf_recall_floor``. It is validated before
     anything is built (a partition-less artifact or probes out of range:
     :class:`DataError`); None (the default) constructs nothing of the
-    index family."""
+    index family.
+
+    ``shadow_rate`` and ``drift_rate`` (``serve --shadow-rate`` /
+    ``--drift-rate``, rate 0 constructs nothing) build the answer-quality
+    layers, sharing ``quality_queue`` and ``quality_seed``; the drift
+    layer's baseline is ``reference_sketch`` (the artifact's
+    ``drift_sketch``, None for a pre-sketch artifact). With the ivf rung
+    the shadow scorer holds it to ``ivf_recall_floor``, and the quality
+    burn it feeds is what the probe policy widens ``nprobe`` on.
+    ``capture_dir`` (``--capture-dir``; None constructs nothing) builds
+    the workload recorder with the ``capture_*`` knobs."""
 
     def __init__(self, model, *, max_batch: int = 256,
                  max_wait_ms: float = 2.0, max_queue_rows: int = 4096,
@@ -167,7 +190,17 @@ class ServeApp:
                  capacity_window_s: int = 60,
                  batch_buckets=None, result_cache_rows: int = 0,
                  device=None, ivf_probes: Optional[int] = None,
-                 ivf_recall_floor: float = 0.95):
+                 ivf_recall_floor: float = 0.95,
+                 shadow_rate: float = 0.0, drift_rate: float = 0.0,
+                 quality_queue: int = 256, quality_seed: int = 0,
+                 reference_sketch: Optional[dict] = None,
+                 capture_dir: Optional[str] = None,
+                 capture_rate: float = 1.0,
+                 capture_max_requests: int = 65536,
+                 capture_queue: int = 1024,
+                 capture_burn_threshold: Optional[float] = None,
+                 capture_burn_objective: str = "availability",
+                 capture_burn_window_s: float = 60.0):
         # Validated FIRST: a DataError here must abort before any worker
         # thread exists.
         if ivf_probes is not None:
@@ -200,6 +233,31 @@ class ServeApp:
             if flight_recorder_size > 0 else None
         )
         self.slo = slo if slo is not None else SLOTracker()
+        # Answer-quality layers: rate 0 constructs nothing. Drift first:
+        # it is the layer that validates (a malformed or wrong-width
+        # manifest sketch raises here), and a construction abort must not
+        # leave an already-started scorer thread behind.
+        if drift_rate > 0:
+            from knn_tpu_torch.obs.drift import DriftMonitor
+
+            self.drift = DriftMonitor(
+                reference_sketch, rate=drift_rate,
+                num_features=model.train_.num_features,
+                queue_cap=quality_queue, seed=quality_seed,
+            )
+        else:
+            self.drift = None
+        if shadow_rate > 0:
+            from knn_tpu_torch.obs.quality import ShadowScorer
+
+            self.quality = ShadowScorer(
+                shadow_rate, queue_cap=quality_queue, seed=quality_seed,
+                slo=self.slo,
+                approx_floors=({"ivf": self.ivf_recall_floor}
+                               if ivf_probes is not None else None),
+            )
+        else:
+            self.quality = None
         self.access_log = AccessLog(access_log) if access_log else None
         if cost_accounting:
             from knn_tpu_torch.obs.accounting import CostAccountant
@@ -220,12 +278,31 @@ class ServeApp:
             )
         else:
             self.ivf = None
+        if capture_dir is not None:
+            from knn_tpu_torch.obs.workload import WorkloadCapture
+
+            self.workload = WorkloadCapture(
+                capture_dir, num_features=model.train_.num_features,
+                k=model.k, rate=capture_rate,
+                max_requests=capture_max_requests,
+                queue_cap=capture_queue, slo=self.slo,
+                burn_threshold=capture_burn_threshold,
+                burn_objective=capture_burn_objective,
+                burn_window_s=capture_burn_window_s,
+                policy={"max_batch": max_batch,
+                        "max_wait_ms": max_wait_ms,
+                        "max_queue_rows": max_queue_rows},
+                index_version=index_version,
+            )
+        else:
+            self.workload = None
         self.batcher = MicroBatcher(
             model, max_batch=max_batch, max_wait_ms=max_wait_ms,
             max_queue_rows=max_queue_rows, index_version=index_version,
             recorder=self.recorder, accounting=self.accounting,
             capacity=self.capacity, buckets=batch_buckets,
             result_cache_rows=result_cache_rows, ivf=self.ivf,
+            quality=self.quality, drift=self.drift, workload=self.workload,
         )
         self.ready = False
         self.draining = False
@@ -365,6 +442,12 @@ class ServeApp:
                 warmup_ms.update(self._warm_ivf(model, sizes))
                 if self.capacity is not None:
                     self._seed_capacity_model(model)
+            if self.drift is not None:
+                # BEFORE the swap: the new artifact's sketch is the new
+                # baseline (or none: a pre-sketch rollback). A malformed or
+                # mismatched sketch raises here, so the old index keeps
+                # serving.
+                self.drift.set_reference(artifact.reference_sketch(manifest))
             previous = self.batcher.swap_model(model, version)
             self.model = model
             self.index_version = version
@@ -451,9 +534,22 @@ class ServeApp:
             "ms": round((time.monotonic() - t0) * 1e3, 3),
         }
 
+    def close_layers(self) -> None:
+        """Close the quality and capture layers after serving stopped:
+        finalize an armed capture window first (an incident's capture
+        must survive the shutdown it may have caused), then stop the
+        scorer and drift threads. Idempotent."""
+        if self.workload is not None:
+            self.workload.close()
+        if self.quality is not None:
+            self.quality.close()
+        if self.drift is not None:
+            self.drift.close()
+
     def close(self) -> None:
         self.ready = False
         self.batcher.close()
+        self.close_layers()
         if self.access_log is not None:
             self.access_log.close()
 
@@ -487,7 +583,8 @@ class ServeApp:
             "capacity": (self.capacity.export()
                          if self.capacity is not None else None),
             "mutable": None,
-            "workload": None,
+            "workload": (self.workload.export()
+                         if self.workload is not None else None),
             "shard": None,
             "fleet": None,
             "control": None,
@@ -504,9 +601,16 @@ class ServeApp:
         return 1.0 + random.random()
 
     def quality_block(self) -> dict:
-        """The answer-quality summary: both layers come with a later slice
-        (ROADMAP A8b), so both report null — the distinct "off" state."""
-        return {"shadow": None, "drift": None}
+        """The answer-quality summary for ``/healthz`` and
+        ``/debug/quality``: the shadow scorer's per-rung stats and the
+        drift summary, each None while its layer is off. ``export()``
+        also refreshes the ``knn_quality_*``/``knn_drift_*`` gauges."""
+        return {
+            "shadow": (self.quality.export()
+                       if self.quality is not None else None),
+            "drift": (self.drift.export()
+                      if self.drift is not None else None),
+        }
 
     @staticmethod
     def _device_block() -> dict:
@@ -618,7 +722,9 @@ class _Handler(BaseHTTPRequestHandler):
         elif route == "/debug/capacity":
             self._do_capacity()
         elif route == "/debug/capture":
-            self._send(200, {"enabled": False,
+            w = self.app.workload
+            self._send(200, {"enabled": w is not None,
+                             **(w.export() if w is not None else {}),
                              "index_version": self.app.index_version},
                        tag_request_id=False)
         elif route == "/debug/control":
@@ -649,13 +755,18 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _do_metrics(self):
         # Refresh the scrape-time gauges (knn_slo_*, knn_device_memory_*,
-        # knn_capacity_*) before rendering.
+        # knn_quality_*, knn_drift_*, knn_capacity_*, knn_workload_*)
+        # before rendering; the capture export also completes a timed
+        # window whose traffic ceased.
         self.app.slo.export()
         from knn_tpu_torch.obs import devprof
 
         devprof.record_device_memory()
+        self.app.quality_block()
         if self.app.capacity is not None:
             self.app.capacity.export()
+        if self.app.workload is not None:
+            self.app.workload.export()
         accept = self.headers.get("Accept", "")
         if "application/openmetrics-text" in accept:
             self._send_text(
@@ -670,13 +781,16 @@ class _Handler(BaseHTTPRequestHandler):
             )
 
     def _do_quality(self):
-        """The answer-quality join, with both of its layers off (they come
-        with a later slice): 200 with null blocks, so dashboards can
-        hard-code the route."""
+        """The answer-quality join: shadow recall/accuracy and per-rung
+        divergence, the drift summary, and the quality SLO's burn rates
+        in one payload. Always 200: a layer that is off reports null, so
+        dashboards can hard-code the route."""
+        block = self.app.quality_block()
         burns = self.app.slo.burn_rates()
         payload = {
-            "enabled": {"shadow": False, "drift": False},
-            **self.app.quality_block(),
+            "enabled": {"shadow": self.app.quality is not None,
+                        "drift": self.app.drift is not None},
+            **block,
             "slo_quality": {
                 "target": self.app.slo.targets["quality"],
                 "burn_rates": burns.get("quality", {}),
@@ -810,6 +924,9 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/admin/reload":
             self._do_reload()
             return
+        if self.path == "/admin/capture":
+            self._do_capture_admin()
+            return
         if self.path in _OFF_POST:
             self.close_connection = True
             self._send(404, {"error": _OFF_POST[self.path]})
@@ -820,6 +937,62 @@ class _Handler(BaseHTTPRequestHandler):
             return
         with self.app.track_request():
             self._do_inference(self.path[1:])
+
+    def _do_capture_admin(self):
+        """``POST /admin/capture`` body ``{"action": "start"|"stop"}``:
+        arm / finalize a workload-capture window. ``start`` takes optional
+        ``max_requests``, ``window_s`` and ``reason``; ``stop`` returns the
+        finalized artifact's summary. 404 while ``--capture-dir`` is unset,
+        409 on a state contradiction (start while armed, stop while
+        idle)."""
+        if self.app.workload is None:
+            self.close_connection = True
+            self._send(404, {"error": "workload capture is off — boot "
+                                      "with `serve INDEX --capture-dir "
+                                      "DIR`"})
+            return
+        body, err, status = self._read_json_body(required=True)
+        if err is not None:
+            self.close_connection = True
+            self._send(status, {"error": err})
+            return
+        from knn_tpu_torch.obs.workload import CaptureStateError
+
+        action = body.get("action")
+        try:
+            if action == "start":
+                max_requests = body.get("max_requests")
+                window_s = body.get("window_s")
+                if max_requests is not None:
+                    max_requests = int(max_requests)
+                    if max_requests < 1:
+                        raise ValueError(
+                            f"max_requests must be >= 1, got {max_requests}")
+                if window_s is not None:
+                    window_s = float(window_s)
+                    if not math.isfinite(window_s) or window_s <= 0:
+                        raise ValueError(
+                            f"window_s must be > 0, got {window_s}")
+                result = self.app.workload.start(
+                    reason=str(body.get("reason") or "manual")[:64],
+                    max_requests=max_requests, window_s=window_s)
+            elif action == "stop":
+                result = self.app.workload.stop()
+            else:
+                raise ValueError(
+                    f'unknown action {action!r}: want "start" or "stop"')
+        except CaptureStateError as e:
+            self._send(409, {"error": str(e)})
+            return
+        except (TypeError, ValueError) as e:
+            self._send(400, {"error": f"bad request body: {e}"})
+            return
+        except OSError as e:
+            # The artifact write failed (disk full, permissions): the
+            # capture is lost but the server keeps serving.
+            self._send(500, {"error": f"capture write failed: {e}"})
+            return
+        self._send(200, result)
 
     def _do_reload(self):
         body, err, status = self._read_json_body(required=False)
@@ -1028,10 +1201,14 @@ def drain_and_stop(server: KNNServer, drain_timeout_s: float) -> dict:
     """The SIGTERM sequence: (1) stop the accept loop, (2) close the
     LISTENING socket — from here a new connect is refused at the TCP
     layer — and only THEN (3) flip healthz to draining and answer every
-    in-flight request. In-flight connections ride their own sockets."""
+    in-flight request, (4) close the quality and capture layers (an armed
+    capture window lands on disk). In-flight connections ride their own
+    sockets."""
     server.shutdown()
     server.server_close()
-    return server.app.drain(drain_timeout_s)
+    summary = server.app.drain(drain_timeout_s)
+    server.app.close_layers()
+    return summary
 
 
 def serve_forever(server: KNNServer, *, banner=None,
@@ -1041,6 +1218,8 @@ def serve_forever(server: KNNServer, *, banner=None,
     - SIGINT: fast clean stop.
     - SIGTERM: graceful drain (listener first), exit 0 either way.
     - SIGHUP: hot index reload from the boot path (rollback on failure).
+    - SIGUSR2, installed only under ``KNN_TPU_TEST_QUALITY_CORRUPT``: the
+      test-only corruption hook (``MicroBatcher.corrupt_serving``).
     """
     import signal
 
@@ -1075,10 +1254,22 @@ def serve_forever(server: KNNServer, *, banner=None,
 
         threading.Thread(target=work, daemon=True).start()
 
+    def on_sigusr2(signum, frame):
+        # TEST-ONLY: serve silently-wrong neighbor indices so a test can
+        # prove the shadow scorer catches them. Production serves never
+        # install this handler.
+        server.app.batcher.corrupt_serving = True
+        print("warning: TEST HOOK engaged — serving corrupted neighbor "
+              "indices (KNN_TPU_TEST_QUALITY_CORRUPT + SIGUSR2)",
+              file=sys.stderr, flush=True)
+
     previous = {}
     handlers = {signal.SIGINT: on_sigint, signal.SIGTERM: on_sigterm}
     if hasattr(signal, "SIGHUP"):
         handlers[signal.SIGHUP] = on_sighup
+    if (hasattr(signal, "SIGUSR2")
+            and os.environ.get("KNN_TPU_TEST_QUALITY_CORRUPT")):
+        handlers[signal.SIGUSR2] = on_sigusr2
     for sig, handler in handlers.items():
         try:
             previous[sig] = signal.signal(sig, handler)

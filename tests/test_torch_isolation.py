@@ -143,6 +143,51 @@ def test_index_family_leaves_jax_and_knn_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_quality_and_workload_layers_leave_jax_and_knn_tpu_out():
+    # The answer-quality and workload slice: import its five modules, serve
+    # with shadow scoring, drift and capture on, capture a window, replay it
+    # in-process through the CLI, then look.
+    code = (
+        "import io, os, sys, tempfile\n"
+        "import knn_tpu_torch.obs.shedqueue, knn_tpu_torch.obs.drift\n"
+        "import knn_tpu_torch.obs.quality, knn_tpu_torch.obs.workload\n"
+        "import knn_tpu_torch.obs.replay\n"
+        "from knn_tpu_torch import cli\n"
+        "from knn_tpu_torch.serve import artifact, server\n"
+        "tr = sys.argv[1]\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "idx = os.path.join(tmp, 'idx')\n"
+        "assert cli.run(['save-index', tr, idx, '--k', '3'],\n"
+        "               stdout=io.StringIO()) == 0\n"
+        "m = artifact.read_manifest(idx)\n"
+        "app = server.ServeApp(\n"
+        "    artifact.load_index(idx, device='cpu'), max_wait_ms=0.0,\n"
+        "    shadow_rate=1.0, drift_rate=1.0,\n"
+        "    reference_sketch=artifact.reference_sketch(m),\n"
+        "    capture_dir=os.path.join(tmp, 'caps'),\n"
+        "    index_version=artifact.index_version(m))\n"
+        "app.workload.start()\n"
+        "app.batcher.submit(app.model.train_.features[:2],\n"
+        "                   'predict').result(timeout=30)\n"
+        "assert app.quality.drain(30) and app.workload.drain(30)\n"
+        "path = app.workload.stop()['path']\n"
+        "assert app.quality_block()['shadow']['scored'] == 1\n"
+        "app.close()\n"
+        "assert cli.run(['replay', path, '--index', idx, '--device', 'cpu',\n"
+        "                '--speed', '0', '--fail-on-divergence'],\n"
+        "               stdout=io.StringIO()) == 0\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'knn_tpu'))\n"
+        "print(bad)\n"
+    )
+    d = fixtures.datasets_dir()
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(d / "small-train.arff")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 # A path component "knn_tpu" in a string the code uses (not a docstring),
 # apart from a "knn_tpu/....py:LINE" reference to the reference's source.
 _JAX_PATH = re.compile(r"(^|[/\\])knn_tpu([/\\]|$)")
