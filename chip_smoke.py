@@ -156,7 +156,32 @@ Phases, each printed as it runs; any failure exits non-zero:
                         the committed fixture (120 ok, every predict
                         digest equal, each differing kneighbors answer the
                         oracle's within the ulp rule).
-20. ``kernels``       — one JSON line describing every kernel.
+20. ``mutable``       — the mutable tier (run after ``quality``): the xl
+                        index served ``--mutable on`` (``delta_cap`` 4,096,
+                        threshold 16,384, no interval thread) — 200
+                        single-row ``/predict`` and 16 ``/kneighbors``
+                        byte-equal to ``--mutable off``, 1 stripe scan and
+                        1 merge per batch; 1,024 inserts in bodies of 64,
+                        256 base and 64 delta deletes, each write read back
+                        at its ``mutation_seq``; 256 queries against the
+                        merged oracle (indices but for near ties, distances
+                        by the ulp rule), shadow scoring at 1.0; p50, p99,
+                        q/s at c = 1 and 8 with the delta empty, after the
+                        writes and full, launches per batch and the host
+                        merge's share; the 429 past the cap; the delta tail
+                        on the card (the large fixture, ``engine="xla"``,
+                        k = 5: bit-equal to the host merge, no hand kernel)
+                        and the fused delta segment scorer on the ivf
+                        phase's partition (``--ivf-probes 32``: equal to the
+                        host merge, recall@10 against the merged oracle);
+                        B4's programs timed with CUDA events; compaction of
+                        the exact index and the ivf artifact (the split of
+                        its wall, the 256 queries the same before and after,
+                        ``CURRENT.json`` and ``generations/gen-1``, the
+                        ``incremental`` path); a compaction rolled back by
+                        ``mutable.compact``; a restart over a torn epoch
+                        record. One ``mutable: {...}`` JSON line.
+21. ``kernels``       — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -2007,6 +2032,28 @@ def _near_tie_ok(train_x, queries, ki, oi, d: int) -> bool:
     return True
 
 
+def _start_server(app):
+    """``app`` behind an HTTP server on an ephemeral port, served by a
+    thread: ``(server, thread, base_url)``."""
+    import threading
+
+    from knn_tpu_torch.serve.server import make_server
+
+    server = make_server(app, "127.0.0.1", 0)
+    th = threading.Thread(target=server.serve_forever,
+                          kwargs={"poll_interval": 0.05}, daemon=True)
+    th.start()
+    host, port = server.server_address[:2]
+    return server, th, f"http://{host}:{port}"
+
+
+def _stop_server(server, th, app):
+    server.shutdown()
+    server.server_close()
+    th.join(timeout=30)
+    app.close()
+
+
 def phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
                 smi) -> dict:
     """save-index and serve on the card (ROADMAP A8a): the index artifacts,
@@ -2014,7 +2061,6 @@ def phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
     index through the tile kernel, the subprocess lifecycle on the large
     index, faults at the dispatch, and the card's memory across reloads."""
     import gc
-    import threading
 
     from knn_tpu_torch import cli, obs
     from knn_tpu_torch.backends.oracle import knn_oracle, oracle_kneighbors
@@ -2023,7 +2069,7 @@ def phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
     from knn_tpu_torch.models.knn import DEFAULT_BATCH_BUCKETS, KNNClassifier
     from knn_tpu_torch.resilience import faults
     from knn_tpu_torch.serve.artifact import load_index, save_index
-    from knn_tpu_torch.serve.server import ServeApp, make_server
+    from knn_tpu_torch.serve.server import ServeApp
 
     scan, merge = cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge
     tile_scan = tile_knn.knn_tile_scan
@@ -2040,20 +2086,6 @@ def phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
     def counts():
         return {"stripe_scan": scan.launches, "stripe_merge": merge.launches,
                 **{f"tile_{f}": n for f, n in tile_scan.launches.items()}}
-
-    def start(app):
-        server = make_server(app, "127.0.0.1", 0)
-        th = threading.Thread(target=server.serve_forever,
-                              kwargs={"poll_interval": 0.05}, daemon=True)
-        th.start()
-        host, port = server.server_address[:2]
-        return server, th, f"http://{host}:{port}"
-
-    def stop(server, th, app):
-        server.shutdown()
-        server.server_close()
-        th.join(timeout=30)
-        app.close()
 
     data_dir = REPO / "build" / "chip_smoke"
     train, test = load_arff(str(train_path)), load_arff(str(test_path))
@@ -2093,7 +2125,7 @@ def phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
     warmed = app.warm()
     print(f"xl warmed in {time.perf_counter() - t0:.2f} s: {warmed}")
     mem_first = torch.cuda.memory_allocated()
-    server, th, base = start(app)
+    server, th, base = _start_server(app)
     sync_d, sync_i = model.kneighbors(test)
     sync_p = model.predict_from_candidates(sync_d, sync_i)
     sample = np.random.default_rng(1).choice(len(q_all), 64, replace=False)
@@ -2234,7 +2266,7 @@ def phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
           f"route; after the cooldown the probes answered and it closed")
 
     # 6. Memory across three reloads of the xl index.
-    stop(server, th, app)
+    _stop_server(server, th, app)
     del app, model, tx
     gc.collect()
     app = ServeApp(load_index(idx_xl), max_batch=256, batch_buckets=buckets,
@@ -2264,13 +2296,13 @@ def phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
     wapp = ServeApp(wmodel, max_batch=64, batch_buckets=(16, 32, 64),
                     cost_accounting=True)
     wapp.warm()
-    server, th, base = start(wapp)
+    server, th, base = _start_server(wapp)
     wq = wide_test.features[:48]
     reset_counts()
     answers, lat, wall = _closed_loop(base, "predict", wq.reshape(24, 2, -1),
                                       4)
     got = counts()
-    stop(server, th, wapp)
+    _stop_server(server, th, wapp)
     if got["tile_exact"] < 1 or got["stripe_merge"] < 1 or got["stripe_scan"]:
         fail(f"wide: launches {got}")
     preds = np.concatenate([answers[j]["predictions"] for j in range(24)])
@@ -2852,7 +2884,7 @@ def phase_quality(torch, cuda_knn, train_path, test_path, xl_x, smi) -> dict:
     from knn_tpu_torch.obs.workload import answer_digest, load_workload
     from knn_tpu_torch.serve import artifact
     from knn_tpu_torch.serve.batcher import MicroBatcher
-    from knn_tpu_torch.serve.server import ServeApp, make_server
+    from knn_tpu_torch.serve.server import ServeApp
 
     scan, merge = cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge
     res = {"smi": smi, "configs": {}}
@@ -2868,20 +2900,6 @@ def phase_quality(torch, cuda_knn, train_path, test_path, xl_x, smi) -> dict:
 
     def fail(msg):
         raise SystemExit(f"quality: {msg}")
-
-    def start(app):
-        server = make_server(app, "127.0.0.1", 0)
-        th = threading.Thread(target=server.serve_forever,
-                              kwargs={"poll_interval": 0.05}, daemon=True)
-        th.start()
-        host, port = server.server_address[:2]
-        return server, th, f"http://{host}:{port}"
-
-    def stop(server, th, app):
-        server.shutdown()
-        server.server_close()
-        th.join(timeout=30)
-        app.close()
 
     def quality_burn(app):
         label = window_label(min(app.slo.windows_s))
@@ -2906,7 +2924,7 @@ def phase_quality(torch, cuda_knn, train_path, test_path, xl_x, smi) -> dict:
         app.warm()
         if sync_p is None:
             sync_p = model.predict_from_candidates(*model.kneighbors(test))
-        server, th, base = start(app)
+        server, th, base = _start_server(app)
         cl = _Client(base)
         if layers:
             st, _, body = cl.call("POST", "/admin/capture",
@@ -3000,7 +3018,7 @@ def phase_quality(torch, cuda_knn, train_path, test_path, xl_x, smi) -> dict:
                   f"burn {burn0} -> {burn1}")
             captured = (load_workload(cap["path"]), model)
         cl.close()
-        stop(server, th, app)
+        _stop_server(server, th, app)
         res["configs"][name] = cfg
 
     # The exact rung's honest divergences against the host oracle.
@@ -3043,7 +3061,7 @@ def phase_quality(torch, cuda_knn, train_path, test_path, xl_x, smi) -> dict:
             time.sleep(0.005)
 
     poller = threading.Thread(target=poll, daemon=True)
-    server, th, base = start(app)
+    server, th, base = _start_server(app)
     poller.start()
     blocks = np.stack([q_all[j % len(q_all)][None] for j in range(3000)])
     _closed_loop(base, "predict", blocks, 4)
@@ -3058,7 +3076,7 @@ def phase_quality(torch, cuda_knn, train_path, test_path, xl_x, smi) -> dict:
         fail(f"ivf: the policy did not widen nprobe: {policy.export()}")
     steps = sorted({p["nprobe"] for _, _, p in trace})
     ivf_stats = app.quality_block()["shadow"]["rungs"]["ivf"]
-    stop(server, th, app)
+    _stop_server(server, th, app)
     loaded = artifact.load_index(idx_ivf)
     sample = q_all[:256]
     od, oi = oracle_kneighbors(train.features, sample, QUALITY_IVF_K)
@@ -3154,6 +3172,591 @@ def phase_quality(torch, cuda_knn, train_path, test_path, xl_x, smi) -> dict:
     obs.disable()
     print("quality: " + json.dumps(res))
     return res
+
+
+MUTABLE_CAP = 4096       # serve --delta-cap
+MUTABLE_THRESHOLD = 16384  # --compact-threshold: only step 5's call folds
+MUTABLE_INSERTS = 1024   # step 2's inserted rows, in bodies of 64
+MUTABLE_BODY = 64
+MUTABLE_BASE_DELETES = 256
+MUTABLE_DELTA_DELETES = 64
+MUTABLE_HELD = 256       # queries held to the merged oracle
+MUTABLE_LEVELS = (("predict", 1, 1, 200), ("predict", 1, 8, 800))
+
+
+def _view_near_tie_ok(x, view, queries, ki, oi, d: int) -> bool:
+    """:func:`_near_tie_ok` in a mutable view's id space (base rows and
+    delta slots)."""
+    from knn_tpu_torch.mutable.state import lookup_rows
+
+    for r in np.nonzero((np.asarray(ki) != np.asarray(oi)).any(axis=1))[0]:
+        q = queries[r].astype(np.float64)
+        dk = ((lookup_rows(view, x, ki[r]).astype(np.float64) - q) ** 2
+              ).sum(axis=1)
+        do = ((lookup_rows(view, x, oi[r]).astype(np.float64) - q) ** 2
+              ).sum(axis=1)
+        if not np.allclose(np.sort(dk), np.sort(do), rtol=d * 2.0 ** -24,
+                           atol=0):
+            return False
+    return True
+
+
+def _stable_ids(eng, view, idx):
+    """Positional ids of ``view`` (base rows, then delta slots) as the
+    stable ids that survive a compaction."""
+    idx = np.asarray(idx, np.int64)
+    base = eng._base_stable[np.minimum(idx, view.base_n - 1)]
+    if view.count == 0:
+        return base
+    delta = view.stable[np.clip(idx - view.base_n, 0, view.count - 1)]
+    return np.where(idx >= view.base_n, delta, base)
+
+
+def phase_mutable(torch, cuda_knn, tile_knn, xl_x, xl_y, q_all, train,
+                  smi, dev=None) -> dict:
+    """The mutable tier on the card (ROADMAP A10/B4), after ``ivf``: xl
+    (k = 10) under ``serve --mutable on`` — the empty view against
+    ``--mutable off``, inserts and deletes read back at their sequence
+    points, 256 queries held to the merged oracle, shadow scoring, the
+    rate with the delta empty, after the writes and full; the delta tail on
+    the card (the torch-scan route on the large fixture, the fused segment
+    scorer on the ivf phase's xl partition), B4's programs timed;
+    compaction of both, a rolled-back compaction and a restart over a torn
+    epoch record. ``dev`` (default the card) is where every model of the
+    phase runs."""
+    import contextlib
+    import shutil
+
+    from knn_tpu_torch import obs
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.models.knn import (
+        DEFAULT_BATCH_BUCKETS,
+        KNNClassifier,
+        candidate_padded_rows,
+    )
+    from knn_tpu_torch.mutable import device_tail as dtail
+    from knn_tpu_torch.mutable.engine import MutableEngine
+    from knn_tpu_torch.mutable.state import (
+        merged_oracle_kneighbors,
+        view_true_distances,
+    )
+    from knn_tpu_torch.obs.quality import recall_at_k
+    from knn_tpu_torch.ops import segment_score as seg
+    from knn_tpu_torch.resilience import faults
+    from knn_tpu_torch.serve import artifact
+    from knn_tpu_torch.serve.batcher import MicroBatcher
+    from knn_tpu_torch.serve.server import ServeApp
+
+    t_phase = time.perf_counter()
+    dev = dev if dev is not None else torch.device("cuda")
+    data_dir = REPO / "build" / "chip_smoke"
+    scan, merge = cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge
+    tile_scan = tile_knn.knn_tile_scan
+    n, d = xl_x.shape
+    k = 10
+    ncls = int(xl_y.max()) + 1
+    buckets = tuple(sorted({b for b in DEFAULT_BATCH_BUCKETS if b < 256}
+                           | {256}))
+    res = {"shape": f"n={n} d={d} k={k} delta_cap={MUTABLE_CAP}",
+           "smi": smi}
+
+    def fail(msg):
+        raise SystemExit(f"mutable: {msg}")
+
+    def reset_counts():
+        scan.launches = merge.launches = 0
+        for form in tile_scan.launches:
+            tile_scan.launches[form] = 0
+
+    def counts():
+        return {"stripe_scan": scan.launches, "stripe_merge": merge.launches,
+                "tile_scan": sum(tile_scan.launches.values())}
+
+    def fresh(src, name):
+        dst = data_dir / name
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(src, dst)
+        return dst
+
+    def boot(idx, mutable=False, **kw):
+        base_dir, cur = (artifact.resolve_mutable_base(idx) if mutable
+                         else (idx, None))
+        app = ServeApp(
+            artifact.load_index(base_dir, device=dev.type), max_batch=256,
+            max_wait_ms=2.0,
+            batch_buckets=buckets, index_path=str(idx),
+            index_version=artifact.index_version(
+                artifact.read_manifest(base_dir)),
+            mutable=mutable, delta_cap=MUTABLE_CAP,
+            compact_threshold=MUTABLE_THRESHOLD, compact_interval_s=0.0,
+            mutable_current=cur,
+            mutable_base_dir=base_dir if mutable else None, **kw)
+        app.warm()
+        return (app, *_start_server(app))
+
+    def post(client, path, payload):
+        st, _, body = client.call("POST", path, payload)
+        return st, json.loads(body)
+
+    def level(base, name, kind, blocks, clients):
+        """One closed-loop level: answers, p50/p99/q/s, launches per batch
+        and the dispatch's breakdown (the host merge's share)."""
+        registry = obs.registry()
+        n_spans = len(obs.tracer().spans())
+        b0 = _hist(registry, "knn_serve_batch_size")[0]
+        reset_counts()
+        answers, lat, wall = _closed_loop(base, kind, blocks, clients)
+        got = counts()
+        batches = _hist(registry, "knn_serve_batch_size")[0] - b0
+        if got["stripe_scan"] < batches or got["stripe_merge"] < batches:
+            fail(f"{name}: {batches} batches but launches {got}")
+        lat.sort()
+        br = _dispatch_breakdown(obs.tracer().spans()[n_spans:])
+        lv = {
+            "requests": len(blocks), "clients": clients,
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+            "qps": len(blocks) / wall, "batches": batches,
+            "launches_per_batch": {key: v / batches
+                                   for key, v in got.items()},
+            "dispatch_breakdown_ms": br,
+            "host_merge_share": (br.get("mutable.merge", 0.0)
+                                 / br["serve.dispatch"]
+                                 if br.get("serve.dispatch") else None),
+        }
+        print(f"mutable {name}: {json.dumps(lv)}")
+        return answers, lv
+
+    obs.enable()
+    obs.reset()
+    dtail._append_core.launches = seg.delta_columns.launches = 0
+    rng = np.random.default_rng(12)
+    singles = q_all[np.arange(200) % len(q_all)][:, None, :]
+    eights = q_all[np.arange(800) % len(q_all)][:, None, :]
+    kn_blocks = np.ascontiguousarray(q_all[200:264]).reshape(16, 4, d)
+    held = np.ascontiguousarray(q_all[1024:1024 + MUTABLE_HELD])
+
+    # 1. The empty view: --mutable on against --mutable off.
+    idx_off = data_dir / "idx-xl"
+    off = boot(idx_off)
+    want_p, lv_off1 = level(off[3], "off_c1", "predict", singles, 1)
+    _, lv_off8 = level(off[3], "off_c8", "predict", eights, 8)
+    want_k, _, _ = _closed_loop(off[3], "kneighbors", kn_blocks, 4)
+    _stop_server(off[1], off[2], off[0])
+    idx_mut = fresh(idx_off, "mut-xl")
+    app, server, th, base = boot(idx_mut, mutable=True, shadow_rate=1.0,
+                                 quality_queue=256)
+    scorer, app.batcher.quality = app.batcher.quality, None
+    got_p, lv_e1 = level(base, "empty_c1", "predict", singles, 1)
+    _, lv_e8 = level(base, "empty_c8", "predict", eights, 8)
+    got_k, _, _ = _closed_loop(base, "kneighbors", kn_blocks, 4)
+    for want, got, fields in ((want_p, got_p, ("predictions",)),
+                              (want_k, got_k, ("distances", "indices"))):
+        for j, doc in want.items():
+            for f in fields:
+                if json.dumps(doc[f]) != json.dumps(got[j][f]):
+                    fail(f"empty view: request {j} {f} differ from "
+                         f"--mutable off")
+            if got[j].get("mutation_seq") != 0:
+                fail(f"empty view: mutation_seq {got[j].get('mutation_seq')}")
+    for lv in (lv_e1, lv_e8):
+        if (lv["launches_per_batch"]["stripe_scan"] != 1
+                or lv["launches_per_batch"]["stripe_merge"] != 1
+                or lv["launches_per_batch"]["tile_scan"] != 0):
+            fail(f"empty view: launches per batch {lv['launches_per_batch']}")
+    res["empty_view"] = {"byte_equal": True, "requests": 200 + 16,
+                         "launches_per_batch": lv_e1["launches_per_batch"]}
+    res["rate"] = {"off": {"c1": lv_off1, "c8": lv_off8},
+                   "empty": {"c1": lv_e1, "c8": lv_e8}}
+    print("empty view: 200 /predict and 16 /kneighbors answers byte-equal "
+          "to --mutable off, 1 stripe scan and 1 merge per batch")
+
+    # 2. Writes, each read back at its sequence point, shadow scored.
+    app.batcher.quality = scorer
+    client = _Client(base)
+    ins = (q_all[np.arange(MUTABLE_INSERTS) % len(q_all)]
+           + rng.normal(0, 1e-3, (MUTABLE_INSERTS, d))).astype(np.float32)
+    ins_y = rng.integers(0, ncls, MUTABLE_INSERTS)
+    t0 = time.perf_counter()
+    acks = []
+    for j in range(0, MUTABLE_INSERTS, MUTABLE_BODY):
+        rows = ins[j:j + MUTABLE_BODY]
+        st, ack = post(client, "/insert", {
+            "rows": rows.tolist(),
+            "labels": ins_y[j:j + MUTABLE_BODY].tolist()})
+        if st != 200 or ack["ids"] != list(range(n + j, n + j + len(rows))):
+            fail(f"insert at slot {j}: {st} {ack}")
+        st, doc = post(client, "/kneighbors",
+                       {"instances": rows[:1].tolist()})
+        if (st != 200 or doc["mutation_seq"] < ack["seq"]
+                or doc["indices"][0][0] != n + j
+                or doc["distances"][0][0] != 0.0):
+            fail(f"read after insert seq {ack['seq']}: {doc}")
+        acks.append(ack["seq"])
+    _, hb_i = app.model.kneighbors(Dataset(held, np.zeros(len(held),
+                                                          np.int32)))
+    victims, owner = [], []
+    for col in range(k):
+        for r in range(len(held)):
+            v = int(hb_i[r, col])
+            if len(victims) < MUTABLE_BASE_DELETES and v not in victims:
+                victims.append(v)
+                owner.append(r)
+    for j in range(0, MUTABLE_BASE_DELETES, MUTABLE_BODY):
+        ids = victims[j:j + MUTABLE_BODY]
+        st, ack = post(client, "/delete", {"ids": ids})
+        if st != 200:
+            fail(f"delete of base rows: {st} {ack}")
+        st, doc = post(client, "/kneighbors",
+                       {"instances": held[owner[j]:owner[j] + 1].tolist()})
+        if (st != 200 or doc["mutation_seq"] < ack["seq"]
+                or set(doc["indices"][0]) & set(ids)):
+            fail(f"read after delete seq {ack['seq']}: {doc}")
+        acks.append(ack["seq"])
+    dead_delta = [n + 16 * j for j in range(MUTABLE_DELTA_DELETES)]
+    st, ack = post(client, "/delete", {"ids": dead_delta})
+    st2, doc = post(client, "/kneighbors", {"instances": ins[:1].tolist()})
+    if (st != 200 or st2 != 200 or doc["mutation_seq"] < ack["seq"]
+            or n in doc["indices"][0]):
+        fail(f"delete of delta rows / read: {st} {ack} {doc}")
+    acks.append(ack["seq"])
+    writes_s = time.perf_counter() - t0
+    # The 256 held queries against the merged oracle.
+    answers, _, _ = _closed_loop(base, "kneighbors",
+                                 held.reshape(16, 16, d), 4)
+    kd = np.concatenate([np.asarray(answers[j]["distances"], np.float32)
+                         for j in range(16)])
+    ki = np.concatenate([np.asarray(answers[j]["indices"], np.int64)
+                         for j in range(16)])
+    view = app.mutable.snapshot()
+    if {answers[j]["mutation_seq"] for j in range(16)} != {view.seq}:
+        fail("the held reads are not at the last write's sequence point")
+    t0 = time.perf_counter()
+    od, oi = merged_oracle_kneighbors(app.model, view, held)
+    oracle_s = time.perf_counter() - t0
+    differ = int((ki != oi).any(axis=1).sum())
+    if not _view_near_tie_ok(xl_x, view, held, ki, oi, d):
+        fail("held queries differ from the merged oracle beyond near ties")
+    if not np.allclose(kd, od, rtol=d * 2.0 ** -24, atol=0):
+        fail("held distances differ from the merged oracle's beyond "
+             "rtol = d * 2^-24")
+    if np.isin(ki, victims + dead_delta).any():
+        fail("a deleted row was served")
+    recall = recall_at_k(ki, oi, od.astype(np.float64), view_true_distances(
+        app.model, view, held, ki, "euclidean"))
+    if not scorer.drain(300):
+        fail("the shadow scorer did not drain")
+    app.batcher.quality = None
+    sq = scorer.export()["rungs"].get("fast", {})
+    div = sq.get("divergence", {})
+    near_ties = int((recall < 1.0).sum())
+    if (div.get("distance", 0) or div.get("neighbors", 0) > near_ties
+            or div.get("vote", 0) > near_ties):
+        fail(f"shadow divergences beyond the {near_ties} near ties: {div}")
+    res["writes"] = {
+        "acks": len(acks), "seqs": [acks[0], acks[-1]], "wall_s": writes_s,
+        "live_delta": view.live_delta, "base_tombstones":
+        int(view.tomb_base.size), "held": MUTABLE_HELD,
+        "held_rows_differing_near_ties": differ,
+        "held_recall_lt1_near_ties": near_ties,
+        "merged_oracle_s": oracle_s,
+        "shadow": {"scored": sq.get("scored"), "recall": sq.get("recall"),
+                   "divergence": div, "shed": scorer.shed},
+    }
+    print(f"writes: {json.dumps(res['writes'])}")
+
+    # 3. The rate after the writes, then with the delta full.
+    _, lv_w1 = level(base, "writes_c1", "predict", singles, 1)
+    _, lv_w8 = level(base, "writes_c8", "predict", eights, 8)
+    fill = MUTABLE_CAP - view.count
+    more = (q_all[(MUTABLE_INSERTS + np.arange(fill)) % len(q_all)]
+            + rng.normal(0, 1e-3, (fill, d))).astype(np.float32)
+    for j in range(0, fill, MUTABLE_BODY):
+        st, ack = post(client, "/insert", {
+            "rows": more[j:j + MUTABLE_BODY].tolist(),
+            "labels": [0] * len(more[j:j + MUTABLE_BODY])})
+        if st != 200:
+            fail(f"filling the delta: {st} {ack}")
+    _, lv_f1 = level(base, "full_c1", "predict", singles, 1)
+    _, lv_f8 = level(base, "full_c8", "predict", eights, 8)
+    st, body = post(client, "/insert", {"rows": more[:1].tolist(),
+                                        "labels": [0]})
+    if st != 429 or "delta tier full" not in body["error"]:
+        fail(f"the insert past delta_cap answered {st}: {body}")
+    res["rate"].update(writes={"c1": lv_w1, "c8": lv_w8},
+                       full={"c1": lv_f1, "c8": lv_f8})
+    res["full_insert_status"] = st
+
+    # 4a. The delta tail on the card: the torch-scan route (large, k = 5).
+    large = KNNClassifier(k=5, engine="xla", device=dev.type).fit(
+        Dataset(train.features, train.labels))
+    on_dir = data_dir / "mut-large-on"
+    shutil.rmtree(on_dir, ignore_errors=True)
+    artifact.save_index(large, on_dir)
+    off_dir = fresh(on_dir, "mut-large-off")
+    e_on = MutableEngine(large, on_dir, delta_cap=MUTABLE_CAP,
+                         device_tail="on")
+    e_off = MutableEngine(large, off_dir, delta_cap=MUTABLE_CAP,
+                          device_tail="off")
+    nl = train.num_instances
+    for e in (e_on, e_off):
+        e.apply_insert(ins, ins_y, 0)
+        e.apply_delete([nl + 3 * j for j in range(32)], 0)
+    with MicroBatcher(large, max_batch=256, max_wait_ms=0.0,
+                      mutable=e_on) as b_on, \
+            MicroBatcher(large, max_batch=256, max_wait_ms=0.0,
+                         mutable=e_off) as b_off:
+        reset_counts()
+        m0 = dtail._delta_merge_core.launches
+        gd, gi = b_on.kneighbors(q_all, timeout=120)
+        gp = b_on.predict(q_all, timeout=120)
+        tail_launches = dtail._delta_merge_core.launches - m0
+        hand = counts()
+        wd, wi = b_off.kneighbors(q_all, timeout=120)
+        wp = b_off.predict(q_all, timeout=120)
+    e_on.close()
+    e_off.close()
+    if any(hand.values()) or tail_launches < 2:
+        fail(f"device tail: hand kernels {hand}, merges {tail_launches}")
+    if not (np.array_equal(gi, wi)
+            and np.array_equal(gd.view(np.uint32), wd.view(np.uint32))
+            and np.array_equal(gp, wp)):
+        fail("the device tail's merge differs from the host merge")
+    res["device_tail"] = {"queries": len(q_all), "delta_slots": len(ins),
+                          "merge_launches": tail_launches,
+                          "hand_kernel_launches": hand, "bit_equal": True}
+    print(f"device tail (large, k=5, engine xla): {len(q_all)} queries "
+          f"bit-equal to the host merge, {tail_launches} merges, hand "
+          f"kernels {hand}")
+
+    # 4b. The fused delta segment scorer on the ivf phase's xl partition.
+    os.environ["KNN_TPU_DEVICE_TAIL"] = "on"
+    try:
+        iv = boot(fresh(data_dir / "idx-xl-ivf", "mut-xl-ivf"),
+                  mutable=True, ivf_probes=IVF_SERVE_PROBES)
+    finally:
+        os.environ.pop("KNN_TPU_DEVICE_TAIL", None)
+    iapp = iv[0]
+    for j in range(0, MUTABLE_INSERTS, MUTABLE_BODY):
+        iapp.batcher.submit_mutation("insert", {
+            "rows": ins[j:j + MUTABLE_BODY],
+            "values": ins_y[j:j + MUTABLE_BODY]}).result(timeout=60)
+    # One 64-row request: one batch, so the probe widening (batch-wide)
+    # is the host path's below.
+    q64 = np.ascontiguousarray(q_all[:64])
+    s0 = seg.segment_topk_delta_core.launches
+    h = iapp.batcher.submit(q64, "kneighbors")
+    fd, fi = h.result(timeout=60)
+    fused_launches = seg.segment_topk_delta_core.launches - s0
+    if fused_launches < 1 or h.meta["rung"] != "ivf":
+        fail(f"ivf: {fused_launches} fused scorer launches, rung "
+             f"{h.meta['rung']}")
+    iview = iapp.mutable.snapshot()
+    index, ix = iapp.model.ivf_, iapp.model.train_.features
+    hd, hi, _ = index.search_merged(ix, q64, k, IVF_SERVE_PROBES,
+                                    iview._replace(device=None),
+                                    device=dev.type)
+    if not (np.array_equal(fi, hi)
+            and np.array_equal(fd.view(np.uint32), hd.view(np.uint32))):
+        fail("the fused delta scorer differs from the host merge")
+    md, mi = merged_oracle_kneighbors(iapp.model, iview, q64)
+    ivf_recall = float(recall_at_k(
+        fi, mi, md.astype(np.float64),
+        view_true_distances(iapp.model, iview, q64, fi, "euclidean")).mean())
+    res["ivf_fused"] = {"queries": 64, "nprobe": IVF_SERVE_PROBES,
+                        "delta_slots": iview.count,
+                        "fused_launches": fused_launches,
+                        "equal_to_host_merge": True,
+                        "recall_at_10": ivf_recall}
+    print(f"ivf fused: {json.dumps(res['ivf_fused'])}")
+
+    # 4c. B4's programs, CUDA events, at the serving shapes; the launches
+    # are those of steps 2-4b (the xl engine's appends from its 256th
+    # delta row on; the merges of 4a and 4b, each scoring the delta once).
+    append_launches = dtail._append_core.launches
+    cols_launches = seg.delta_columns.launches
+    tview = app.mutable.snapshot().device
+    if tview is None or tview.features.device.type != dev.type:
+        fail(f"the xl engine's delta tail is not on {dev}")
+    qb = [torch.from_numpy(np.ascontiguousarray(
+        q_all[256 * i % 1024:256 * i % 1024 + 256])).to(dev)
+        for i in range(4)]
+    bd = torch.rand((256, k), device=dev) * 10
+    bi = torch.randint(0, n, (256, k), dtype=torch.int32, device=dev)
+    kk = min(k + seg.RERANK_PAD, k + tview.features.shape[0])
+    args = [(bd, bi, q, tview.features, tview.dead, tview.base_n,
+             tview.count, kk) for q in qb]
+    merge_ms = cuda_ms(dtail._delta_merge_core, args, reps=12)
+    cap = tview.features.shape[0]
+    merge_bound = bound_ms(256 * cap * 3 * d,
+                           cap * (d * 4 + 1) + 256 * (k * 8 + d * 4
+                                                      + kk * 8))
+    lib_ms = cuda_ms(lambda q: torch.topk(
+        torch.cdist(q, tview.features[:tview.count]), kk, dim=1,
+        largest=False), [(q,) for q in qb], reps=12)
+    cols_ms = cuda_ms(seg.delta_columns, [
+        (q, tview.features, tview.dead, tview.base_n, tview.count)
+        for q in qb], reps=12)
+    cols_bound = bound_ms(256 * cap * 3 * d,
+                          cap * (d * 4 + 1) + 256 * d * 4 + 256 * cap * 8)
+    rows64 = tview.features[-64:].flip(0).contiguous()
+    append_ms = cuda_ms(dtail._append_core,
+                        [(tview.features, rows64, cap - 64)], reps=12)
+    append_lib_ms = cuda_ms(
+        lambda b, r, at: b.index_copy(0, torch.arange(
+            at, at + r.shape[0], device=b.device), r),
+        [(tview.features, rows64, cap - 64)], reps=12)
+    append_bound = bound_ms(0, 2 * cap * d * 4 + 64 * d * 4)
+    itail = iview.device
+    perm_rows, perm_ids = index._device_operands(ix, dev)
+    sel, counts_c, *_ = index._coverage(q64[:16], k, IVF_SERVE_PROBES, None,
+                                        dev)
+    starts = torch.from_numpy(
+        index.cell_offsets[:-1][sel].astype(np.int32)).to(dev)
+    lens = torch.from_numpy(index.cell_sizes[sel].astype(np.int32)).to(dev)
+    m_pad = candidate_padded_rows(int(counts_c.max()))
+    kk2 = min(k + seg.RERANK_PAD, m_pad + itail.features.shape[0])
+    q16 = torch.from_numpy(q64[:16].copy()).to(dev)
+    seg_ms = cuda_ms(seg.segment_topk_delta_core, [
+        (perm_rows, perm_ids, q16, starts, lens, None, itail.features,
+         itail.dead, itail.base_n, itail.count, m_pad, kk2)], reps=12)
+    icap = itail.features.shape[0]
+    cand = int(counts_c.sum())
+    seg_bound = bound_ms(16 * (m_pad + icap) * 3 * d,
+                         cand * (d * 4 + 4) + icap * (d * 4 + 1)
+                         + 16 * (d * 4 + kk2 * 8))
+    res["b4"] = {
+        "append_core": {
+            "ms": append_ms, "bound_ms": append_bound[0],
+            "bound_by": append_bound[1], "library_ms": append_lib_ms,
+            "launches": append_launches,
+            "shape": f"cap={cap} d={d}, 64 rows at slot {cap - 64}"},
+        "delta_columns": {
+            "ms": cols_ms, "bound_ms": cols_bound[0],
+            "bound_by": cols_bound[1], "library_ms": None,
+            "launches": cols_launches,
+            "shape": f"B=256 cap={cap} count={tview.count} d={d}"},
+        "delta_merge_core": {
+            "ms": merge_ms, "bound_ms": merge_bound[0],
+            "bound_by": merge_bound[1], "library_ms": None,
+            "cdist_topk_ms": lib_ms, "launches": tail_launches,
+            "shape": f"B=256 k={k} cap={cap} count={tview.count} d={d}"},
+        "segment_topk_delta_core": {
+            "ms": seg_ms, "bound_ms": seg_bound[0],
+            "bound_by": seg_bound[1], "library_ms": None,
+            "launches": fused_launches,
+            "shape": f"B=16 nprobe={IVF_SERVE_PROBES} m_pad={m_pad} "
+                     f"cap={icap} count={itail.count} d={d}"},
+    }
+    print(f"B4 programs: {json.dumps(res['b4'])}")
+
+    # 5. Compaction of everything pending: the exact index, then the ivf.
+    before = [np.asarray(v) for v in _held_answers(base, held, d)]
+    bview = app.mutable.snapshot()
+    before_sid = _stable_ids(app.mutable, bview, before[1])
+    st, comp = post(client, "/admin/compact", {})
+    if st != 200 or not comp.get("compacted"):
+        fail(f"/admin/compact answered {st}: {comp}")
+    after = [np.asarray(v) for v in _held_answers(base, held, d)]
+    aview = app.mutable.snapshot()
+    after_sid = _stable_ids(app.mutable, aview, after[1])
+    # A row may reorder a near tie (the delta rows' distances came from
+    # the host merge before, from the kernels after): the distances hold
+    # to the ulp rule, the predictions exactly.
+    moved = np.nonzero((before_sid != after_sid).any(axis=1))[0]
+    if not (np.allclose(before[0], after[0], rtol=d * 2.0 ** -24, atol=0)
+            and np.array_equal(before[2], after[2])):
+        fail("held distances or predictions moved in the compaction")
+    if not ((idx_mut / "CURRENT.json").exists()
+            and artifact.generation_path(idx_mut, 1).is_dir()
+            and aview.count == 0 and aview.generation == 1):
+        fail(f"compaction left {list(idx_mut.iterdir())}")
+    st, icomp = post(_Client(iv[3]), "/admin/compact", {})
+    if st != 200 or icomp.get("ivf_compaction") != "incremental":
+        fail(f"ivf /admin/compact answered {st}: {icomp}")
+    _stop_server(iv[1], iv[2], iapp)
+    res["compaction"] = {
+        "exact": {key: comp[key] for key in (
+            "ms", "split_ms", "rows", "base_dropped", "delta_folded",
+            "delta_dropped", "generation")},
+        "exact_held_same": True, "held_rows_reordered_near_ties":
+        int(moved.size),
+        "ivf": {key: icomp[key] for key in (
+            "ms", "split_ms", "rows", "ivf_compaction",
+            "ivf_cell_imbalance")},
+    }
+    print(f"compaction: {json.dumps(res['compaction'])}")
+
+    # 6. A compaction rolled back by an injected fault.
+    far = (1e3 + np.arange(8 * d, dtype=np.float32)).reshape(8, d)
+    st, _ = post(client, "/insert", {"rows": far.tolist(),
+                                     "labels": [0] * 8})
+    version = app.index_version
+    held_before = _held_answers(base, held, d)
+    with faults.inject("mutable.compact=once") as plan:
+        st, body = post(client, "/admin/compact", {})
+    rolled = sum(i.value for i in obs.registry().instruments()
+                 if i.name == "knn_mutable_compactions_total"
+                 and dict(i.labels).get("outcome") == "rolled_back")
+    held_after = _held_answers(base, held, d)
+    if (st != 500 or body.get("rolled_back") is not True
+            or plan.stats()["mutable.compact"]["fired"] != 1
+            or app.index_version != version or rolled != 1
+            or any(not np.array_equal(a, b)
+                   for a, b in zip(held_before, held_after))):
+        fail(f"rollback: {st} {body}, rolled_back counter {rolled}")
+    res["rollback"] = {"status": st, "rolled_back_total": rolled,
+                       "old_generation_answers": True}
+    print(f"rollback: {json.dumps(res['rollback'])}")
+
+    # 7. Restart over a torn final epoch record: one more far row lands in
+    # the epoch the rolled-back seal opened, and its line is cut in half.
+    st, _ = post(client, "/insert", {"rows": (far[:1] + 1.0).tolist(),
+                                     "labels": [0]})
+    if st != 200:
+        fail(f"insert before the restart answered {st}")
+    _stop_server(server, th, app)
+    last = artifact.list_epochs(idx_mut)[-1][1]
+    text = last.read_text()
+    cut = text.rstrip("\n").rfind("\n") + 1
+    tail_line = text[cut:]
+    last.write_text(text[:cut] + tail_line[:len(tail_line) // 2])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        app, server, th, base = boot(idx_mut, mutable=True)
+    warned = "torn final record" in out.getvalue()
+    repaired = not artifact.read_epoch_records(last)[1]
+    held_restart = _held_answers(base, held, d)
+    same = all(np.array_equal(a, b)
+               for a, b in zip(held_after, held_restart))
+    seq_after = app.mutable.seq
+    _stop_server(server, th, app)
+    if not (warned and repaired and same):
+        fail(f"restart: warned {warned}, repaired {repaired}, same {same}")
+    res["restart"] = {"torn_dropped_with_warning": True, "repaired": True,
+                      "held_same": True, "seq": seq_after}
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"restart: {json.dumps(res['restart'])}")
+    return res
+
+
+def _held_answers(base, held, d):
+    """The held queries through ``/kneighbors`` (16 requests of 16 rows,
+    one client) and ``/predict``: ``(distances, indices, predictions)``."""
+    client = _Client(base)
+    parts = {"distances": [], "indices": [], "predictions": []}
+    for j in range(0, len(held), 16):
+        rows = held[j:j + 16].tolist()
+        _, _, body = client.call("POST", "/kneighbors", {"instances": rows})
+        doc = json.loads(body)
+        parts["distances"].append(np.asarray(doc["distances"], np.float32))
+        parts["indices"].append(np.asarray(doc["indices"], np.int64))
+        _, _, body = client.call("POST", "/predict", {"instances": rows})
+        parts["predictions"].append(np.asarray(json.loads(body)
+                                               ["predictions"]))
+    client.close()
+    return tuple(np.concatenate(parts[key]) for key in
+                 ("distances", "indices", "predictions"))
 
 
 def main() -> int:
@@ -3360,6 +3963,11 @@ def main() -> int:
 
     phase("quality")
     phase_quality(torch, cuda_knn, train_path, test_path, xl_x, smi)
+
+    phase("mutable")
+    mut = phase_mutable(torch, cuda_knn, tile_knn, xl_x, xl_y, test.features,
+                        train, smi)
+    print(f"mutable: {json.dumps(mut)}")
 
     phase("probe_selection")
     sel = phase_probe_selection(torch, dev, cuda_knn)

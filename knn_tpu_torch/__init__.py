@@ -31,6 +31,9 @@ the caller asks for the host (``device="cpu"``).
 - ``knn_tpu_torch.serve``    — ``save-index`` and ``serve``: the index
   artifact, the micro-batcher (the ``ivf`` rung above ``fast``) and the
   HTTP front-end.
+- ``knn_tpu_torch.mutable``  — ``serve --mutable on``: the delta tier,
+  tombstones, the write-ahead epoch log and compaction; the delta rows on
+  the card for the torch-scan route and the ivf rung.
 - ``knn_tpu_torch.cli``      — ``python -m knn_tpu_torch TRAIN TEST k
   [threads]``, with the JAX CLI's personas and classify flags.
 - ``knn_tpu_torch.convert``  — a ``knn_tpu`` dataset's fields (or IVF

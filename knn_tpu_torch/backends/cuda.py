@@ -252,6 +252,7 @@ def candidates_arrays(
     cache: "dict | None" = None,
     deferred: bool = False,
     prefetched_queries=None,
+    merge_tail=None,
 ):
     """Host entry of the XLA route's retrieval, the twin of
     ``knn_forward_candidates`` as the JAX models call it: ``([Q, k]``
@@ -266,7 +267,9 @@ def candidates_arrays(
     this returns (``cuda_knn.host_copy_async``); on the CPU the scan runs
     now. ``prefetched_queries``, a float32 block on the device whose first
     Q rows are the queries (the serving batcher's staged upload), is read
-    in place of the upload."""
+    in place of the upload. ``merge_tail`` (the mutable tier's device
+    merge, ``models/knn._kneighbors_arrays``) maps the scan's device
+    answers and queries to the merged ones before the copy back."""
     dev = resolve_device(device)
     n, q = train_x.shape[0], test_x.shape[0]
     if precision not in DIST_FNS:
@@ -290,7 +293,11 @@ def candidates_arrays(
                   rows=q, padded_rows=qx.shape[0]):
         d, i = guarded_call("backend.compile", lambda: _scan_tiles(
             tx, qx, n, k, precision, query_tile, train_tile))
-        wait = host_copy_async(d[:q], i[:q])
+        d, i = d[:q], i[:q]
+        if merge_tail is not None:
+            d, i = guarded_call("backend.compile",
+                                lambda: merge_tail(d, i, qx[:q]))
+        wait = host_copy_async(d, i)
     memo_out = []
 
     def resolve():

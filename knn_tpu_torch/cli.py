@@ -60,11 +60,16 @@ artifact's partition), the answer-quality and capture flags
 ``--quality-seed``, ``--capture-dir``, ``--capture-rate``,
 ``--capture-max-requests``, ``--capture-queue``,
 ``--capture-burn-threshold``, ``--capture-burn-objective``,
-``--capture-burn-window-s``) and ``--device {cuda,cpu}``; the flags of the
-layers later slices bring are not in the parser, so argparse refuses them
-(exit 2). ``replay WORKLOAD (--url BASE | --index DIR)`` re-drives a
-captured workload (``obs/replay.py``) against a live server or an
-in-process micro-batcher on ``--device`` and prints the verdict.
+``--capture-burn-window-s``), the mutable tier's (``--mutable on``,
+``--delta-cap``, ``--compact-threshold``, ``--compact-interval-s``: the
+server boots from the generation ``CURRENT.json`` names and replays the
+epoch log) and ``--device {cuda,cpu}``; the flags of the layers later
+slices bring are not in the parser, so argparse refuses them (exit 2).
+``replay WORKLOAD (--url BASE | --index DIR)`` re-drives a captured
+workload (``obs/replay.py``) against a live server or an in-process
+micro-batcher on ``--device`` (``--mutable on``: with a mutable engine
+over the index, the captured mutations re-applied in ``mutation_seq``
+order) and prints the verdict.
 
 Exit codes, as the JAX package's (knn_tpu/cli.py:45-54): 0 success; 2 the
 input was rejected before classification (bad flags, bad k, missing or
@@ -332,6 +337,23 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
                    "sheds samples (counted), never blocks serving")
     p.add_argument("--quality-seed", type=int, default=0,
                    help="RNG seed for shadow/drift sampling")
+    p.add_argument("--mutable", choices=["on", "off"], default="off",
+                   help="online-mutable serving: POST /insert and /delete "
+                   "mutate a delta tier + tombstone set merged into every "
+                   "answer under the shared (distance, index) contract, "
+                   "with a write-ahead epoch log in the artifact directory "
+                   "and compaction folding writes into fresh index "
+                   "generations (POST /admin/compact forces one). 'off' "
+                   "(the default) constructs no mutable machinery")
+    p.add_argument("--delta-cap", type=int, default=4096,
+                   help="delta-tier row bound: inserts past this are "
+                   "refused HTTP 429 until compaction folds the tier")
+    p.add_argument("--compact-threshold", type=int, default=1024,
+                   help="pending mutations (delta rows + tombstones) that "
+                   "trigger a compaction")
+    p.add_argument("--compact-interval-s", type=float, default=30.0,
+                   help="compaction check interval; 0 runs no timer thread "
+                   "(threshold kicks and /admin/compact still compact)")
     p.add_argument("--capture-dir", default=None, metavar="DIR",
                    help="workload capture: finalized capture windows land "
                    "versioned workload artifacts under DIR that `replay` "
@@ -392,10 +414,12 @@ def _add_replay_args(p: argparse.ArgumentParser) -> None:
                    help="in-process batcher policy (default: the "
                    "workload's captured policy, else 2.0)")
     p.add_argument("--mutable", choices=["on", "off"], default="off",
-                   help="in-process mutation replay: 'on' needs the "
-                   "mutable tier (ROADMAP A10) and exits 2; 'off' "
-                   "(default) skips a workload's mutations with a "
-                   "warning, its reads still replay")
+                   help="in-process mutation replay: 'on' builds a mutable "
+                   "engine over --index and re-applies the captured "
+                   "insert/delete stream (this WRITES epoch records into "
+                   "the artifact directory — replay into a copy). 'off' "
+                   "(default) skips mutations with a warning; reads still "
+                   "replay")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the in-process batcher serves the index "
                    "(cpu: the kernels' plain PyTorch versions)")
@@ -950,6 +974,14 @@ def _run_serve(args, stdout) -> int:
          and args.capture_dir is None,
          "--capture-burn-threshold needs --capture-dir (the trigger "
          "has nowhere to write its artifact)"),
+        (args.delta_cap < 1,
+         f"--delta-cap must be >= 1, got {args.delta_cap}"),
+        (args.compact_threshold < 1,
+         f"--compact-threshold must be >= 1, got "
+         f"{args.compact_threshold}"),
+        (args.compact_interval_s < 0,
+         f"--compact-interval-s must be >= 0, got "
+         f"{args.compact_interval_s}"),
     ):
         if bad:
             _error(msg)
@@ -977,9 +1009,17 @@ def _run_serve(args, stdout) -> int:
     from knn_tpu_torch.serve import artifact
     from knn_tpu_torch.serve.server import ServeApp, make_server, serve_forever
 
+    mutable_on = args.mutable == "on"
     try:
-        model = artifact.load_index(args.index, device=args.device)
-        manifest = artifact.read_manifest(args.index)
+        if mutable_on:
+            # The mutable tier owns the artifact's lifecycle: boot from the
+            # generation CURRENT.json names (the root artifact when never
+            # compacted); the engine replays the newer epoch records.
+            base_dir, current = artifact.resolve_mutable_base(args.index)
+        else:
+            base_dir, current = args.index, None
+        model = artifact.load_index(base_dir, device=args.device)
+        manifest = artifact.read_manifest(base_dir)
         version = artifact.index_version(manifest)
     except DataError as e:
         _error(e)
@@ -1019,11 +1059,16 @@ def _run_serve(args, stdout) -> int:
             capture_burn_threshold=args.capture_burn_threshold,
             capture_burn_objective=args.capture_burn_objective,
             capture_burn_window_s=args.capture_burn_window_s,
+            mutable=mutable_on, delta_cap=args.delta_cap,
+            compact_threshold=args.compact_threshold,
+            compact_interval_s=args.compact_interval_s,
+            mutable_current=current,
+            mutable_base_dir=base_dir if mutable_on else None,
         )
     except OSError as e:  # an unwritable --access-log / --capture-dir path
         _error(e)
         return EXIT_USAGE
-    except DataError as e:  # --ivf-probes against an exact-only artifact
+    except DataError as e:  # --ivf-probes on an exact-only artifact, a bad WAL
         _error(e)
         return EXIT_USAGE
     except ValueError as e:  # a malformed/mismatched manifest drift sketch
@@ -1051,6 +1096,12 @@ def _run_serve(args, stdout) -> int:
     if app.ivf is not None:
         bucket_note += (f", ivf_probes={args.ivf_probes}/"
                         f"{model.ivf_.num_cells}")
+    if app.mutable is not None:
+        m = app.mutable.export()
+        bucket_note += (f", mutable=on (gen={m['generation']}, "
+                        f"epoch={m['epoch']}, "
+                        f"replayed_delta={m['delta_slots']}, "
+                        f"delta_cap={args.delta_cap})")
     print(
         f"knn-tpu serve: ready on http://{host}:{port} "
         f"(family={app.family}, k={model.k}, "
@@ -1081,9 +1132,6 @@ def _run_replay(args, stdout) -> int:
         (args.url is not None and args.mutable == "on",
          "--mutable applies to the in-process --index mode only (a live "
          "server owns its own mutable engine)"),
-        (args.mutable == "on",
-         "--mutable on: in-process mutation replay needs the mutable tier "
-         "(ROADMAP A10)"),
     ):
         if bad:
             _error(msg)
@@ -1095,6 +1143,7 @@ def _run_replay(args, stdout) -> int:
         return EXIT_USAGE
     policy = wl.manifest.get("policy") or {}
     batcher = None
+    engine = None
     try:
         if args.index is not None:
             from knn_tpu_torch.obs.capacity import CapacityTracker
@@ -1117,22 +1166,32 @@ def _run_replay(args, stdout) -> int:
             max_batch = args.max_batch or policy.get("max_batch") or 256
             max_wait = (args.max_wait_ms if args.max_wait_ms is not None
                         else policy.get("max_wait_ms", 2.0))
-            if wl.manifest.get("mutations", 0) > 0:
+            replay_mutations = args.mutable == "on"
+            if wl.manifest.get("mutations", 0) > 0 and not replay_mutations:
                 print(f"warning: the workload carries "
                       f"{wl.manifest['mutations']} mutations but --mutable "
                       f"is off; skipping them (reads still replay; their "
                       f"mutation_seq tags will not match)", file=sys.stderr)
+            if replay_mutations:
+                from knn_tpu_torch.mutable.engine import MutableEngine
+
+                try:
+                    engine = MutableEngine(model, args.index,
+                                           version=version)
+                except DataError as e:
+                    _error(e)
+                    return EXIT_USAGE
             capacity = CapacityTracker(max_batch)
             artifact.warmup(model, batch_sizes=(1, max_batch),
                             kinds=("predict",))
             batcher = MicroBatcher(
                 model, max_batch=max_batch, max_wait_ms=max_wait,
                 max_queue_rows=max(4096, max_batch), index_version=version,
-                capacity=capacity,
+                capacity=capacity, mutable=engine,
             )
             verdict = replay_workload(
                 wl, batcher=batcher, speed=args.speed, verify=args.verify,
-                replay_mutations=False)
+                replay_mutations=replay_mutations)
             verdict["capacity"] = capacity.export()
         else:
             verdict = replay_workload(wl, base_url=args.url.rstrip("/"),
@@ -1146,6 +1205,8 @@ def _run_replay(args, stdout) -> int:
     finally:
         if batcher is not None:
             batcher.close()
+        if engine is not None:
+            engine.close()
     m, v = verdict["measured"], verdict["verify"]
     print(
         f"replayed {m['requests']} requests "

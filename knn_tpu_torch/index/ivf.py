@@ -30,6 +30,13 @@ The artifact layout is the JAX package's (format 3): ``ivf_centroids``,
 ``ivf_row_perm`` and ``ivf_cell_offsets`` in ``arrays.npz`` plus an ``ivf``
 manifest block, so either package loads the other's partition.
 
+**The mutable tier** (ROADMAP A10): :meth:`IVFIndex.search_merged` merges
+a live view into the probed answer — fused into the segment scorer's
+dispatch when the view carries a delta tail on the card and no base row is
+tombstoned, else the host merge with the probed search as the widening —
+and :meth:`IVFServing.kneighbors` takes the view and the delete-aware
+per-cell dead counts.
+
 **No quiet move to the host.** JAX falls back silently in three places: a
 failing device scorer under ``auto`` becomes the host scorer, the same in
 ``search_merged``, and the approximate ranking swallows any exception and
@@ -37,10 +44,6 @@ ranks on the host. Here each of those failures raises typed
 (``resilience/errors.py``). The ``auto`` rule still sends small searches
 to the host scorer by their size — routing, not recovery — and the serving
 batcher's ``ivf -> fast`` move stays, both rungs being on the card.
-
-Left for the mutable tier (ROADMAP A10): ``search_merged`` and
-``IVFServing.kneighbors`` with a non-empty view raise a typed
-:class:`DataError` naming A10.
 """
 
 from __future__ import annotations
@@ -116,7 +119,7 @@ class IVFSearchStats(NamedTuple):
     ranking: str = "exact"  # centroid ranking (exact | approx)
     dead_rows: int = 0     # tombstoned rows occupying probed cells
     padded_candidate_rows: int = 0  # candidate-axis pad of the device scorer
-    merged_delta: bool = False      # delta tail fused in (ROADMAP A10)
+    merged_delta: bool = False      # delta tail fused into the scorer
 
 
 class IVFIndex:
@@ -428,10 +431,14 @@ class IVFIndex:
 
     def _score_device(self, train_x: np.ndarray, queries: np.ndarray,
                       k: int, sel: np.ndarray, counts: np.ndarray, device,
-                      buckets=None):
+                      buckets=None, tail=None, view=None,
+                      metric: str = "euclidean"):
         """The device gather + score (``ops/segment_score.py``) on
-        ``device``, then the host re-rank. Returns ``(dists, idx,
-        padded_candidate_rows)``. A card failure raises typed."""
+        ``device``, then the host re-rank. ``tail``/``view`` fuse the
+        mutable delta block into the same selection (re-ranked across
+        base and delta by ``mutable/device_tail.rerank_merged``). Returns
+        ``(dists, idx, padded_candidate_rows)``. A card failure raises
+        typed."""
         from knn_tpu_torch.models.knn import candidate_padded_rows
         from knn_tpu_torch.ops import segment_score
         from knn_tpu_torch.ops.cuda_knn import resolve_device
@@ -448,11 +455,16 @@ class IVFIndex:
             perm_rows, perm_ids = self._device_operands(train_x, dev)
             _, cand = segment_score.segment_topk(
                 perm_rows, perm_ids, queries, starts, lens, m_actual, k,
-                buckets=buckets)
+                buckets=buckets, tail=tail)
         except Exception as e:  # noqa: BLE001 — typed, never hidden
             raise classify_exception(e, DEVICE_SITE) from e
         waste = q * candidate_padded_rows(m_actual) - int(counts.sum())
-        d, i = self._exact_rerank(train_x, queries, cand, k)
+        if tail is None:
+            d, i = self._exact_rerank(train_x, queries, cand, k)
+        else:
+            from knn_tpu_torch.mutable.device_tail import rerank_merged
+
+            d, i = rerank_merged(view, train_x, queries, cand, k, metric)
         return d, i, max(waste, 0)
 
     def search(self, train_x: np.ndarray, queries: np.ndarray, k: int,
@@ -511,12 +523,64 @@ class IVFIndex:
             padded_candidate_rows=padded_rows,
         )
 
-    def search_merged(self, *args, **kwargs):
-        """Probed retrieval merged with a live mutable view: the mutable
-        tier's (ROADMAP A10)."""
-        raise DataError(
-            "ivf search merged with a mutable view needs the mutable tier "
-            "(ROADMAP A10), which the port does not have yet")
+    def search_merged(self, train_x: np.ndarray, queries: np.ndarray,
+                      k: int, nprobe: int, view, *, scorer: str = "auto",
+                      dead_per_cell: Optional[np.ndarray] = None,
+                      metric: str = "euclidean", device="cuda",
+                      buckets=None):
+        """Probed retrieval MERGED with a live mutable view. When the
+        view's delta block is on the card (``view.device``) and no base
+        row is tombstoned, the delta tail is scored beside the probed
+        candidates in the SAME dispatch and one selection covers base and
+        delta (``ops/segment_score.segment_topk_delta_core``); a failure
+        there raises typed. Otherwise the probed search answers (its own
+        scorer rule) and the host merge folds the view in, the probed
+        search at ``k + tombstones`` being the widening. Returns
+        ``(dists, idx, stats)`` in the view's positional id space."""
+        from knn_tpu_torch.mutable import state as mstate
+
+        mode = _scorer_mode(scorer)
+        train_x = np.asarray(train_x, np.float32)
+        queries = np.asarray(queries, np.float32)
+        q = queries.shape[0]
+        # The merged answer draws from base AND delta slots: k clamps to
+        # the combined width.
+        k_eff = min(int(k), self.num_rows + view.count)
+        tail = getattr(view, "device", None)
+        if (tail is not None and view.tomb_base.size == 0
+                and mode != "host"):
+            requested = min(max(1, int(nprobe)), self.num_cells)
+            with obs.span("ivf.search", rows=q, nprobe=requested, k=k_eff,
+                          merged_delta=True):
+                # Coverage is a BASE concern: probe for the base share of
+                # k; the delta columns ride along regardless.
+                sel, counts, nprobe_used, forced, ranking, dead_rows = \
+                    self._coverage(queries, min(k_eff, self.num_rows),
+                                   requested, dead_per_cell, device)
+                d, i, padded = self._score_device(
+                    train_x, queries, k_eff, sel, counts, device, buckets,
+                    tail=tail, view=view, metric=metric)
+            return d, i, IVFSearchStats(
+                nprobe=nprobe_used, requested=requested,
+                forced_widenings=forced,
+                candidate_rows=int(counts.sum()) if q else 0,
+                cells_probed=q * nprobe_used, scorer="device",
+                ranking=ranking, dead_rows=dead_rows,
+                padded_candidate_rows=padded, merged_delta=True,
+            )
+        d, i, stats = self.search(
+            train_x, queries, k_eff, nprobe, scorer=mode,
+            dead_per_cell=dead_per_cell, device=device, buckets=buckets)
+
+        def wide(wfeats, k_wide):
+            wd, wi, _ = self.search(
+                train_x, wfeats, k_wide, nprobe, scorer=mode,
+                dead_per_cell=dead_per_cell, device=device, buckets=buckets)
+            return wd, wi
+
+        d, i = mstate.merge_candidates(view, queries, d, i, k_eff, metric,
+                                       wide)
+        return d, i, stats
 
 
 def _inverted_file(assign: np.ndarray, num_cells: int):
@@ -554,31 +618,56 @@ class IVFServing:
         self.buckets = buckets
         self.policy = policy if policy is not None else ProbePolicy(
             base_probes, num_cells, slo=slo)
+        # Per-tombstone-set memo of the delete-aware per-cell dead counts
+        # (views share their tomb arrays between mutations, so identity is
+        # the cheap and correct key).
+        self._dead_cache: Optional[tuple] = None
 
     def set_num_cells(self, num_cells: int) -> None:
         """Re-bound the policy after a hot reload swapped in an index with
         a different cell count."""
         self.policy.set_num_cells(num_cells)
+        self._dead_cache = None
+
+    def _dead_per_cell(self, index: IVFIndex, view):
+        """Per-cell live-tombstone counts for the k-coverage widening
+        (``IVFIndex.dead_rows_per_cell``), memoized on the view's shared
+        tombstone array identity."""
+        if view is None or view.tomb_base.size == 0:
+            return None
+        hit = self._dead_cache
+        if (hit is not None and hit[0] is view.tomb_base
+                and hit[1] is index):
+            return hit[2]
+        counts = index.dead_rows_per_cell(view.tomb_base)
+        self._dead_cache = (view.tomb_base, index, counts)
+        return counts
 
     def kneighbors(self, model, feats: np.ndarray,
                    k: Optional[int] = None, view=None):
         """One ivf-rung dispatch for the micro-batcher: policy-chosen
         ``nprobe``, probed search, instruments. Returns ``(dists, idx)``
-        like every other rung. ``k`` overrides ``model.k``. A non-empty
-        mutable ``view`` is the mutable tier's (ROADMAP A10): typed
-        refusal."""
+        like every other rung. ``k`` overrides ``model.k``. ``view`` — a
+        live (non-empty) :class:`~knn_tpu_torch.mutable.state.MutableView`:
+        the answer is then MERGED with the delta tier and tombstones
+        (:meth:`IVFIndex.search_merged`), and the delete-aware per-cell
+        dead counts feed the coverage widening either way."""
         index = getattr(model, IVF_ATTR, None)
         if index is None:  # reload validation forbids this; stay typed
             raise DataError("serving model has no ivf partition")
-        if view is not None and not view.empty:
-            raise DataError(
-                "ivf serving merged with a mutable view needs the mutable "
-                "tier (ROADMAP A10)")
         kq = model.k if k is None else k
-        dists, idx, stats = index.search(
-            model.train_.features, feats, kq, self.policy.current(),
-            scorer=self.scorer, device=getattr(model, "device", "cuda"),
-            buckets=self.buckets)
+        dead = self._dead_per_cell(index, view)
+        device = getattr(model, "device", "cuda")
+        if view is not None and not view.empty:
+            dists, idx, stats = index.search_merged(
+                model.train_.features, feats, kq, self.policy.current(),
+                view, scorer=self.scorer, dead_per_cell=dead,
+                metric=model.metric, device=device, buckets=self.buckets)
+        else:
+            dists, idx, stats = index.search(
+                model.train_.features, feats, kq, self.policy.current(),
+                scorer=self.scorer, dead_per_cell=dead, device=device,
+                buckets=self.buckets)
         self._record(index, feats, stats)
         return dists, idx
 

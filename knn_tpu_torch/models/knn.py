@@ -19,8 +19,8 @@ The call sites carry the JAX package's fault points (``guarded_call``
 with ``device.put`` around ``backend.compile`` on the kernel route; the
 XLA route's own in ``backends/cuda.py::candidates_arrays``) and its spans:
 ``fit``, ``distance``, ``fetch`` (deferred calls), ``vote``, ``sweep_k``
-and, on the XLA route, ``prepare``. Left out until their users are
-ported: ``merge_tail`` (the mutable tier, ROADMAP A10). The serving
+and, on the XLA route, ``prepare``. The mutable tier's device merge
+enters as ``merge_tail`` (torch-scan route only, as in JAX). The serving
 batcher's staged upload enters as ``prefetched_queries``, and every
 retrieval counts its signature in ``obs/devprof.py``'s executable-cache
 hit/miss. The compiled-shape bucket ladder is an argument of the shape
@@ -126,6 +126,7 @@ def _kneighbors_arrays(
     deferred: bool = False,
     device="cuda",
     prefetched_queries=None,
+    merge_tail=None,
 ):
     """Shared retrieval core for both model families: ``(dists [Q, k],
     indices [Q, k])`` sorted by (distance, train index). Pure geometry — no
@@ -150,7 +151,14 @@ def _kneighbors_arrays(
     this call would make, on either route; the answers are bit-identical
     with and without it. A block of another device, dtype, width, or with
     fewer than ``Q`` rows is not used, and the queries are uploaded as
-    usual."""
+    usual.
+
+    ``merge_tail`` (the mutable tier's delta tail on the card,
+    ``mutable/device_tail.py``): a callable ``(d_dev, i_dev, queries_dev)
+    -> (d_dev, i_dev)`` applied to the torch-scan route's device outputs
+    before the copy back, so base and delta merge in the same round trip.
+    Torch-scan route only (``ValueError`` on the kernels' route, whose
+    callers take the host merge); its ``sig`` joins the signature."""
     from knn_tpu_torch.backends.cuda import candidates_arrays
     from knn_tpu_torch.obs.accounting import padded_query_rows
     from knn_tpu_torch.ops.cuda_knn import (
@@ -174,9 +182,16 @@ def _kneighbors_arrays(
 
         # A launch is configured by its route, form, swept rows, k and d:
         # the port's counterpart of the JAX executable signature.
-        devprof.record_executable_lookup(
-            "retrieval", (route, form, swept, int(k), int(d)))
+        sig = (route, form, swept, int(k), int(d))
+        if merge_tail is not None:
+            sig = sig + (getattr(merge_tail, "sig", "merge_tail"),)
+        devprof.record_executable_lookup("retrieval", sig)
     if route == "stripe":
+        if merge_tail is not None:
+            raise ValueError(
+                "merge_tail is a torch-scan route hook; the kernels' route "
+                "copies its answers back inside its own entry (the caller "
+                "takes the host merge instead)")
         with obs.span("distance", engine="stripe", note="fused distance+top-k",
                       rows=q, padded_rows=swept):
             out = guarded_call("device.put", lambda: guarded_call(
@@ -194,7 +209,8 @@ def _kneighbors_arrays(
         return out
     return candidates_arrays(train_x, test_x, k, form, device=device,
                              cache=cache, deferred=deferred,
-                             prefetched_queries=prefetched_queries)
+                             prefetched_queries=prefetched_queries,
+                             merge_tail=merge_tail)
 
 
 def _usable_block(block, q: int, d: int, dev) -> bool:
@@ -344,7 +360,7 @@ def vote_from_labels(dists: np.ndarray, labels: np.ndarray,
     """Classifier vote from an EXPLICIT per-candidate label matrix
     ``labels [Q, k]`` — the label-lookup-agnostic half of
     :meth:`KNNClassifier.predict_from_candidates`, shared with the mutable
-    tier when it is ported (ROADMAP A10): first-max for ``uniform``,
+    tier (``mutable/state.predict_from_view``): first-max for ``uniform``,
     per-class inverse-distance weight sums for ``distance`` (ties to the
     lowest class id either way)."""
     if weights == "distance":

@@ -39,9 +39,11 @@ the JAX package's contract and stay as they are.
 Latency contract: the batcher worker NEVER blocks on shadow scoring — a
 full queue sheds the sample (``knn_quality_shed_total``); the model each
 sample carries is its batch's own snapshot, so scoring stays correct
-across hot reloads. The merged mutable view (JAX's ``mview``) comes with
-the mutable tier (ROADMAP A10): a sample that carries one is a typed
-:class:`DataError`, counted as a scoring error.
+across hot reloads. Under the mutable tier a sample carries its batch's
+view (``mview``): the truth is then the LIVE view —
+``mutable/state.merged_oracle_kneighbors``, the host oracle folded with
+that delta and tombstone snapshot — so an answer that ignored a fresh
+write, or served a deleted row, diverges and burns the quality SLI.
 
 Not constructed (rate 0) → the batcher pays one ``is None`` predicate and
 nothing is recorded.
@@ -57,7 +59,6 @@ import numpy as np
 
 from knn_tpu_torch import obs
 from knn_tpu_torch.obs.shedqueue import ShedQueue
-from knn_tpu_torch.resilience.errors import DataError
 
 #: Relative tolerance for "the distances agree": beyond this the served
 #: DISTANCE is wrong even when the neighbor index is right — a distinct
@@ -229,7 +230,8 @@ class ShadowScorer:
         """Sample one served request. O(1) — one RNG draw, one append —
         and NEVER blocks. ``dists``/``idx`` are the request's served
         slices; ``preds`` the served predictions (None for kneighbors
-        requests). Returns whether the sample was queued."""
+        requests); ``mview`` the batch's mutable view (None while the
+        tier is off). Returns whether the sample was queued."""
         self.offered += 1
         return self._sq.offer(
             lambda: _Sample(features, kind, dists, idx, preds, rung,
@@ -253,18 +255,26 @@ class ShadowScorer:
         from knn_tpu_torch.backends.oracle import oracle_kneighbors
         from knn_tpu_torch.models.knn import KNNClassifier
 
-        if s.mview is not None:
-            raise DataError(
-                "shadow scoring against a merged mutable view needs the "
-                "mutable tier (ROADMAP A10)")
         model = s.model
         train = model.train_
+        merged = s.mview is not None and not s.mview.empty
         with obs.span("quality.shadow_score", rung=s.rung, kind=s.kind,
                       rows=int(np.shape(s.features)[0])):
-            oracle_d, oracle_i = oracle_kneighbors(
-                train.features, s.features, model.k, model.metric)
-            true_d = true_distances(train.features, s.features, s.idx,
-                                    model.metric)
+            if merged:
+                from knn_tpu_torch.mutable.state import (
+                    merged_oracle_kneighbors,
+                    view_true_distances,
+                )
+
+                oracle_d, oracle_i = merged_oracle_kneighbors(
+                    model, s.mview, s.features)
+                true_d = view_true_distances(model, s.mview, s.features,
+                                             s.idx, model.metric)
+            else:
+                oracle_d, oracle_i = oracle_kneighbors(
+                    train.features, s.features, model.k, model.metric)
+                true_d = true_distances(train.features, s.features, s.idx,
+                                        model.metric)
             recalls = recall_at_k(s.idx, oracle_i,
                                   oracle_d.astype(np.float64), true_d)
             # Distance divergence: the served DISTANCE disagrees with the
@@ -279,8 +289,19 @@ class ShadowScorer:
             dist_rows = int(np.count_nonzero(mismatch.any(axis=1)))
             vote_rows = vote_ok = 0
             if s.kind == "predict" and isinstance(model, KNNClassifier):
-                want_preds = model.predict_from_candidates(
-                    oracle_d.astype(np.float32), oracle_i)
+                if merged:
+                    # Candidates span base+delta ids: the view-aware label
+                    # gather the serving path votes with.
+                    from knn_tpu_torch.mutable.state import (
+                        predict_from_view,
+                    )
+
+                    want_preds = predict_from_view(
+                        model, s.mview, oracle_d.astype(np.float32),
+                        oracle_i)
+                else:
+                    want_preds = model.predict_from_candidates(
+                        oracle_d.astype(np.float32), oracle_i)
                 got = np.asarray(s.preds)
                 vote_rows = int(got.shape[0])
                 vote_ok = int(np.count_nonzero(got == want_preds))

@@ -11,12 +11,12 @@ or a live server over HTTP, and checks the answers:
   earlier completions (open-loop: a slow target builds queue, exactly as
   the original traffic would have), each resolved on a waiter pool that
   records its wall and answer digest;
-- **mutations** are sequence points: every outstanding read drains first,
-  then the mutation is applied and acknowledged. Against a live server
-  they go to ``/insert`` and ``/delete`` (the port's server answers 404
-  until the mutable tier, ROADMAP A10, is ported); in-process they are a
-  typed :class:`DataError` naming A10. Either way each is recorded as a
-  failed mutation in the verdict, never silently dropped;
+- **mutations** replay in ``mutation_seq`` order as sequence points:
+  every outstanding read drains first, then the mutation is applied and
+  acknowledged — in process through the batcher's
+  ``submit_mutation`` (its mutable engine; ``replay --mutable on``),
+  against a live server through ``/insert`` and ``/delete``. A failed one
+  is recorded in the verdict, never silently dropped;
 - **verification**: wherever a replayed answer's
   ``(index_version, mutation_seq)`` matches the recorded one (``tag``),
   or for every answered pair (``always``), the answer digests must match
@@ -41,7 +41,6 @@ from typing import Optional
 import numpy as np
 
 from knn_tpu_torch.obs.workload import Workload, answer_digest
-from knn_tpu_torch.resilience.errors import DataError
 
 VERIFY_MODES = ("tag", "always", "off")
 
@@ -148,22 +147,21 @@ def _fire_mutation(ev, workload: Workload, batcher, base_url,
     barrier — see the module docstring); a failure is recorded, never
     raised."""
     try:
-        if batcher is not None:
-            raise DataError(
-                "in-process mutation replay needs the mutable tier "
-                "(ROADMAP A10)")
         if ev["op"] == "insert":
-            st, out = _http_json(
-                base_url, "/insert",
-                {"rows": workload.rows_for(ev).tolist(),
-                 "labels": ev.get("values")},
-                timeout_s=timeout_s)
+            rows, values = workload.rows_for(ev), ev.get("values")
+            payload = {"rows": rows, "values": values}
+            body = {"rows": rows.tolist(), "labels": values}
         else:
-            st, out = _http_json(base_url, "/delete",
-                                 {"ids": ev.get("ids", [])},
+            payload = body = {"ids": ev.get("ids", [])}
+        if batcher is not None:
+            out = batcher.submit_mutation(ev["op"], payload).result(
+                timeout=timeout_s)
+        else:
+            st, out = _http_json(base_url, f"/{ev['op']}", body,
                                  timeout_s=timeout_s)
-        if st != 200:
-            raise RuntimeError(f"/{ev['op']} {st}: {out.get('error', '')}")
+            if st != 200:
+                raise RuntimeError(
+                    f"/{ev['op']} {st}: {out.get('error', '')}")
         results.add_mutation(ev, {
             "outcome": "ok",
             "seq": out.get("seq") if isinstance(out, dict) else None,

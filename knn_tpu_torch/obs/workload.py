@@ -35,8 +35,9 @@ no ``--capture-dir``, NOTHING is constructed.
 Windows are armed by ``POST /admin/capture``, or **burn-triggered**: when
 the configured SLO objective's short-window burn rate crosses a
 threshold, a window arms itself and auto-stops after its window. The
-acknowledged-mutation tap (:meth:`WorkloadCapture.note_mutation`) is kept
-for the mutable tier (ROADMAP A10); nothing in the port calls it yet.
+batcher's worker hands every ACKNOWLEDGED mutation of the mutable tier to
+:meth:`WorkloadCapture.note_mutation` (never sampled: replay needs the
+complete stream to keep ``mutation_seq`` aligned).
 """
 
 from __future__ import annotations

@@ -39,8 +39,14 @@ answers do not depend on the chunking. The permuted train is a copy of
 the train on the card (N x D x 4 bytes more), kept per (index, train,
 device) by the caller.
 
-The delta-tail operands (``delta_columns``, ``_segment_topk_delta_core``)
-come with the mutable tier (ROADMAP A10).
+The mutable tier's delta tail (ROADMAP A10/B4): :func:`delta_columns` is
+THE one definition of the delta liveness and sentinel rule — a slot is live
+when ``slot < count`` and it is not dead; dead and pad slots take
+``(+inf, base_n + count)`` — shared by the fused ivf scorer
+(:func:`segment_topk_delta_core`) and the exact rungs' device merge
+(``mutable/device_tail.py``). It scores ``[B, cap, D]`` in query chunks
+under :data:`SCORE_BYTES_CAP` too; the answers do not depend on the
+chunking (each (query, slot) distance is computed alone).
 """
 
 from __future__ import annotations
@@ -93,6 +99,36 @@ def margin_select(d: torch.Tensor, ids: torch.Tensor, kk: int,
     if row_ok is not None:
         per_row = per_row & row_ok
     return sd, si, per_row.any()
+
+
+def delta_columns(queries: torch.Tensor, delta_rows: torch.Tensor,
+                  delta_dead: torch.Tensor, base_n: int, count: int):
+    """Score the delta tail on its device: ``(dd [B, cap] f32, di [B, cap]
+    i32, sentinel)`` — subtraction-form squared euclidean per slot, a slot
+    live when below ``count`` and not dead, dead and pad slots masked to
+    ``(+inf, sentinel = base_n + count)``. The ``[b, cap, D]`` difference
+    block is formed in query chunks of at most :data:`SCORE_BYTES_CAP`
+    bytes (the block and its square). Counts its calls in
+    ``delta_columns.launches``."""
+    delta_columns.launches += 1
+    b = queries.shape[0]
+    cap, d_feat = delta_rows.shape
+    chunk = max(1, SCORE_BYTES_CAP // (8 * max(cap, 1) * max(d_feat, 1)))
+    parts = []
+    for s in range(0, b, chunk):
+        diff = queries[s:s + chunk, None, :] - delta_rows[None, :, :]
+        parts.append((diff * diff).sum(dim=-1))
+    dd = torch.cat(parts) if parts else queries.new_empty((0, cap))
+    slot = torch.arange(cap, dtype=torch.int32, device=delta_rows.device)
+    live = (slot < count) & ~delta_dead
+    dd = torch.where(torch.isnan(dd) | ~live[None, :], torch.inf, dd)
+    sentinel = int(base_n) + int(count)
+    di = torch.where(live, slot + int(base_n),
+                     torch.full_like(slot, sentinel))
+    return dd, di[None, :].expand(b, cap), sentinel
+
+
+delta_columns.launches = 0
 
 
 def _segment_scores(perm_rows: torch.Tensor, perm_ids: torch.Tensor,
@@ -148,6 +184,35 @@ def segment_topk_core(perm_rows: torch.Tensor, perm_ids: torch.Tensor,
     return sd, si
 
 
+def segment_topk_delta_core(perm_rows: torch.Tensor, perm_ids: torch.Tensor,
+                            queries: torch.Tensor, starts: torch.Tensor,
+                            lens: torch.Tensor, row_ok: Optional[torch.Tensor],
+                            delta_rows: torch.Tensor, delta_dead: torch.Tensor,
+                            base_n: int, count: int, m_pad: int, kk: int):
+    """:func:`segment_topk_core` with the mutable delta tail fused in (the
+    twin of JAX's ``_segment_topk_delta_core``): the probed base candidates
+    and every delta slot (:func:`delta_columns`, positional ids
+    ``base_n + slot``) ride ONE selection under the shared tie contract.
+    Base pad slots carry ``N == base_n``, which collides with delta slot 0,
+    so they are remapped to the sentinel before the merged selection.
+    Counts its calls in ``segment_topk_delta_core.launches``."""
+    segment_topk_delta_core.launches += 1
+    bd, bi = _segment_scores(perm_rows, perm_ids, queries, starts, lens,
+                             m_pad)
+    dd, di, sentinel = delta_columns(queries, delta_rows, delta_dead,
+                                     base_n, count)
+    bi = torch.where(bi >= int(base_n), sentinel, bi)
+    all_d = torch.cat([bd, dd], dim=1)
+    all_i = torch.cat([bi, di], dim=1)
+    sd, si, crossed = margin_select(all_d, all_i, kk, row_ok=row_ok)
+    if crossed is not None and bool(crossed):
+        sd, si = lexicographic_topk_torch(all_d, all_i, kk)
+    return sd, si
+
+
+segment_topk_delta_core.launches = 0
+
+
 def device_operands(train_x: np.ndarray, row_perm: np.ndarray, device):
     """The device-resident permuted-train operands on ``device``:
     ``(perm_rows [N+1, D] f32, perm_ids [N+1] i32)``, the pad row zero and
@@ -175,7 +240,7 @@ def score_chunk_rows(m_pad: int, d_feat: int) -> int:
 
 def segment_topk(perm_rows: torch.Tensor, perm_ids: torch.Tensor,
                  queries: np.ndarray, starts: np.ndarray, lens: np.ndarray,
-                 m_actual: int, k: int, buckets=None):
+                 m_actual: int, k: int, buckets=None, tail=None):
     """Host entry: pad to the shape ladders, score on the operands' device
     in chunks under :data:`SCORE_BYTES_CAP`, copy back.
 
@@ -183,9 +248,12 @@ def segment_topk(perm_rows: torch.Tensor, perm_ids: torch.Tensor,
     segments (permutation-space start and length of each probe);
     ``m_actual`` the batch's largest candidate count; ``buckets`` the
     caller's query bucket ladder (None: the 128-row quantum), which keys
-    the signature only. Returns ``(dists [B, kk] f32, ids [B, kk] i64)``
-    on the host — the device's top-(k + margin) survivors for the exact
-    re-rank, not the answer."""
+    the signature only. ``tail`` — an optional
+    :class:`~knn_tpu_torch.mutable.device_tail.DeviceTailView` on the
+    operands' device whose delta block is fused into the same selection.
+    Returns ``(dists [B, kk] f32, ids [B, kk] i64)`` on the host — the
+    device's top-(k + margin) survivors for the exact re-rank, not the
+    answer."""
     from knn_tpu_torch.models.knn import (
         candidate_padded_rows,
         query_padded_rows,
@@ -194,12 +262,13 @@ def segment_topk(perm_rows: torch.Tensor, perm_ids: torch.Tensor,
     b, d_feat = queries.shape
     m_pad = max(candidate_padded_rows(m_actual), 1)
     b_pad = max(query_padded_rows(b, buckets), 1)
-    kk = min(k + RERANK_PAD, m_pad)
+    cap = tail.features.shape[0] if tail is not None else 0
+    kk = min(k + RERANK_PAD, m_pad + cap)
     if obs.enabled():
         from knn_tpu_torch.obs import devprof
 
         devprof.record_executable_lookup("retrieval", (
-            "ivf-segment", b_pad, lens.shape[1], m_pad, d_feat, kk, 0,
+            "ivf-segment", b_pad, lens.shape[1], m_pad, d_feat, kk, cap,
         ))
     if b == 0:
         return (np.empty((0, kk), np.float32), np.empty((0, kk), np.int64))
@@ -208,12 +277,18 @@ def segment_topk(perm_rows: torch.Tensor, perm_ids: torch.Tensor,
     q_t = torch.from_numpy(np.array(queries, np.float32)).to(dev)
     st_t = torch.from_numpy(np.ascontiguousarray(starts, np.int32)).to(dev)
     sl_t = torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(dev)
-    chunk = score_chunk_rows(m_pad, d_feat)
+    chunk = score_chunk_rows(m_pad + cap, d_feat)
     out_d, out_i = [], []
     for s in range(0, b, chunk):
         e = min(b, s + chunk)
-        sd, si = segment_topk_core(perm_rows, perm_ids, q_t[s:e], st_t[s:e],
-                                   sl_t[s:e], None, m_pad, kk)
+        if tail is None:
+            sd, si = segment_topk_core(perm_rows, perm_ids, q_t[s:e],
+                                       st_t[s:e], sl_t[s:e], None, m_pad, kk)
+        else:
+            sd, si = segment_topk_delta_core(
+                perm_rows, perm_ids, q_t[s:e], st_t[s:e], sl_t[s:e], None,
+                tail.features, tail.dead, tail.base_n, tail.count, m_pad,
+                kk)
         out_d.append(sd)
         out_i.append(si)
     d_h = torch.cat(out_d).cpu().numpy()

@@ -16,7 +16,10 @@ low-latency request serving over a prebuilt index.
   ``/metrics``, ``/debug/*``, ``/admin/reload``, ``/admin/capture``; with
   ``--shadow-rate``, ``--drift-rate`` and ``--capture-dir`` it builds the
   answer-quality and workload layers of :mod:`knn_tpu_torch.obs` and taps
-  the batcher into them (host threads; nothing more on the card).
+  the batcher into them (host threads; nothing more on the card); with
+  ``--mutable on`` the mutable tier (:mod:`knn_tpu_torch.mutable`):
+  ``/insert``, ``/delete``, ``/admin/compact``, every answer merged with
+  the delta rows and tombstones at its ``mutation_seq``.
 
 The serving ladder stops at the card: a failing kernel is retried in place
 (transient), rerun in halved batches (out of memory), or reported typed —

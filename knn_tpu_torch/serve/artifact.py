@@ -33,9 +33,16 @@ arrays as the JAX package does, and :func:`load_index` validates them
 (metric, row count, cell count, corrupt arrays: each a typed
 :class:`DataError`) and attaches the partition as ``model.ivf_``.
 
-**What the port does not load yet** fails typed, never with a part
-silently dropped: a mutable base (``epochs/``, ``CURRENT.json`` or a
-``mutable`` manifest block, ROADMAP A10).
+**The mutable tier's files** (``serve --mutable on``, ``mutable/``): a
+write-ahead epoch log (``epochs/epoch-<N>.jsonl``, one JSON record per
+acknowledged mutation, flushed before the ack), compacted generations
+(``generations/gen-<N>/``, ordinary format-3 artifacts with an additive
+``mutable`` manifest block and a ``mutable_stable_ids`` array) and an
+atomically replaced ``CURRENT.json`` pointer naming the base generation and
+the sequence number folded into it. None of this bumps the format: with
+``--mutable off`` an artifact that carries them loads as a plain one, as
+the JAX package's does, and the epoch files are byte-equal to the JAX
+package's for the same mutations.
 
 :func:`warmup` is the boot step between load and ready. The card has no
 compile to hide, but the first retrieval builds the kernel library when it
@@ -66,9 +73,10 @@ ARTIFACT_FORMAT = 3
 MANIFEST_NAME = "manifest.json"
 ARRAYS_NAME = "arrays.npz"
 
-#: The mutable tier's files in an artifact directory (ROADMAP A10): the
-#: port refuses an artifact that carries them.
+#: The mutable tier's files in an artifact directory (see the module
+#: docstring).
 EPOCHS_DIR = "epochs"
+GENERATIONS_DIR = "generations"
 CURRENT_NAME = "CURRENT.json"
 
 #: Port backend -> the manifest's (JAX) backend name. The one table both
@@ -144,7 +152,7 @@ def _model_manifest(model) -> dict:
     )
 
 
-def save_index(model, path, ivf=None) -> Path:
+def save_index(model, path, ivf=None, mutable_block=None) -> Path:
     """Write a fitted model to ``path`` (a directory; created if missing).
 
     ``ivf`` — an optional :class:`~knn_tpu_torch.index.ivf.IVFIndex` to
@@ -152,6 +160,12 @@ def save_index(model, path, ivf=None) -> Path:
     partition already attached to the model (``model.ivf_``, the load and
     re-save round trip) is kept. It must span exactly the train rows, and
     the model's metric must be euclidean (``ValueError`` otherwise).
+
+    ``mutable_block`` — the compactor's generation metadata (a dict with
+    ``stable_ids``, int64 per train row, plus JSON fields such as
+    ``folded_seq``/``next_stable``/``generation``): persisted as an additive
+    ``mutable`` manifest entry and a ``mutable_stable_ids`` array, ignored
+    by plain loads.
 
     Refuses to clobber a non-empty directory that is not already an
     artifact (no ``manifest.json``) — re-saving over an existing artifact
@@ -193,6 +207,16 @@ def save_index(model, path, ivf=None) -> Path:
     if ivf is not None:
         arrays.update(ivf.to_arrays())
         manifest["ivf"] = ivf.manifest_entry()
+    if mutable_block is not None:
+        block = dict(mutable_block)
+        stable = np.asarray(block.pop("stable_ids"), np.int64)
+        if stable.shape != (train.num_instances,):
+            raise ValueError(
+                f"mutable stable_ids must be one int64 per train row "
+                f"({train.num_instances}), got shape {stable.shape}"
+            )
+        arrays["mutable_stable_ids"] = stable
+        manifest["mutable"] = block
     np.savez(out / ARRAYS_NAME, **arrays)
     manifest.update(
         format=ARTIFACT_FORMAT,
@@ -264,29 +288,17 @@ def _read_manifest(root: Path) -> dict:
     return manifest
 
 
-def _refuse_later_layers(root: Path, manifest: dict) -> None:
-    """An artifact part the port cannot serve yet is a typed refusal,
-    never a load with the part dropped."""
-    if (isinstance(manifest.get("mutable"), dict)
-            or (root / EPOCHS_DIR).exists()
-            or (root / CURRENT_NAME).exists()):
-        raise DataError(
-            f"{root}: the artifact is a mutable base ({EPOCHS_DIR}/, "
-            f"{CURRENT_NAME} or a mutable manifest block); the port serves "
-            f"it with the mutable tier (ROADMAP A10)"
-        )
-
-
 def load_index(path, device="cuda"):
     """Load an artifact (the port's or the JAX package's) into a fitted
     model that runs on ``device``. Raises :class:`DataError` — typed,
-    never a traceback — for missing, corrupt, newer-format or
-    not-yet-servable artifacts."""
+    never a traceback — for missing, corrupt or newer-format artifacts. The
+    mutable tier's parts (epochs, generations, ``CURRENT.json``, a
+    ``mutable`` block) are not read here: ``resolve_mutable_base`` names
+    the directory a mutable boot loads."""
     import zipfile
 
     root = Path(path)
     manifest = _read_manifest(root)
-    _refuse_later_layers(root, manifest)
     ivf_manifest = manifest.get("ivf")
     ivf_arrays = None
     try:
@@ -372,6 +384,176 @@ def load_index(path, device="cuda"):
             num_features=train.num_features, where=str(root),
         ))
     return model
+
+
+# -- delta-epoch persistence (the mutable tier) -----------------------------
+
+
+def epoch_path(root, epoch: int) -> Path:
+    return Path(root) / EPOCHS_DIR / f"epoch-{epoch:08d}.jsonl"
+
+
+def generation_path(root, generation: int) -> Path:
+    return Path(root) / GENERATIONS_DIR / f"gen-{generation:06d}"
+
+
+def list_epochs(root) -> "list[tuple[int, Path]]":
+    """Epoch-log files under ``root``, sorted by epoch number. A file that
+    does not match the naming scheme is a typed refusal (something else
+    wrote into the write-ahead log's directory); a ``.jsonl.tmp`` left by a
+    crash inside :func:`repair_epoch` is skipped (the original is intact)."""
+    d = Path(root) / EPOCHS_DIR
+    if not d.is_dir():
+        return []
+    out = []
+    for p in sorted(d.iterdir()):
+        if p.name.endswith(".jsonl.tmp"):
+            continue
+        if not (p.name.startswith("epoch-") and p.name.endswith(".jsonl")):
+            raise DataError(
+                f"{p}: not an epoch-log file; the {EPOCHS_DIR}/ directory "
+                f"belongs to the mutable tier's write-ahead log"
+            )
+        try:
+            out.append((int(p.name[len("epoch-"):-len(".jsonl")]), p))
+        except ValueError as e:
+            raise DataError(f"{p}: unparseable epoch number") from e
+    out.sort()
+    return out
+
+
+def read_epoch_records(path, tolerate_torn: bool = False):
+    """Parse one epoch log: ``(records, torn)``. ``torn`` is True when the
+    FINAL line is an unparseable fragment and ``tolerate_torn`` allowed it
+    (a crash mid-append: that mutation was never acknowledged). A bad line
+    anywhere else, or a final fragment without tolerance, is a typed
+    :class:`DataError`: the log is corrupt, not merely truncated."""
+    path = Path(path)
+    try:
+        lines = path.read_text(encoding="utf-8").splitlines()
+    except OSError as e:
+        raise DataError(f"{path}: unreadable epoch log: {e}") from e
+    records = []
+    for n, line in enumerate(lines):
+        if not line.strip():
+            continue
+        try:
+            rec = json.loads(line)
+            if not isinstance(rec, dict) or "seq" not in rec:
+                raise ValueError("not a mutation record")
+        except ValueError as e:
+            if tolerate_torn and n == len(lines) - 1:
+                return records, True
+            raise DataError(
+                f"{path}:{n + 1}: corrupt epoch-log record: {e}"
+            ) from e
+        records.append(rec)
+    return records, False
+
+
+def _record_line(record: dict) -> str:
+    """One epoch-log line: the JAX package's bytes for the same record."""
+    return json.dumps(record, separators=(",", ":")) + "\n"
+
+
+def repair_epoch(path, records: "list[dict]") -> None:
+    """Rewrite an epoch log as exactly ``records`` (atomic replace) — boot
+    replay's repair after it dropped a tolerated torn final fragment (once
+    a later epoch exists this one loses its torn-tolerance, so an
+    unrepaired fragment would make the next boot refuse)."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "w", encoding="utf-8") as f:
+        for rec in records:
+            f.write(_record_line(rec))
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+class EpochLog:
+    """Append side of one write-ahead epoch file. Every record is written
+    and FLUSHED before the mutation is acknowledged: a killed process loses
+    at most the in-flight (never-acked) append."""
+
+    def __init__(self, path):
+        self.path = Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._f = open(self.path, "a", encoding="utf-8")
+
+    def append(self, record: dict) -> None:
+        self._f.write(_record_line(record))
+        self._f.flush()
+
+    def close(self) -> None:
+        try:
+            self._f.close()
+        except OSError:
+            pass
+
+
+def read_current(root) -> Optional[dict]:
+    """The compaction pointer, or None for a never-compacted artifact."""
+    p = Path(root) / CURRENT_NAME
+    if not p.exists():
+        return None
+    try:
+        doc = json.loads(p.read_text())
+        if not isinstance(doc, dict) or "generation" not in doc:
+            raise ValueError("not a compaction pointer")
+        return doc
+    except (OSError, ValueError) as e:
+        raise DataError(f"{p}: unreadable compaction pointer: {e}") from e
+
+
+def write_current(root, doc: dict) -> None:
+    """Atomically replace the compaction pointer — the commit point of a
+    compaction: a crash before it leaves the old generation serving with
+    every epoch record still replayable."""
+    p = Path(root) / CURRENT_NAME
+    tmp = p.with_suffix(".json.tmp")
+    tmp.write_text(json.dumps(doc, indent=2, sort_keys=True) + "\n")
+    os.replace(tmp, p)
+
+
+def resolve_mutable_base(root) -> "tuple[Path, Optional[dict]]":
+    """Where a mutable boot loads its base model from: the generation
+    ``CURRENT.json`` points at, or ``root`` itself for a never-compacted
+    artifact. Returns ``(base_dir, current_doc)``."""
+    root = Path(root)
+    cur = read_current(root)
+    if cur is None:
+        return root, None
+    rel = cur.get("base")
+    base = root / rel if rel else root
+    if not (base / MANIFEST_NAME).exists():
+        raise DataError(
+            f"{root}: {CURRENT_NAME} points at missing generation "
+            f"{rel!r}; the artifact is corrupt"
+        )
+    return base, cur
+
+
+def read_mutable_block(base_dir) -> "tuple[Optional[dict], Optional[np.ndarray]]":
+    """The generation's mutable metadata: ``(manifest block, stable_ids)``
+    — both None for a never-compacted artifact, whose base rows keep
+    stable ids ``0..N-1``."""
+    import zipfile
+
+    base_dir = Path(base_dir)
+    manifest = _read_manifest(base_dir)
+    block = manifest.get("mutable")
+    if not isinstance(block, dict):
+        return None, None
+    try:
+        with np.load(base_dir / ARRAYS_NAME, allow_pickle=False) as z:
+            stable = np.asarray(z["mutable_stable_ids"], np.int64)
+    except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
+        raise DataError(
+            f"{base_dir}: manifest declares a mutable block but "
+            f"mutable_stable_ids is unreadable: {e}"
+        ) from e
+    return block, stable
 
 
 def warmup(model, batch_sizes=(1, 256), kinds=("predict",)) -> dict:

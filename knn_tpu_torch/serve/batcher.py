@@ -70,6 +70,17 @@ Design notes:
 - :meth:`begin_drain` (SIGTERM) refuses new admissions while already
   queued work keeps dispatching; :meth:`fail_pending` gives whatever
   cannot be answered in the drain window a typed terminal outcome.
+
+**The mutable tier** (``mutable=``, a
+:class:`~knn_tpu_torch.mutable.engine.MutableEngine`, ``serve --mutable
+on``): :meth:`submit_mutation` queues inserts and deletes, which the
+worker applies between dispatches (writes serialize against reads for
+free); every batch snapshots the view in the same critical section as the
+model, so (model, version, view) are one consistent triple, and a
+non-empty view wraps each rung in the merge (:meth:`_merged_rung`). An
+empty view takes the plain ladder: mutable-on with no mutation serves the
+bytes and the launches of mutable-off. Responses carry the view's
+``mutation_seq``.
 """
 
 from __future__ import annotations
@@ -109,6 +120,47 @@ KINDS = ("predict", "kneighbors")
 
 #: The fault point and retry site of the batcher's dispatch.
 DISPATCH_SITE = "serve.dispatch"
+
+MUTATION_OPS = ("insert", "delete")
+
+
+class _Mutation:
+    """One queued mutation: applied by the worker thread between read
+    dispatches. The future contract mirrors :class:`_Request` — exactly one
+    terminal outcome."""
+
+    __slots__ = ("op", "payload", "enqueued_ns", "event", "value", "error")
+
+    def __init__(self, op: str, payload: dict):
+        self.op = op
+        self.payload = payload
+        self.enqueued_ns = time.monotonic_ns()
+        self.event = threading.Event()
+        self.value = None
+        self.error: Optional[BaseException] = None
+
+    def succeed(self, value) -> None:
+        self.value = value
+        self.event.set()
+
+    def fail(self, error: BaseException) -> None:
+        self.error = error
+        self.event.set()
+
+    def handle(self) -> AsyncResult:
+        def finish(timeout: Optional[float] = None):
+            if not self.event.wait(timeout):
+                raise DeadlineExceededError(
+                    f"{self.op} mutation not applied within "
+                    f"{timeout * 1e3:.0f} ms (result() again to keep "
+                    f"waiting)"
+                )
+            if self.error is not None:
+                raise self.error
+            return self.value
+
+        finish.__accepts_timeout__ = True
+        return AsyncResult(finish)
 
 
 class _Request:
@@ -395,7 +447,12 @@ class MicroBatcher:
     ``workload``       — an optional
                          :class:`~knn_tpu_torch.obs.workload.WorkloadCapture`:
                          every terminal request outcome (ok, expired,
-                         error, rejected) is offered for capture.
+                         error, rejected) is offered for capture, and every
+                         acknowledged mutation;
+    ``mutable``        — an optional
+                         :class:`~knn_tpu_torch.mutable.engine.MutableEngine`
+                         (see the module docstring); None constructs
+                         nothing.
 
     The three layers are host work on threads of their own: a layer that
     is off costs one ``is None`` test per call site, and none of them
@@ -408,7 +465,7 @@ class MicroBatcher:
                  recorder: "Optional[reqtrace.FlightRecorder]" = None,
                  accounting=None, capacity=None, buckets=None,
                  result_cache_rows: int = 0, ivf=None, quality=None,
-                 drift=None, workload=None):
+                 drift=None, workload=None, mutable=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_wait_ms < 0:
@@ -438,6 +495,7 @@ class MicroBatcher:
         self.quality = quality
         self.drift = drift
         self.workload = workload
+        self.mutable = mutable
         # TEST-ONLY corruption hook: when set, served neighbor indices are
         # rotated by one train row — a silently-wrong index whose
         # responses still look healthy to every other SLI. The shadow
@@ -457,6 +515,7 @@ class MicroBatcher:
         self._last_rung = "fast"
         self._cond = threading.Condition()
         self._queue: deque[_Request] = deque()
+        self._mutations: deque[_Mutation] = deque()
         self._queued_rows = 0
         self._closed = False
         self._draining = False
@@ -566,6 +625,43 @@ class MicroBatcher:
             self.capacity.note_arrival(req.rows)
         return req.handle()
 
+    def submit_mutation(self, op: str, payload: dict) -> AsyncResult:
+        """Enqueue one mutation for the worker to apply between read
+        dispatches (reads never block on a write's WAL append).
+        ``payload``: ``{"rows", "values"}`` for insert, ``{"ids"}`` (and an
+        optional ``"expect_version"``) for delete. Raises
+        :class:`OverloadError` while draining or closed, or when the delta
+        tier is already full (a cheap pre-check; the engine re-checks at
+        apply)."""
+        if self.mutable is None:
+            raise ValueError(
+                "this batcher serves an immutable index (no mutable "
+                "engine wired in)")
+        if op not in MUTATION_OPS:
+            raise ValueError(f"unknown mutation op {op!r}; choose "
+                             f"{' or '.join(MUTATION_OPS)}")
+        if op == "insert" and self.mutable.delta_full():
+            instrument.record_serve_rejected("delta_full")
+            raise OverloadError(
+                f"delta tier full ({self.mutable.delta_cap} slots); "
+                f"compaction is behind — retry after backoff or trigger "
+                f"/admin/compact"
+            )
+        mut = _Mutation(op, payload)
+        with self._cond:
+            if self._closed:
+                instrument.record_serve_rejected("closed")
+                raise OverloadError("batcher is shut down")
+            if self._draining:
+                instrument.record_serve_rejected("draining")
+                raise OverloadError(
+                    "server is draining (shutting down); no new "
+                    "mutations accepted"
+                )
+            self._mutations.append(mut)
+            self._cond.notify_all()
+        return mut.handle()
+
     def predict(self, features, timeout: Optional[float] = None):
         """Synchronous convenience: ``submit(..., 'predict').result()``."""
         return self.submit(features, "predict").result(timeout=timeout)
@@ -585,22 +681,33 @@ class MicroBatcher:
         """The rung that answered the most recent batch."""
         return self._last_rung
 
-    def swap_model(self, model, index_version: Optional[str] = None):
+    def swap_model(self, model, index_version: Optional[str] = None,
+                   hook=None):
         """Atomically replace the served model (the hot-reload path).
 
         The worker snapshots ``(model, version)`` once per batch under the
         queue lock, so every response reflects exactly one index. The
         caller warms the replacement first (``artifact.warmup``); the swap
-        itself is one reference assignment. Once no batch holds the old
-        model, its train, its feature-major copy and the stager's pinned
-        buffers for it are released (the worker replaces the stager at
-        its first dispatch of the new model). Returns the previous version
-        tag."""
+        itself is one reference assignment. ``hook`` (compaction's engine
+        rebase) runs INSIDE the same critical section, so a dispatch can
+        never pair the new model with a pre-rebase mutable view; a hook
+        that raises restores the old model and version. Once no batch
+        holds the old model, its train, its feature-major copy and the
+        stager's pinned buffers for it are released. Returns the previous
+        version tag."""
         model.train_
         with self._cond:
+            previous_model = self._model
             previous = self._index_version
             self._model = model
             self._index_version = index_version
+            if hook is not None:
+                try:
+                    hook()
+                except BaseException:
+                    self._model = previous_model
+                    self._index_version = previous
+                    raise
         if self.cache is not None:
             self.cache.clear()
         return previous
@@ -625,11 +732,16 @@ class MicroBatcher:
             doomed = list(self._queue)
             self._queue.clear()
             self._queued_rows = 0
+            doomed_muts = list(self._mutations)
+            self._mutations.clear()
             self._cond.notify_all()
         for req in doomed:
             if not req.event.is_set():
                 req.fail(error, outcome=outcome)
-        return len(doomed)
+        for mut in doomed_muts:
+            if not mut.event.is_set():
+                mut.fail(error)
+        return len(doomed) + len(doomed_muts)
 
     def close(self, timeout: Optional[float] = None) -> None:
         """Stop accepting work, drain the queue, and join the worker.
@@ -696,17 +808,21 @@ class MicroBatcher:
         except BaseException as e:  # noqa: BLE001 — handed to the supervisor
             self._worker_error = e
 
-    def _collect(self) -> "list[_Request]":
+    def _collect(self) -> "Optional[list[_Request]]":
         """Block until a batch closes; [] only at shutdown with an empty
-        queue. From the arrival of the OLDEST queued request, wait up to
-        ``max_wait_ms`` for more work, closing early at ``max_batch`` rows
-        (or on shutdown/drain). Whole requests only — a request larger
-        than ``max_batch`` dispatches alone, oversized."""
+        queue, None when mutations wait and no read does (the worker
+        applies them now). From the arrival of the OLDEST queued request,
+        wait up to ``max_wait_ms`` for more work, closing early at
+        ``max_batch`` rows (or on shutdown/drain). Whole requests only — a
+        request larger than ``max_batch`` dispatches alone, oversized."""
         with self._cond:
             while True:
-                while not self._queue and not self._closed:
+                while (not self._queue and not self._closed
+                       and not self._mutations):
                     self._cond.wait()
                 if not self._queue:
+                    if self._mutations and not self._closed:
+                        return None
                     return []
                 with obs.span("serve.queue", waiting_rows=self._queued_rows):
                     deadline_ns = self._queue[0].enqueued_ns + int(
@@ -733,7 +849,10 @@ class MicroBatcher:
 
     def _run(self) -> None:
         while True:
+            self._apply_mutations()
             batch = self._collect()
+            if batch is None:
+                continue  # mutations arrived while idle; apply them
             if not batch:
                 return
             try:
@@ -742,6 +861,43 @@ class MicroBatcher:
                 for req in batch:
                     if not req.event.is_set():
                         req.fail(e)
+
+    def _apply_mutations(self) -> None:
+        """Drain the mutation queue on the worker thread — between read
+        dispatches, never inside one. A failed apply (typed validation,
+        conflict, overload) goes to THAT mutation's future; the worker
+        survives anything. Acknowledged mutations reach the workload
+        capture."""
+        if self.mutable is None:
+            return
+        with self._cond:
+            if not self._mutations:
+                return
+            muts = list(self._mutations)
+            self._mutations.clear()
+        for mut in muts:
+            try:
+                if mut.op == "insert":
+                    out = self.mutable.apply_insert(
+                        mut.payload["rows"], mut.payload["values"],
+                        mut.enqueued_ns,
+                    )
+                else:
+                    out = self.mutable.apply_delete(
+                        mut.payload["ids"], mut.enqueued_ns,
+                        expect_version=mut.payload.get("expect_version"))
+                # The ENGINE stamps the version under its own lock, so the
+                # ack's ids and tag name one generation.
+                if self.workload is not None:
+                    self.workload.note_mutation(
+                        mut.op, mut.payload,
+                        out.get("seq") if isinstance(out, dict) else None,
+                        mut.enqueued_ns,
+                    )
+                mut.succeed(out)
+            except BaseException as e:  # noqa: BLE001 — per-future
+                if not mut.event.is_set():
+                    mut.fail(e)
 
     # -- the serving rung --------------------------------------------------
 
@@ -766,12 +922,14 @@ class MicroBatcher:
                 self._stager = _UploadStager(model, self.buckets, dev)
         return self._stager
 
-    def _rungs(self, model):
+    def _rungs(self, model, mview=None):
         """The serving ladder for this batch's model snapshot: ``ivf`` (when
         the batcher has a serving wrapper and the model a partition), then
         ``fast``, the model's own configured retrieval (engine selection,
         device and device cache). The ladder stops at the card: no other
-        route and no host rung answers for ``fast``."""
+        route and no host rung answers for ``fast``. A non-empty mutable
+        view ``mview`` wraps each rung in the merge (:meth:`_merged_rung`);
+        an empty one leaves the ladder exactly as it is."""
         train = model.train_
         k, metric = model.k, model.metric
         if isinstance(model, KNNClassifier):
@@ -780,24 +938,31 @@ class MicroBatcher:
             engine = model.engine
         stager = self._stager
 
-        def fast(feats, prefetched=None):
+        def fast(feats, prefetched=None, merge_tail=None):
             if stager is not None:
                 # Dispatch DEFERRED (kernels and the copies of their
                 # answers enqueued when _kneighbors_arrays returns), stage
                 # the NEXT batch's upload in the gap, then resolve. ONE
                 # prefetch per dispatch, even when an OOM halving chunks
-                # this batch.
+                # this batch. ``merge_tail`` (the device delta merge)
+                # rides the same deferred dispatch.
                 resolve = _kneighbors_arrays(
                     train.features, feats, k, metric=metric, engine=engine,
                     cache=train.device_cache, deferred=True,
                     device=model.device,
                     prefetched_queries=(prefetched.ready()
                                         if prefetched is not None else None),
+                    merge_tail=merge_tail,
                 )
                 if not self._prefetched_this_dispatch:
                     self._prefetched_this_dispatch = True
                     stager.prefetch(self)
                 return resolve()
+            if merge_tail is not None:
+                return _kneighbors_arrays(
+                    train.features, feats, k, metric=metric, engine=engine,
+                    cache=train.device_cache, device=model.device,
+                    merge_tail=merge_tail)
             return model.kneighbors(
                 Dataset(feats, np.zeros(feats.shape[0], np.int32))
             )
@@ -808,7 +973,80 @@ class MicroBatcher:
             rungs.append(("ivf", lambda feats, prefetched=None:
                           ivf.kneighbors(model, np.asarray(feats))))
         rungs.append(("fast", fast))
+        if mview is not None and not mview.empty:
+            rungs = [(name, self._merged_rung(name, fn, model, mview, engine))
+                     for name, fn in rungs]
         return rungs
+
+    def _merged_rung(self, name: str, fn, model, mview, engine: str):
+        """Wrap one rung with the delta/tombstone merge, one of three
+        realizations of the ONE merge contract:
+
+        - **ivf** — :meth:`IVFServing.kneighbors` owns its merge (fused
+          into the segment scorer when the view carries a delta tail on
+          the card and no base tombstone, else the host merge with the
+          probed search as the widening);
+        - **fast on the torch-scan route with a delta tail** (no base
+          tombstones, euclidean): the delta merge chains onto the scan's
+          device outputs (``merge_tail``) and the host re-rank restores
+          the host merge's exact distances
+          (``mutable/device_tail.rerank_merged``);
+        - **everything else** (the kernels' route, other metrics,
+          tombstoned bases, host-only tails): the host merge
+          (``mutable/state.merge_candidates``), widening through the same
+          rung's retrieval on the card at ``k + tombstones`` — JAX widens
+          through its host oracle here; the port's ladder stops at the
+          card, and the answers are the same.
+
+        Spans: ``mutable.merge`` around the host merge (with
+        ``mutable.widen`` inside it), ``mutable.device_merge`` around the
+        device merge's dispatch and re-rank."""
+        from knn_tpu_torch.mutable import state as mstate
+
+        k, metric = model.k, model.metric
+        if name == "ivf":
+            ivf = self.ivf
+
+            def merged_ivf(feats, prefetched=None):
+                return ivf.kneighbors(model, np.asarray(feats), view=mview)
+
+            return merged_ivf
+        tview = mview.device
+        if (tview is not None and mview.tomb_base.size == 0
+                and metric in (None, "euclidean")
+                and acct.resolved_retrieval_engine(model) == "xla"):
+            from knn_tpu_torch.mutable import device_tail as dtail
+
+            tail_fn = dtail.make_merge_tail(tview, k)
+
+            def merged_dev(feats, prefetched=None):
+                with obs.span("mutable.device_merge", rows=feats.shape[0],
+                              delta_slots=mview.count):
+                    d, i = fn(feats, prefetched, merge_tail=tail_fn)
+                    return dtail.rerank_merged(
+                        mview, model.train_.features,
+                        np.asarray(feats, np.float32), i, k, metric,
+                        base_d=d)
+
+            return merged_dev
+        train = model.train_
+
+        def wide(feats, k_wide):
+            with obs.span("mutable.widen", rows=feats.shape[0], k=k_wide):
+                return _kneighbors_arrays(
+                    train.features, feats, k_wide, metric=metric,
+                    engine=engine, cache=train.device_cache,
+                    device=model.device)
+
+        def merged(feats, prefetched=None):
+            d, i = fn(feats, prefetched)
+            with obs.span("mutable.merge", rows=feats.shape[0],
+                          delta_slots=mview.count,
+                          tombstones=len(mview.tomb_pos)):
+                return mstate.merge_candidates(mview, feats, d, i, k, metric,
+                                               wide)
+
+        return merged
 
     def _call_rung(self, fn, feats, prefetched=None):
         """Dispatch ``feats`` through the rung, chunked to the CURRENT
@@ -888,13 +1126,15 @@ class MicroBatcher:
             )
         return pad
 
-    def _retrieve(self, model, live: "list[_Request]", prefetch=None):
+    def _retrieve(self, model, live: "list[_Request]", mview=None,
+                  prefetch=None):
         """Candidate retrieval for the coalesced batch, through the breaker
         and the ladder. Returns ``(live, dists, idx, rung, padded_rows)`` —
         ``live`` may have shrunk (mid-retry deadline expiries, already
         failed typed). ``prefetch`` is the stager's ``(host_rows,
         staged_block)`` for exactly this batch, used while ``live`` is
-        unshrunk.
+        unshrunk. ``mview`` is the batch's mutable view (see
+        :meth:`_rungs`).
 
         The first rung carries the ``serve.dispatch`` fault point and the
         breaker. ``ivf`` degrades to ``fast`` on any typed failure (an OOM
@@ -903,7 +1143,7 @@ class MicroBatcher:
         raises the typed error when it fails for good. While the breaker
         is open, a ladder with ``ivf`` starts at ``fast`` and a ladder of
         ``fast`` alone fails at once."""
-        rungs = self._rungs(model)
+        rungs = self._rungs(model, mview)
         decision = self.breaker.decide()
         traced = [r.trace for r in live if r.trace is not None]
         for t in traced:
@@ -1044,21 +1284,30 @@ class MicroBatcher:
                 rows += nxt.rows
                 instrument.record_serve_topup(nxt.rows)
 
-    def _finish_served(self, req: "_Request", d, i, model, version,
-                       rung: str, cache_hit: bool = False) -> None:
-        """Complete ONE request from its retrieval slice: meta tags, the
-        per-kind value (vote/aggregate on host), future signal, capacity,
-        then the quality and drift taps."""
+    def _finish_served(self, req: "_Request", d, i, model, version, mview,
+                       merged: bool, rung: str,
+                       cache_hit: bool = False) -> None:
+        """Complete ONE request from its retrieval slice: meta tags (the
+        view's ``mutation_seq`` under the mutable tier), the per-kind value
+        (vote/aggregate on host; gathered across base and delta when the
+        view was merged), future signal, capacity, then the quality and
+        drift taps."""
         req.meta["index_version"] = version
         req.meta["rung"] = rung
         if cache_hit:
             req.meta["cache"] = "hit"
+        if mview is not None:
+            req.meta["mutation_seq"] = mview.seq
         if req.trace is not None:
             req.trace.annotate(index_version=version, rung=rung)
             if cache_hit:
                 req.trace.annotate(cache="hit")
         if req.kind == "kneighbors":
             value = (d.copy(), i.copy()) if cache_hit else (d, i)
+        elif merged:
+            from knn_tpu_torch.mutable.state import predict_from_view
+
+            value = predict_from_view(model, mview, d, i)
         elif isinstance(model, KNNClassifier):
             value = model.predict_from_candidates(d, i)
         else:
@@ -1076,18 +1325,24 @@ class MicroBatcher:
             self.quality.offer(
                 features=req.features, kind=req.kind, dists=d, idx=i,
                 preds=(value if req.kind == "predict" else None),
-                rung=rung, model=model, version=version,
+                rung=rung, model=model, version=version, mview=mview,
             )
         if self.drift is not None:
             self.drift.offer(req.features)
 
     def _dispatch(self, batch: "list[_Request]") -> None:
+        # Top-up BEFORE the snapshot: a topped-up request was submitted
+        # after every mutation applied so far, so the snapshot below (which
+        # reflects all of them) keeps read-your-writes.
         self._admit_topup(batch)
         with self._cond:
             # One snapshot per batch: swap_model never splits a batch
-            # across two indexes.
+            # across two indexes, and the mutable view snapshots in the
+            # SAME critical section compaction's swap+rebase runs in.
             model = self._model
             version = self._index_version
+            mview = (self.mutable.snapshot()
+                     if self.mutable is not None else None)
         stager = self._stager_for(model)
         now_ns = time.monotonic_ns()
         live: "list[_Request]" = []
@@ -1112,22 +1367,25 @@ class MicroBatcher:
             live.append(req)
         if not live:
             return
+        merged_view = mview is not None and not mview.empty
         ivf_active = self._ivf_active(model)
         miss_keys: "Optional[dict]" = None
         if self.cache is not None:
-            # Keyed on the snapshot's version and the live ivf operating
-            # point: a hit is bit-identical to what a fresh dispatch under
-            # this snapshot would return.
+            # Keyed on the snapshot's (version, sequence point) and the
+            # live ivf operating point: a hit is bit-identical to what a
+            # fresh dispatch under this snapshot would return.
+            seq = mview.seq if mview is not None else None
             nprobe = self.ivf.policy.current() if ivf_active else None
             misses: "list[_Request]" = []
             miss_keys = {}
             for req in live:
-                key = self.cache.key(version, None, nprobe, req.features)
+                key = self.cache.key(version, seq, nprobe, req.features)
                 ent = self.cache.get(key)
                 if ent is not None:
                     hit_d, hit_i, hit_rung = ent
                     self._finish_served(req, hit_d, hit_i, model, version,
-                                        hit_rung, cache_hit=True)
+                                        mview, merged_view, hit_rung,
+                                        cache_hit=True)
                 else:
                     miss_keys[id(req)] = key
                     misses.append(req)
@@ -1146,7 +1404,7 @@ class MicroBatcher:
             with obs.span("serve.dispatch", requests=len(live),
                           rows=rows) as dispatch_span:
                 live, dists, idx, rung, padded = self._retrieve(
-                    model, live, prefetch=prefetch)
+                    model, live, mview, prefetch=prefetch)
                 if not live:
                     if self.capacity is not None:
                         self.capacity.note_dispatch(
@@ -1179,7 +1437,8 @@ class MicroBatcher:
                             cd.flags.writeable = False
                             ci.flags.writeable = False
                             self.cache.put(key, cd, ci, rung)
-                    self._finish_served(req, d, i, model, version, rung)
+                    self._finish_served(req, d, i, model, version, mview,
+                                        merged_view, rung)
             batch_ms = (time.monotonic() - t0) * 1e3
             served_rows = sum(r.rows for r in live)
             instrument.record_serve_batch(

@@ -40,14 +40,25 @@ Endpoint contract (the JAX package's, docs/SERVING.md):
   ``{"action": "start"|"stop"}`` arms or finalizes a capture window
   (``obs/workload.py``): 404 while the layer is off, 409 on a state
   contradiction; ``stop`` returns the artifact's path and counts.
+- ``POST /insert`` body ``{"rows": [[...]], "labels": [...]}`` and ``POST
+  /delete`` body ``{"ids": [...], "index_version": optional}`` (``serve
+  --mutable on``, ``mutable/``): 200 means durable (epoch-logged, flushed)
+  and visible to every later dispatch; 404 while ``--mutable off``, 400
+  malformed, 409 conflict (unknown or deleted row, the k floor, a stale
+  version precondition), 429 at ``delta_cap``, 503 while draining.
+  ``POST /admin/compact`` folds the delta tier and tombstones into a new
+  generation now (409 while another compaction runs, 500 with
+  ``rolled_back`` on failure). Hot reload is refused under ``--mutable
+  on`` (the tier owns the artifact's lifecycle); responses carry
+  ``mutation_seq``, and ``/healthz`` and ``/debug/capacity`` the
+  ``mutable`` block.
 
 The routes of the layers later slices bring answer as the JAX package
 answers them with the layer off: ``/debug/control``, ``/debug/history``
 and ``/debug/alerts`` are 200 with ``enabled`` false and null blocks; the
-mutation and replication routes (``/insert``, ``/delete``,
-``/admin/compact``, ``/admin/wal-append``, ``/admin/promote``,
-``/admin/bootstrap``, ``/admin/wal-since``, ``/admin/snapshot``) are 404
-with the layer named.
+replication routes (``/admin/wal-append``, ``/admin/promote``,
+``/admin/bootstrap``, ``/admin/wal-since``, ``/admin/snapshot``, ROADMAP
+A12) are 404 with the layer named.
 
 Every request carries a **request id** (a valid ``x-request-id``, else a
 generated one), echoed on every response (header + JSON body), resolvable
@@ -99,13 +110,12 @@ from knn_tpu_torch.serve.batcher import MicroBatcher
 #: Request bodies past this are rejected 413 before json.loads allocates.
 MAX_BODY_BYTES = 64 * 1024 * 1024
 
+#: The 404 text of the mutable tier's routes while ``--mutable off``.
+_MUTABLE_OFF = "mutable serving is off — boot with `serve INDEX --mutable on`"
+
 #: POST routes of later layers -> the 404 message JAX gives with the layer
 #: off.
 _OFF_POST = {
-    "/insert": "mutable serving is off — boot with `serve INDEX --mutable on`",
-    "/delete": "mutable serving is off — boot with `serve INDEX --mutable on`",
-    "/admin/compact": "mutable serving is off — boot with `serve INDEX "
-                      "--mutable on`",
     "/admin/bootstrap": "mutable serving is off — boot with `serve INDEX "
                         "--mutable on`",
     "/admin/wal-append": "fleet replication is off — boot with `serve INDEX "
@@ -176,7 +186,16 @@ class ServeApp:
     the shadow scorer holds it to ``ivf_recall_floor``, and the quality
     burn it feeds is what the probe policy widens ``nprobe`` on.
     ``capture_dir`` (``--capture-dir``; None constructs nothing) builds
-    the workload recorder with the ``capture_*`` knobs."""
+    the workload recorder with the ``capture_*`` knobs.
+
+    ``mutable`` (``--mutable on``) builds the mutable tier over
+    ``index_path``: a :class:`~knn_tpu_torch.mutable.engine.MutableEngine`
+    (replaying the epochs newer than ``mutable_current``'s fold point, its
+    base generation in ``mutable_base_dir``) wired into the batcher, and a
+    :class:`~knn_tpu_torch.mutable.compact.Compactor` started after warmup
+    (``compact_threshold`` pending mutations or ``/admin/compact`` fold;
+    ``compact_interval_s`` 0 runs no timer thread). Off constructs
+    nothing."""
 
     def __init__(self, model, *, max_batch: int = 256,
                  max_wait_ms: float = 2.0, max_queue_rows: int = 4096,
@@ -200,7 +219,12 @@ class ServeApp:
                  capture_queue: int = 1024,
                  capture_burn_threshold: Optional[float] = None,
                  capture_burn_objective: str = "availability",
-                 capture_burn_window_s: float = 60.0):
+                 capture_burn_window_s: float = 60.0,
+                 mutable: bool = False, delta_cap: int = 4096,
+                 compact_threshold: int = 1024,
+                 compact_interval_s: float = 30.0,
+                 mutable_current: Optional[dict] = None,
+                 mutable_base_dir=None):
         # Validated FIRST: a DataError here must abort before any worker
         # thread exists.
         if ivf_probes is not None:
@@ -296,6 +320,27 @@ class ServeApp:
             )
         else:
             self.workload = None
+        if mutable:
+            from knn_tpu_torch.mutable.engine import MutableEngine
+
+            if index_path is None:
+                raise DataError(
+                    "mutable serving needs an artifact directory for its "
+                    "write-ahead epoch log; build one with `save-index` "
+                    "and boot `serve INDEX --mutable on`"
+                )
+            try:
+                self.mutable = MutableEngine(
+                    model, index_path, delta_cap=delta_cap,
+                    current=mutable_current, base_dir=mutable_base_dir,
+                    version=index_version,
+                )
+            except BaseException:
+                # A corrupt log aborts the boot: no layer thread left.
+                self.close_layers()
+                raise
+        else:
+            self.mutable = None
         self.batcher = MicroBatcher(
             model, max_batch=max_batch, max_wait_ms=max_wait_ms,
             max_queue_rows=max_queue_rows, index_version=index_version,
@@ -303,7 +348,18 @@ class ServeApp:
             capacity=self.capacity, buckets=batch_buckets,
             result_cache_rows=result_cache_rows, ivf=self.ivf,
             quality=self.quality, drift=self.drift, workload=self.workload,
+            mutable=self.mutable,
         )
+        if mutable:
+            from knn_tpu_torch.mutable.compact import Compactor
+
+            self.compactor = Compactor(
+                self.mutable, swap=self._mutable_swap,
+                warm=self._warm_replacement, threshold=compact_threshold,
+                interval_s=compact_interval_s,
+            )
+        else:
+            self.compactor = None
         self.ready = False
         self.draining = False
         self.started_unix = time.time()
@@ -339,8 +395,45 @@ class ServeApp:
         self.warmup_ms.update(self._warm_ivf(self.model, batch_sizes))
         if self.capacity is not None:
             self._seed_capacity_model(self.model)
+        if self.compactor is not None:
+            # Only after warmup: a fold before ready would race the boot.
+            self.compactor.start()
         self.ready = True
         return self.warmup_ms
+
+    def _warm_replacement(self, model) -> dict:
+        """Warm a compaction's replacement model at the serving batch
+        shapes, OFF the serving path (the reload warmup rule), on this
+        app's card."""
+        sizes = self._warm_sizes or (1, self.batcher.max_batch)
+        with _on_device(self.device):
+            out = artifact.warmup(model, batch_sizes=sizes,
+                                  kinds=("predict",))
+            out.update(self._warm_ivf(model, sizes))
+        return out
+
+    def _mutable_swap(self, model, version, rebase_hook):
+        """Compaction's swap callback: model swap + engine rebase in ONE
+        batcher critical section (every dispatch sees exactly the old or
+        the new (model, version, view) triple), then the app-level
+        bookkeeping hot reload also does. Past the swap, that bookkeeping
+        is best-effort: a failure there must not turn a served generation
+        into a misreported rollback."""
+        previous = self.batcher.swap_model(model, version, hook=rebase_hook)
+        self.model = model
+        self.index_version = version
+        try:
+            new_partition = getattr(model, "ivf_", None)
+            if self.ivf is not None and new_partition is not None:
+                self.ivf.set_num_cells(new_partition.num_cells)
+            if self.capacity is not None:
+                with _on_device(self.device):
+                    self._seed_capacity_model(model)
+        except Exception as e:  # noqa: BLE001 — advisory layers only
+            print(f"warning: post-compaction bookkeeping failed "
+                  f"({type(e).__name__}: {e}); serving the new generation "
+                  f"regardless", file=sys.stderr, flush=True)
+        return previous
 
     def _warm_ivf(self, model, batch_sizes) -> dict:
         """The ivf rung's probed search at each batch shape on ``model``
@@ -395,7 +488,15 @@ class ServeApp:
         the boot index path), warm it OFF the serving path (the old index
         keeps serving; the replacement's caches are touched by this thread
         alone until the swap), then swap atomically. Any failure raises
-        typed and leaves the old index serving."""
+        typed and leaves the old index serving. Refused under ``--mutable
+        on``: the mutable tier owns the artifact's lifecycle."""
+        if self.mutable is not None:
+            raise DataError(
+                "hot reload is disabled under --mutable on: the mutable "
+                "tier owns the artifact's lifecycle (its epoch log and "
+                "generations); fold pending writes with POST "
+                "/admin/compact instead"
+            )
         if not self._reload_lock.acquire(blocking=False):
             raise ReloadInProgress("a reload is already in progress")
         try:
@@ -548,7 +649,11 @@ class ServeApp:
 
     def close(self) -> None:
         self.ready = False
+        if self.compactor is not None:
+            self.compactor.stop()
         self.batcher.close()
+        if self.mutable is not None:
+            self.mutable.close()
         self.close_layers()
         if self.access_log is not None:
             self.access_log.close()
@@ -582,7 +687,8 @@ class ServeApp:
                     if self.ivf is not None else None),
             "capacity": (self.capacity.export()
                          if self.capacity is not None else None),
-            "mutable": None,
+            "mutable": (self.mutable.export()
+                        if self.mutable is not None else None),
             "workload": (self.workload.export()
                          if self.workload is not None else None),
             "shard": None,
@@ -767,6 +873,8 @@ class _Handler(BaseHTTPRequestHandler):
             self.app.capacity.export()
         if self.app.workload is not None:
             self.app.workload.export()
+        if self.app.mutable is not None:
+            self.app.mutable.export()
         accept = self.headers.get("Accept", "")
         if "application/openmetrics-text" in accept:
             self._send_text(
@@ -817,7 +925,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "result_cache": (b.cache.stats()
                                  if b.cache is not None else None),
             },
-            "mutable": None,
+            "mutable": (self.app.mutable.export()
+                        if self.app.mutable is not None else None),
             "shard": None,
             "index_version": self.app.index_version,
         }
@@ -927,6 +1036,13 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/admin/capture":
             self._do_capture_admin()
             return
+        if self.path == "/admin/compact":
+            self._do_compact()
+            return
+        if self.path in ("/insert", "/delete"):
+            with self.app.track_request():
+                self._do_mutation(self.path[1:])
+            return
         if self.path in _OFF_POST:
             self.close_connection = True
             self._send(404, {"error": _OFF_POST[self.path]})
@@ -937,6 +1053,98 @@ class _Handler(BaseHTTPRequestHandler):
             return
         with self.app.track_request():
             self._do_inference(self.path[1:])
+
+    def _do_mutation(self, op: str):
+        """``POST /insert`` (``{"rows": [[...]], "labels": [...]}``) and
+        ``POST /delete`` (``{"ids": [...], "index_version": optional}``),
+        with JAX's status contract: 404 while ``--mutable off``, 400
+        malformed, 409 conflict, 429 delta tier full, 503 draining, 504
+        apply deadline; a 200 ack means DURABLE and visible to every later
+        dispatch."""
+        if self.app.mutable is None:
+            self.close_connection = True
+            self._send(404, {"error": _MUTABLE_OFF})
+            return
+        body, err, status = self._read_json_body(required=True)
+        if err is not None:
+            self.close_connection = True
+            self._send(status, {"error": err})
+            return
+        from knn_tpu_torch.mutable.state import MutationConflict
+
+        try:
+            if op == "insert":
+                if "rows" not in body:
+                    raise ValueError('insert body needs "rows" '
+                                     '(and "labels", one per row)')
+                payload = {"rows": body["rows"],
+                           "values": body.get("labels")}
+            else:
+                if "ids" not in body:
+                    raise ValueError('delete body needs "ids"')
+                # The version precondition is checked by the ENGINE at
+                # apply time, under the lock the compaction rebase holds.
+                payload = {"ids": body["ids"],
+                           "expect_version": body.get("index_version")}
+            handle = self.app.batcher.submit_mutation(op, payload)
+            value = handle.result(timeout=30)
+        except MutationConflict as e:
+            self._send(409, {"error": str(e)})
+            return
+        except OverloadError as e:
+            st = 503 if self.app.draining else 429
+            self._send(st, {"error": str(e)},
+                       retry_after=self.app.overload_retry_after_s())
+            return
+        except DeadlineExceededError as e:
+            self._send(504, {"error": str(e)})
+            return
+        except (ValueError, TypeError) as e:
+            self._send(400, {"error": f"bad request body: {e}"})
+            return
+        except Exception as e:  # noqa: BLE001 — typed JSON, never a
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self._send(200, value)
+
+    def _do_compact(self):
+        """``POST /admin/compact``: fold the delta tier and tombstones into
+        a new generation NOW and swap it in. 404 while ``--mutable off``,
+        409 while another compaction runs, 500 ``rolled_back`` on failure
+        with the old generation still serving (``rolled_back: false`` when
+        only the pointer commit failed: the new generation serves)."""
+        if self.app.compactor is None:
+            self.close_connection = True
+            self._send(404, {"error": _MUTABLE_OFF})
+            return
+        body, err, status = self._read_json_body(required=False)
+        if err is not None:
+            self.close_connection = True
+            self._send(status, {"error": err})
+            return
+        from knn_tpu_torch.mutable.compact import (
+            CompactionCommitFailed,
+            CompactionInProgress,
+        )
+
+        try:
+            result = self.app.compactor.run_once(force=True)
+        except CompactionInProgress as e:
+            self._send(409, {"error": str(e)})
+            return
+        except CompactionCommitFailed as e:
+            self._send(500, {
+                "error": str(e), "rolled_back": False,
+                "index_version": self.app.index_version,
+            })
+            return
+        except Exception as e:  # noqa: BLE001 — rollback is implicit
+            self._send(500, {
+                "error": f"{type(e).__name__}: {e}", "rolled_back": True,
+                "index_version": self.app.index_version,
+            })
+            return
+        self._send(200, result)
 
     def _do_capture_admin(self):
         """``POST /admin/capture`` body ``{"action": "start"|"stop"}``:
@@ -1166,6 +1374,10 @@ class _Handler(BaseHTTPRequestHandler):
                 "index_version": meta.get("index_version"),
                 "ms": ms,
             }
+        if "mutation_seq" in meta:
+            # The read's sequence point: which acknowledged mutations this
+            # answer reflects.
+            payload["mutation_seq"] = meta["mutation_seq"]
         self._send(200, payload)
         self._account(kind, 200, "ok", t0, trace=trace,
                       rung=meta.get("rung"), rows=rows,

@@ -729,3 +729,130 @@ def test_ivf_rung_serves_on_the_card_and_degrades_to_the_kernels(card):
             _, i = h.result(timeout=60)
         assert h.meta["rung"] == "fast"
         assert cuda_knn.knn_stripe_scan.launches == scans + 1
+
+
+def _mutable_pair_on(card, model, tmp_path):
+    """Two engines over byte-identical artifacts on the card: the delta
+    tail forced on vs off."""
+    import shutil
+
+    from knn_tpu_torch.mutable.engine import MutableEngine
+    from knn_tpu_torch.serve.artifact import save_index
+
+    save_index(model, tmp_path / "on", ivf=getattr(model, "ivf_", None))
+    shutil.copytree(tmp_path / "on", tmp_path / "off")
+    return (MutableEngine(model, tmp_path / "on", device_tail="on"),
+            MutableEngine(model, tmp_path / "off", device_tail="off"))
+
+
+@pytest.mark.cuda
+def test_device_tail_merges_on_the_card_like_the_host(card, tmp_path):
+    """The torch-scan route with a delta tail on the card: the merge rides
+    the scan's dispatch (no hand kernel launched) and answers bit-equal to
+    the host merge of the same view; a base tombstone takes the host
+    merge."""
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.models.knn import KNNClassifier
+    from knn_tpu_torch.mutable import device_tail
+    from knn_tpu_torch.serve.batcher import MicroBatcher
+
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 4, (3000, 6)).astype(np.float32)
+    qx = rng.integers(0, 4, (40, 6)).astype(np.float32)
+    qx[3, 1] = np.nan
+    model = KNNClassifier(k=5, engine="xla").fit(
+        Dataset(x, rng.integers(0, 3, 3000).astype(np.int32)))
+    on, off = _mutable_pair_on(card, model, tmp_path)
+    rows = rng.integers(0, 4, (300, 6)).astype(np.float32)
+    vals = rng.integers(0, 3, 300).astype(np.float32)
+    for e in (on, off):
+        e.apply_insert(rows, vals, 0)
+        e.apply_delete([3001], 0)
+    assert on.snapshot().device.features.device.type == "cuda"
+    with MicroBatcher(model, max_batch=64, max_wait_ms=0.0,
+                      mutable=on) as b_on, \
+            MicroBatcher(model, max_batch=64, max_wait_ms=0.0,
+                         mutable=off) as b_off:
+        merges = device_tail._delta_merge_core.launches
+        scans = cuda_knn.knn_stripe_scan.launches
+        got = b_on.kneighbors(qx, timeout=60)
+        assert device_tail._delta_merge_core.launches == merges + 1
+        assert cuda_knn.knn_stripe_scan.launches == scans
+        want = b_off.kneighbors(qx, timeout=60)
+        np.testing.assert_array_equal(got[1], want[1])
+        assert (got[0].view(np.uint32) == want[0].view(np.uint32)).all()
+        for b in (b_on, b_off):
+            b.submit_mutation("delete", {"ids": [int(want[1][0, 0])]}
+                              ).result(timeout=60)
+        got = b_on.kneighbors(qx, timeout=60)
+        want = b_off.kneighbors(qx, timeout=60)
+        np.testing.assert_array_equal(got[1], want[1])
+    on.close()
+    off.close()
+
+
+@pytest.mark.cuda
+def test_kernel_route_widens_through_the_tile_scan(card, tmp_path):
+    """The kernels' route with tombstones: the host merge widens through
+    the same rung's retrieval on the card (past k = 16: the tile scan's
+    large-k form), the answer equal to the merged host oracle."""
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.models.knn import KNNClassifier
+    from knn_tpu_torch.mutable.engine import MutableEngine
+    from knn_tpu_torch.mutable.state import merged_oracle_kneighbors
+    from knn_tpu_torch.serve.artifact import save_index
+    from knn_tpu_torch.serve.batcher import MicroBatcher
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(0, 2, (5000, 11)).astype(np.float32)
+    qx = rng.normal(0, 2, (16, 11)).astype(np.float32)
+    model = KNNClassifier(k=10).fit(Dataset(x, np.zeros(5000, np.int32)))
+    save_index(model, tmp_path / "idx")
+    eng = MutableEngine(model, tmp_path / "idx")
+    with MicroBatcher(model, max_batch=64, max_wait_ms=0.0,
+                      mutable=eng) as b:
+        _, base_i = b.kneighbors(qx, timeout=60)
+        dead = sorted({int(v) for v in base_i[:3].ravel()})
+        b.submit_mutation("delete", {"ids": dead}).result(timeout=60)
+        b.submit_mutation("insert", {"rows": qx[:4] + 0.01,
+                                     "values": [0, 0, 0, 0]}
+                          ).result(timeout=60)
+        tiles = dict(tile_knn.knn_tile_scan.launches)
+        d, i = b.kneighbors(qx, timeout=60)
+        assert len(dead) + 10 > 16
+        assert sum(tile_knn.knn_tile_scan.launches.values()) > sum(
+            tiles.values())
+    want = merged_oracle_kneighbors(model, eng.snapshot(), qx)
+    eng.close()
+    np.testing.assert_array_equal(i, want[1])
+    np.testing.assert_allclose(d, want[0], rtol=11 * 2.0 ** -24, atol=0)
+    assert not np.isin(i, dead).any()
+
+
+@pytest.mark.cuda
+def test_ivf_fused_delta_scorer_on_the_card(card, tmp_path):
+    """The ivf rung with a delta tail on the card: the fused delta segment
+    scorer answers like the host merge of the same view."""
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.index.ivf import IVFIndex, IVFServing
+    from knn_tpu_torch.models.knn import KNNClassifier
+    from knn_tpu_torch.ops import segment_score
+
+    rng = np.random.default_rng(5)
+    x, qx = _ivf_problem(rng)
+    qx = np.nan_to_num(qx)
+    model = KNNClassifier(k=5).fit(Dataset(x, np.zeros(len(x), np.int32)))
+    model.ivf_ = IVFIndex.build(x, 16, seed=0, device=card)
+    on, off = _mutable_pair_on(card, model, tmp_path)
+    rows = (x[:50] + 0.01).astype(np.float32)
+    for e in (on, off):
+        e.apply_insert(rows, np.zeros(50, np.float32), 0)
+    serving = IVFServing(4, 16)
+    launches = segment_score.segment_topk_delta_core.launches
+    got = serving.kneighbors(model, qx, view=on.snapshot())
+    assert segment_score.segment_topk_delta_core.launches == launches + 1
+    want = serving.kneighbors(model, qx, view=off.snapshot())
+    on.close()
+    off.close()
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])

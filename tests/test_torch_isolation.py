@@ -188,6 +188,48 @@ def test_quality_and_workload_layers_leave_jax_and_knn_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_mutable_tier_leaves_jax_and_knn_tpu_out():
+    # The mutable tier: import its four modules, serve --mutable on with a
+    # device tail, insert, delete, read, compact, reboot from CURRENT.json,
+    # then look.
+    code = (
+        "import io, os, sys, tempfile\n"
+        "import knn_tpu_torch.mutable.state, knn_tpu_torch.mutable.engine\n"
+        "import knn_tpu_torch.mutable.compact\n"
+        "import knn_tpu_torch.mutable.device_tail\n"
+        "from knn_tpu_torch import cli\n"
+        "from knn_tpu_torch.serve import artifact, server\n"
+        "tr = sys.argv[1]\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "idx = os.path.join(tmp, 'idx')\n"
+        "assert cli.run(['save-index', tr, idx, '--k', '3'],\n"
+        "               stdout=io.StringIO()) == 0\n"
+        "os.environ['KNN_TPU_DEVICE_TAIL'] = 'on'\n"
+        "m = artifact.load_index(idx, device='cpu')\n"
+        "app = server.ServeApp(m, max_wait_ms=0.0, index_path=idx,\n"
+        "                      mutable=True, compact_interval_s=0.0)\n"
+        "x = m.train_.features[:2]\n"
+        "b = app.batcher\n"
+        "b.submit_mutation('insert', {'rows': x, 'values': [0, 1]}\n"
+        "                  ).result(timeout=30)\n"
+        "b.submit_mutation('delete', {'ids': [0]}).result(timeout=30)\n"
+        "b.submit(x, 'predict').result(timeout=30)\n"
+        "assert app.compactor.run_once(force=True)['compacted']\n"
+        "app.close()\n"
+        "base, cur = artifact.resolve_mutable_base(idx)\n"
+        "assert cur['generation'] == 1\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'knn_tpu'))\n"
+        "print(bad)\n"
+    )
+    d = fixtures.datasets_dir()
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(d / "small-train.arff")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 # A path component "knn_tpu" in a string the code uses (not a docstring),
 # apart from a "knn_tpu/....py:LINE" reference to the reference's source.
 _JAX_PATH = re.compile(r"(^|[/\\])knn_tpu([/\\]|$)")

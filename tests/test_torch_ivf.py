@@ -324,12 +324,23 @@ class TestIVFSearch:
             ivf.search(x[:50], qx, 3, 2, **CPU)
 
     def test_unknown_scorer_and_merged_view_refused(self, rng):
+        """An unknown scorer is refused; a search merged with a mutable
+        view (the host merge: delta rows, a base tombstone, the probed
+        search as the widening) answers as JAX's ``search_merged`` does on
+        the same view, with either scorer."""
         x, qx = _data(rng, n=100, q=4)
         ivf = IVFIndex.build(x, 4, seed=0, **CPU)
         with pytest.raises(ValueError, match="scorer"):
             ivf.search(x, qx, 3, 2, scorer="gpu", **CPU)
-        with pytest.raises(DataError, match="A10"):
-            ivf.search_merged(x, qx, 3, 2, None)
+        j = jivf.IVFIndex.build(x, 4, seed=0)
+        view, jview = _views(rng, x, dead_base=[int(
+            oracle_kneighbors(x, qx[:1], 1)[1][0, 0])])
+        for scorer in ("host", "device"):
+            d, i, _ = ivf.search_merged(x, qx, 3, 2, view, scorer=scorer,
+                                        **CPU)
+            jd, ji, _ = j.search_merged(x, qx, 3, 2, jview, scorer=scorer)
+            np.testing.assert_array_equal(i, ji)
+            np.testing.assert_array_equal(d, jd)
 
 
 class TestConvert:
@@ -634,6 +645,26 @@ class TestProbePolicy:
                 ProbePolicy(*args, **kw)
 
 
+def _views(rng, x, dead_base=(), m=6):
+    """The same mutable view in both packages: ``m`` delta rows near the
+    train rows (slot 1 dead) and the base tombstones ``dead_base``."""
+    from knn_tpu.mutable.state import MutableView as JMutableView
+    from knn_tpu_torch.mutable.state import MutableView
+
+    n, d = x.shape
+    rows = (x[rng.choice(n, m, replace=False)]
+            + rng.normal(0, 0.05, (m, d))).astype(np.float32)
+    dead_base = sorted(int(v) for v in dead_base)
+    fields = dict(
+        features=rows, values=np.zeros(m, np.float32),
+        stable=np.arange(n, n + m, dtype=np.int64), count=m,
+        tomb_pos=frozenset(dead_base) | {n + 1},
+        tomb_base=np.array(dead_base, np.int64),
+        tomb_delta_slots=np.array([1], np.int64), seq=len(dead_base) + 1,
+        base_n=n, generation=0)
+    return MutableView(**fields), JMutableView(**fields)
+
+
 def _fitted(rng, n=400, cells=8):
     x, qx = _data(rng, n=n, q=8)
     model = _model(x)
@@ -766,13 +797,17 @@ class TestServingLadder:
             wide[1], oracle_kneighbors(x, qx[:2], 3)[1])
 
     def test_merged_view_is_the_mutable_tiers(self, rng):
-        x, qx, model, _ = _fitted(rng, n=200)
-
-        class View:
-            empty = False
-
-        with pytest.raises(DataError, match="A10"):
-            IVFServing(2, 8).kneighbors(model, qx[:2], view=View())
+        """The ivf rung merged with a live mutable view (delta rows and
+        base tombstones): JAX's ``IVFServing.kneighbors(view=...)``
+        answers, the dead rows never served."""
+        x, qx, model, jmodel = _fitted(rng, n=200)
+        dead = [3, 17, 40]
+        view, jview = _views(rng, x, dead_base=dead)
+        got = IVFServing(2, 8).kneighbors(model, qx, view=view)
+        want = jivf.IVFServing(2, 8).kneighbors(jmodel, qx, view=jview)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+        assert not np.isin(got[1], dead).any()
 
 
 @pytest.fixture

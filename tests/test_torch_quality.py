@@ -578,20 +578,43 @@ class TestShadowScorer:
         assert len(errs) == 1 and errs[0].value == 1
 
     def test_a_mutable_view_is_a_scoring_error_not_a_pass(self, obs_on):
-        """The merged mutable view comes with the mutable tier (A10): a
-        sample that carries one is counted as a scoring error."""
+        """A sample that carries a live mutable view is scored against the
+        merged oracle of that view (JAX's rule), never passed and never a
+        scoring error: the base-only answer that ignored a fresh delta row
+        and served a deleted one diverges, as it does under JAX's scorer."""
+        from knn_tpu.mutable.state import MutableView as JMutableView
+        from knn_tpu_torch.mutable.state import MutableView
+
         train = _problem(np.random.default_rng(26))
         model = KNNClassifier(k=3, **CPU).fit(train)
-        d, i = model.kneighbors(Dataset(train.features[:1],
-                                        np.zeros(1, np.int32)))
-        scorer = ShadowScorer(1.0, seed=0)
-        scorer.offer(features=train.features[:1], kind="kneighbors",
-                     dists=d, idx=i, preds=None, rung="fast", model=model,
-                     version=None, mview=object())
-        assert scorer.drain(10)
-        scorer.close()
-        assert scorer.score_errors == 1 and scorer.scored == 0
-        assert scorer.export()["rungs"] == {}
+        jmodel = JKNNClassifier(k=3).fit(JDataset(train.features,
+                                                  train.labels))
+        # Three delta rows AT a far query: the live top-3 is delta-only,
+        # so the base-only (stale) answer scores recall 0.
+        q = np.full((1, train.num_features), 50.0, np.float32)
+        d, i = model.kneighbors(Dataset(q, np.zeros(1, np.int32)))
+        n = train.num_instances
+        fields = dict(
+            features=np.repeat(q, 3, axis=0), values=np.ones(3, np.float32),
+            stable=np.arange(n, n + 3, dtype=np.int64), count=3,
+            tomb_pos=frozenset({int(i[0, 1])}),
+            tomb_base=np.array([i[0, 1]], np.int64),
+            tomb_delta_slots=np.empty(0, np.int64), seq=2, base_n=n,
+            generation=0)
+        stats = []
+        for cls, m, view in ((ShadowScorer, model, MutableView(**fields)),
+                             (jquality.ShadowScorer, jmodel,
+                              JMutableView(**fields))):
+            scorer = cls(1.0, seed=0)
+            scorer.offer(features=q, kind="kneighbors", dists=d, idx=i,
+                         preds=None, rung="fast", model=m, version=None,
+                         mview=view)
+            assert scorer.drain(10)
+            scorer.close()
+            assert scorer.score_errors == 0 and scorer.scored == 1
+            stats.append(scorer.export()["rungs"]["fast"])
+        assert stats[0] == stats[1]
+        assert stats[0]["recall"] == 0.0 and stats[0]["divergence"]
 
 
 class TestScorersAgree:

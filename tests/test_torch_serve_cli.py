@@ -4,9 +4,11 @@ cases of ``tests/test_cli.py`` and of ``scripts/serve_smoke.py`` steps
 
 - The validation tables and exit codes are the JAX CLI's: each bad value
   exits 2 before any compute in both CLIs, with one ``error:`` line.
-- The flags of later slices (mutable, fleet, shards, control, history)
-  are not in the port's parser: argparse exits 2 on each, where the JAX
-  CLI accepts it (ROADMAP A10-A12). The index family's flags
+- The flags of later slices (fleet, shards, control, history) are not in
+  the port's parser: argparse exits 2 on each, where the JAX CLI accepts
+  it (ROADMAP A11-A12). The mutable tier's flags (``--mutable``,
+  ``--delta-cap``, ``--compact-threshold``, ``--compact-interval-s``,
+  ROADMAP A10) are, with JAX's validation lines. The index family's flags
   (``save-index --ivf-cells/--ivf-seed/--ivf-iters``, ``serve
   --ivf-probes/--ivf-recall-floor``, ROADMAP A9) and the answer-quality
   and capture flags (``--shadow-rate`` ... ``--capture-burn-window-s``,
@@ -163,8 +165,8 @@ class TestServeExitCodes:
         assert cli.run(["serve"]) == 2
 
     @pytest.mark.parametrize("extra", [
-        ["--mutable", "on"],
-        ["--delta-cap", "8"],
+        ["--replicate-ack-timeout-s", "5"],
+        ["--bootstrap", "auto"],
         ["--follower-of", "http://127.0.0.1:1"],
         ["--replicate-to", "http://127.0.0.1:1"], ["--shards", "2"],
         ["--priority", "a=0"], ["--brownout", "on"],
@@ -219,6 +221,39 @@ class TestServeExitCodes:
         if last.startswith(f"error: {flag}"):
             assert err.strip().splitlines()[-1] == last
         got = cli.run(["serve", "/irrelevant/index", flag, *sub(good),
+                       "--device", "cpu"])
+        err = capsys.readouterr().err
+        assert got == 2 and "not found" in err, err
+
+    def test_serve_bad_mutable_choice_exits_2(self, capsys):
+        """The twin of tests/test_cli.py's case: argparse refuses a bad
+        --mutable choice with exit 2, no traceback."""
+        assert cli.run(["serve", "/irrelevant/index",
+                        "--mutable", "maybe"]) == 2
+        assert "Traceback" not in capsys.readouterr().err
+
+    @pytest.mark.parametrize("flag,bad,good", [
+        ("--delta-cap", ["0"], ["8"]),
+        ("--compact-threshold", ["0"], ["8"]),
+        ("--compact-interval-s", ["-1"], ["0"]),
+        ("--mutable", ["maybe"], ["on"]),
+    ])
+    def test_mutable_flags_as_jax(self, capsys, flag, bad, good):
+        """The mutable tier's flags (ROADMAP A10): a bad value exits 2 in
+        both CLIs with JAX's error line where it is a value check; a good
+        one gets past the checks (the missing index then exits 2 with
+        "not found")."""
+        argv = ["serve", "/irrelevant/index", flag, *bad]
+        got = cli.run(argv + ["--device", "cpu"], stdout=io.StringIO())
+        err = capsys.readouterr().err
+        with jknn.query_bucket_ladder(jknn.query_buckets()):
+            want = jrun(argv, stdout=io.StringIO())
+        jerr = capsys.readouterr().err
+        assert got == want == 2 and "Traceback" not in err
+        last = jerr.strip().splitlines()[-1]
+        if last.startswith(f"error: {flag}"):
+            assert err.strip().splitlines()[-1] == last
+        got = cli.run(["serve", "/irrelevant/index", flag, *good,
                        "--device", "cpu"])
         err = capsys.readouterr().err
         assert got == 2 and "not found" in err, err

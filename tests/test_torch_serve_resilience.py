@@ -458,13 +458,19 @@ class TestHotReload:
         assert body["predictions"] == want_a
 
     def test_unservable_replacement_rolls_back(self, reload_server):
-        """A replacement the port cannot serve yet (a mutable base) is a
-        typed rollback, not a load with the part dropped."""
+        """A replacement that carries the mutable tier's parts (an epoch
+        log, a generation's ``mutable`` block) is an ordinary artifact to
+        a ``--mutable off`` reload, as in JAX: it swaps in and serves."""
         base, app, test, idx_a, idx_b, va = reload_server
+        want_b = _want(idx_b, test)
         (idx_b / "epochs").mkdir()
         st, body = http_post(base, "/admin/reload", {"index": str(idx_b)})
-        assert st == 400 and "A10" in body["error"]
-        assert app.index_version == va
+        assert st == 200 and body["previous_version"] == va
+        vb = body["index_version"]
+        st, body = http_post(base, "/predict",
+                             {"instances": test.features.tolist()})
+        assert body["index_version"] == vb and app.index_version == vb
+        assert body["predictions"] == want_b
 
     def test_family_change_rejected(self, reload_server, rng, tmp_path):
         base, app, test, idx_a, idx_b, va = reload_server

@@ -439,23 +439,73 @@ class TestReplayDeterminism:
 
     def test_mutations_are_recorded_failures_not_drops(self, model,
                                                        tmp_path):
-        """In-process mutation replay needs the mutable tier (A10): each
-        mutation is a recorded typed failure, the reads still verify."""
+        """A mutation replayed into a batcher without a mutable engine is
+        a recorded typed failure (JAX's outcome, the same error class);
+        with the engine (``replay --mutable on``) it applies and acks at
+        the captured seq."""
+        from knn_tpu_torch.mutable.engine import MutableEngine
+        from knn_tpu_torch.serve import artifact
+
         cap = WorkloadCapture(tmp_path, num_features=D)
-        b = MicroBatcher(model, max_batch=8, max_wait_ms=0.0,
-                         index_version="v")
         try:
             cap.start()
             cap.note_mutation("delete", {"ids": [3]}, seq=1,
                               enqueued_ns=time.monotonic_ns())
             assert cap.drain(10)
             wl = load_workload(cap.stop()["path"])
+        finally:
+            cap.close()
+        verdicts = []
+        for pkg_batcher in (MicroBatcher, JMicroBatcher):
+            m = model if pkg_batcher is MicroBatcher else JKNNClassifier(
+                k=3).fit(JDataset(model.train_.features,
+                                  model.train_.labels))
+            b = pkg_batcher(m, max_batch=8, max_wait_ms=0.0,
+                            index_version="v")
+            try:
+                verdicts.append(replay_workload(wl, batcher=b, speed=0.0))
+            finally:
+                b.close()
+        for v in verdicts:
+            assert v["mutations"]["fired"] == 1
+            assert v["mutations"]["ok"] == 0
+            assert v["mutations"]["error_samples"][0].startswith(
+                "ValueError: this batcher serves an immutable index")
+        idx = artifact.save_index(model, tmp_path / "idx")
+        eng = MutableEngine(model, idx)
+        b = MicroBatcher(model, max_batch=8, max_wait_ms=0.0,
+                         index_version="v", mutable=eng)
+        try:
             v = replay_workload(wl, batcher=b, speed=0.0)
         finally:
             b.close()
-            cap.close()
-        assert v["mutations"]["fired"] == 1 and v["mutations"]["ok"] == 0
-        assert "A10" in v["mutations"]["error_samples"][0]
+            eng.close()
+        assert v["mutations"]["fired"] == v["mutations"]["ok"] == 1
+        assert v["mutations"]["seq_aligned"] == 1
+
+    def test_mutable_capture_replays_aligned(self, model, tmp_path):
+        """The twin of tests/test_workload.py's case: reads and acknowledged
+        mutations captured from a mutable batcher, replayed into a fresh
+        engine over a copy of the same artifact — every mutation at its
+        captured seq, every read verified at its tag."""
+        wl, dir_b, version = _mutable_capture(model, tmp_path)
+        from knn_tpu_torch.mutable.engine import MutableEngine
+        from knn_tpu_torch.serve import artifact
+
+        model_b = artifact.load_index(dir_b, **CPU)
+        engine_b = MutableEngine(model_b, dir_b, version=version)
+        b_b = MicroBatcher(model_b, max_batch=8, max_wait_ms=0.0,
+                           index_version=version, mutable=engine_b)
+        try:
+            v = replay_workload(wl, batcher=b_b, speed=0.0, verify="tag")
+        finally:
+            b_b.close()
+            engine_b.close()
+        assert v["mutations"]["fired"] == 4
+        assert v["mutations"]["ok"] == 4
+        assert v["mutations"]["seq_aligned"] == 4
+        assert v["verify"]["divergences"] == 0
+        assert v["verify"]["verified"] == 8
 
     def test_committed_fixture_replays(self):
         """The JAX-captured fixture through the port's batcher: 120 ok, 0
@@ -495,6 +545,57 @@ class TestReplayDeterminism:
         assert mismatched["predict"] == 0
         assert v["verify"]["verified"] + v["verify"]["divergences"] == 120
         assert v["verify"]["divergences"] == mismatched["kneighbors"]
+
+
+def _mutable_capture(model, tmp_path, package="port"):
+    """Capture 8 reads and 4 acknowledged mutations (3 inserts, a delete of
+    the first delta row) from ``package``'s mutable batcher over artifact
+    ``a``, serialized so every sequence point is stable; returns the loaded
+    workload, a pristine copy ``b`` of the artifact and its version."""
+    import shutil
+
+    if package == "port":
+        from knn_tpu_torch.mutable.engine import MutableEngine
+        from knn_tpu_torch.serve import artifact
+        cap_cls, b_cls, kw = WorkloadCapture, MicroBatcher, CPU
+    else:
+        from knn_tpu.mutable.engine import MutableEngine
+        from knn_tpu.serve import artifact
+        cap_cls, b_cls, kw = jworkload.WorkloadCapture, JMicroBatcher, {}
+        model = JKNNClassifier(k=3).fit(JDataset(model.train_.features,
+                                                 model.train_.labels))
+    dir_a, dir_b = tmp_path / "a", tmp_path / "b"
+    artifact.save_index(model, dir_a)
+    shutil.copytree(dir_a, dir_b)
+    version = artifact.index_version(artifact.read_manifest(dir_a))
+    rng = np.random.default_rng(11)
+    model_a = artifact.load_index(dir_a, **kw)
+    engine_a = MutableEngine(model_a, dir_a, version=version)
+    cap = cap_cls(tmp_path / "captures", num_features=D, k=3)
+    b_a = b_cls(model_a, max_batch=8, max_wait_ms=0.0,
+                index_version=version, workload=cap, mutable=engine_a)
+    try:
+        cap.start()
+        for i in range(12):
+            if i % 4 == 1:
+                f = b_a.submit_mutation("insert", {
+                    "rows": rng.normal(0, 2, (1, D)).astype(np.float32),
+                    "values": [int(rng.integers(0, 4))]})
+            elif i == 10:
+                f = b_a.submit_mutation(
+                    "delete", {"ids": [model.train_.num_instances]})
+            else:
+                f = b_a.submit(rng.normal(0, 2, (2, D)).astype(np.float32),
+                               "predict")
+            f.result(timeout=30)  # serialize: stable seq points
+        assert cap.drain(20)
+        summary = cap.stop()
+    finally:
+        b_a.close()
+        engine_a.close()
+        cap.close()
+    assert summary["mutations"] == 4
+    return load_workload(summary["path"]), dir_b, version
 
 
 class TestLinkage:
@@ -548,7 +649,7 @@ class TestReplayCLI:
         (["--speed", "-1"], "--speed"),
         (["--max-batch", "0"], "--max-batch"),
         (["--max-wait-ms", "-1"], "--max-wait-ms"),
-        (["--mutable", "on"], "A10"),
+        (["--mutable", "maybe"], "--mutable"),
     ])
     def test_bad_flags_exit_2(self, model, tmp_path, capsys, extra, needle):
         from knn_tpu_torch.cli import run
@@ -577,6 +678,29 @@ class TestReplayCLI:
         assert verdict["verify"]["verified"] == 4
         assert verdict["measured"]["errors"] == 0
         assert "capacity" in verdict
+
+    @pytest.mark.parametrize("package", ["port", "jax"])
+    def test_replay_mutable_on_verifies(self, model, tmp_path, capsys,
+                                        package):
+        """``replay --mutable on``: a mutable workload captured by either
+        package replays in process through the port's CLI into a copy of
+        its artifact, every mutation acknowledged at its seq, zero
+        divergences."""
+        from knn_tpu_torch.cli import run
+
+        wl, dir_b, _version = _mutable_capture(model, tmp_path, package)
+        out = io.StringIO()
+        rc = run(["replay", str(wl.path), "--index", str(dir_b),
+                  "--device", "cpu", "--speed", "0", "--mutable", "on",
+                  "--verify", "always", "--fail-on-divergence"],
+                 stdout=out)
+        assert rc == 0, out.getvalue() + capsys.readouterr().err
+        verdict = json.loads(out.getvalue().splitlines()[-1])
+        assert verdict["mutations"]["fired"] == 4
+        assert verdict["mutations"]["ok"] == 4
+        assert verdict["mutations"]["seq_aligned"] == 4
+        assert verdict["verify"]["divergences"] == 0
+        assert verdict["verify"]["verified"] == 8
 
     def test_mutations_are_skipped_with_a_warning(self, model, tmp_path,
                                                   capsys):
