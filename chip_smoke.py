@@ -181,7 +181,31 @@ Phases, each printed as it runs; any failure exits non-zero:
                         ``incremental`` path); a compaction rolled back by
                         ``mutable.compact``; a restart over a torn epoch
                         record. One ``mutable: {...}`` JSON line.
-21. ``kernels``       — one JSON line describing every kernel.
+21. ``sharded``       — multi-device (run after ``probe_wide``): at xl,
+                        k = 10, ``cli.run --persona mpi``, ``--backend
+                        cuda-train-sharded`` and ``--backend cuda-ring
+                        --engine stripe`` on the visible cards, each equal
+                        to ``--backend cuda``; the three engines on 2 and 4
+                        logical shards of the card (and the torch-scan
+                        engines on 4), equal to the single-card answer, the
+                        stripe kernels launched per shard, the collectives'
+                        bytes audited against the byte model, each timed;
+                        on the large fixture the ring's ``full`` and
+                        ``tiled`` engines and k = 32 through the tile
+                        kernel on every engine; ``python -m
+                        knn_tpu_torch.parallel.launch -np 2`` (gloo: the
+                        ranks share the card) with its result line equal to
+                        the single process's; ``ServeApp(shards=4)`` on the
+                        xl index at c = 1 and 8 (answers byte-equal to
+                        unsharded, launches 4 per batch, p50/p99/q/s beside
+                        the ``serve`` phase's unsharded levels, the card's
+                        memory with and without shards), with
+                        ``ivf_probes=32`` and with ``--mutable on`` after
+                        256 inserts and 64 deletes (equal to the unsharded
+                        merged answers). With two or more cards, also the
+                        engines across them and the launcher on NCCL. One
+                        ``sharded: {...}`` JSON line.
+22. ``kernels``       — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -3740,6 +3764,428 @@ def phase_mutable(torch, cuda_knn, tile_knn, xl_x, xl_y, q_all, train,
     return res
 
 
+SHARD_COUNTS = (2, 4)       # logical shards of one card in the sharded phase
+SHARDED_SERVE_LEVELS = (("predict", 1, 1, 200), ("predict", 1, 8, 800))
+
+
+def phase_sharded(torch, cuda_knn, tile_knn, train_path, test_path, xl_x,
+                  xl_y, q_all, serve_levels, smi, dev=None) -> dict:
+    """Multi-device on the card (ROADMAP A11, B7): the mesh engines, the
+    launcher and sharded serving, on logical shards of one card (and across
+    cards where more than one is visible). Every sharded answer is held to
+    the single-device one, every call's launches read around it, the
+    collectives' bytes audited against the byte model. ``dev`` (default
+    the first card) is where every model and engine of the phase runs."""
+    import gc
+    import re
+    import shutil
+
+    from knn_tpu_torch import cli, obs
+    from knn_tpu_torch.backends import get_backend
+    from knn_tpu_torch.data.arff import load_arff
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.index.ivf import IVFServing
+    from knn_tpu_torch.models.knn import DEFAULT_BATCH_BUCKETS
+    from knn_tpu_torch.parallel import comm_audit
+    from knn_tpu_torch.parallel.mesh import make_mesh
+    from knn_tpu_torch.parallel.query_sharded import predict_query_sharded
+    from knn_tpu_torch.parallel.ring import predict_ring, ring_layout
+    from knn_tpu_torch.parallel.train_sharded import predict_train_sharded
+    from knn_tpu_torch.serve import artifact
+    from knn_tpu_torch.serve.server import ServeApp
+
+    t_phase = time.perf_counter()
+    data_dir = REPO / "build" / "chip_smoke"
+    scan, merge = cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge
+    tile_scan = tile_knn.knn_tile_scan
+    card = dev if dev is not None else torch.device("cuda", 0)
+    on_card = card.type == "cuda"
+    n, d = xl_x.shape
+    k = 10
+    ncls = int(xl_y.max()) + 1
+    q = q_all.shape[0]
+    res = {"shape": f"xl n={n} d={d} q={q} k={k}", "smi": smi,
+           "cards": torch.cuda.device_count() if on_card else 0,
+           "bodies": {}}
+    where = [] if on_card else ["--device", "cpu"]
+    mask = re.compile(r"required \d+ ms")
+
+    def fail(msg):
+        raise SystemExit(f"sharded: {msg}")
+
+    def reset_counts():
+        scan.launches = merge.launches = 0
+        for form in tile_scan.launches:
+            tile_scan.launches[form] = 0
+
+    def counts():
+        return {"stripe_scan": scan.launches, "stripe_merge": merge.launches,
+                "tile_exact": tile_scan.launches["exact"]}
+
+    def run_cli(argv):
+        out = io.StringIO()
+        rc = cli.run(argv, stdout=out)
+        if rc != 0:
+            fail(f"cli.run {argv[3:]} exited {rc}")
+        return out.getvalue().splitlines()
+
+    # 1. The CLI at xl: the mpi persona and the two other mesh backends on
+    # the visible cards, each equal to --backend cuda.
+    xl_path = data_dir / "xl-train.arff"
+    t0 = time.perf_counter()
+    write_arff(xl_path, xl_x, xl_y, "xl-train")
+    print(f"wrote {xl_path} ({time.perf_counter() - t0:.1f} s, set-up)")
+    dumps = {}
+    for name, extra in (("cuda", []), ("mpi", ["--persona", "mpi"]),
+                        ("cuda-train-sharded",
+                         ["--backend", "cuda-train-sharded"]),
+                        ("cuda-ring", ["--backend", "cuda-ring", "--engine",
+                                       "stripe"])):
+        dump = data_dir / f"sharded-{name}.npy"
+        reset_counts()
+        lines = run_cli([str(xl_path), str(test_path), str(k), *extra,
+                         *where, "--json", "--dump-predictions", str(dump)])
+        got = counts()
+        if on_card and (got["stripe_scan"] < 1 or got["stripe_merge"] < 1):
+            fail(f"cli {name}: the stripe kernels never launched: {got}")
+        dumps[name] = np.load(dump)
+        js = json.loads(lines[1])
+        print(f"cli {name}: {lines[0]} backend={js['backend']} "
+              f"launches {got}")
+        if not np.array_equal(dumps[name], dumps["cuda"]):
+            fail(f"cli {name}: predictions differ from --backend cuda")
+    res["cli"] = "mpi, cuda-train-sharded, cuda-ring equal to cuda at xl"
+    want = dumps["cuda"]
+    xl_train = load_arff(str(xl_path))
+    tx, ty = xl_train.features, xl_train.labels
+    cache = xl_train.device_cache
+
+    # 2. The engines on 2 and 4 logical shards of the card: predictions
+    # equal to the single-card answer, launches per shard, the audit.
+    def engine_run(label, fn, mesh, reps, **kw):
+        log = []
+        reset_counts()
+        got = fn(tx, ty, q_all, k, ncls, devices=mesh, cache=cache, log=log,
+                 **kw)
+        launches = counts()
+        if not np.array_equal(got, want):
+            fail(f"{label}: predictions differ from the single-card answer")
+        ms, _ = wall_ms(lambda: fn(tx, ty, q_all, k, ncls, devices=mesh,
+                                   cache=cache, **kw), reps)
+        return log, launches, ms
+
+    test_ds = load_arff(str(test_path))
+    cuda = get_backend("cuda")
+    single_ms, _ = wall_ms(lambda: cuda(xl_train, test_ds, k,
+                                        device=card.type), 3)
+    b_ms, b_by = stripe_bound_ms(q, n, d, k)
+    for s in SHARD_COUNTS:
+        mesh = (card,) * s
+        rows = -(-n // s)
+        runs = {
+            "query_sharded_stripe": engine_run(
+                f"cuda-sharded x{s}", predict_query_sharded, mesh, 3,
+                engine="stripe"),
+            "train_sharded_stripe": engine_run(
+                f"cuda-train-sharded x{s}", predict_train_sharded, mesh, 3,
+                engine="stripe", mesh_shape=(1, s)),
+            "ring_stripe": engine_run(
+                f"cuda-ring x{s}", predict_ring, mesh, 3, engine="stripe"),
+        }
+        if s == 4:
+            runs["train_sharded_stripe_2x2"] = engine_run(
+                "cuda-train-sharded 2x2", predict_train_sharded, mesh, 1,
+                engine="stripe", mesh_shape=(2, 2))
+            runs["query_sharded_xla"] = engine_run(
+                "cuda-sharded xla x4", predict_query_sharded, mesh, 1,
+                engine="xla")
+            runs["train_sharded_xla"] = engine_run(
+                "cuda-train-sharded xla x4", predict_train_sharded, mesh, 1,
+                engine="xla", mesh_shape=(1, 4))
+        for name, (log, launches, ms) in runs.items():
+            if on_card and name.endswith("stripe") and (
+                    launches["stripe_scan"] < s
+                    or launches["stripe_merge"] < s):
+                fail(f"{name} x{s}: fewer than one scan and merge per shard: "
+                     f"{launches}")
+            if name.endswith("xla") and any(launches.values()):
+                fail(f"{name}: a hand kernel launched on the torch scan: "
+                     f"{launches}")
+            if name.startswith("train_sharded"):
+                n_q = 2 if name.endswith("2x2") else 1
+                n_t = s // n_q
+                audit = comm_audit.audit_train_sharded(
+                    log, -(-q // n_q) if "stripe" in name
+                    else -(-q // (n_q * 128)) * 128, k, n_t)
+            elif name == "ring_stripe":
+                audit = comm_audit.audit_ring(log, rows * d * 4, rows * 4, s)
+            else:
+                q_pad = sum(o.nbytes for o in log if o.op == "gather") // 4
+                audit = (sum(o.nbytes for o in log),
+                         comm_audit.model_query_sharded_bytes(q_pad, d))
+                if audit[0] != audit[1]:
+                    fail(f"{name} x{s}: scatter+gather {audit[0]} B != model "
+                         f"{audit[1]} B")
+            body = {"shards": s, "ms": ms, "single_card_ms": single_ms,
+                    "launches": launches, "collective_bytes": audit[0],
+                    "model_bytes": audit[1], "bound_ms": b_ms,
+                    "bound_by": b_by}
+            res["bodies"][f"{name}_x{s}"] = body
+            print(f"{name} x{s} at xl: {json.dumps(body)}")
+
+    # 3. The large fixture: the ring's full and tiled engines, and k = 32
+    # through the tile kernel on every engine.
+    large, large_test = load_arff(str(train_path)), load_arff(str(test_path))
+    lx, ly = large.features, large.labels
+    mesh4 = (card,) * 4
+    for kk, extra in ((5, ("full", "tiled")), (32, ("stripe",))):
+        lwant = cuda(large, large_test, kk, device=card.type)
+        for engine in extra:
+            log = []
+            reset_counts()
+            got = predict_ring(lx, ly, large_test.features, kk,
+                               large.num_classes, engine=engine,
+                               devices=mesh4, cache=large.device_cache,
+                               log=log)
+            launches = counts()
+            if not np.array_equal(got, lwant):
+                fail(f"ring {engine} k={kk} on large differs from cuda")
+            rows = ring_layout(large_test.num_instances, lx.shape[0], 4,
+                               engine, 128, 1024)[1]
+            comm_audit.audit_ring(log, rows * lx.shape[1] * 4, rows * 4, 4)
+            ms, _ = wall_ms(lambda: predict_ring(
+                lx, ly, large_test.features, kk, large.num_classes,
+                engine=engine, devices=mesh4, cache=large.device_cache), 1)
+            res["bodies"][f"ring_{engine}_large_k{kk}_x4"] = {
+                "ms": ms, "launches": launches,
+                "collective_bytes": comm_audit.device_bytes(
+                    log, "collective_permute")}
+            if on_card and engine == "stripe" and launches["tile_exact"] < 4:
+                fail(f"ring k=32: the tile kernel did not launch per shard: "
+                     f"{launches}")
+            print(f"ring {engine} k={kk} on large x4: equal to cuda, "
+                  f"{ms} ms, launches {launches}")
+        if kk == 32:
+            for fn, kw in ((predict_query_sharded, {}),
+                           (predict_train_sharded, {"mesh_shape": (1, 4)})):
+                reset_counts()
+                got = fn(lx, ly, large_test.features, kk, large.num_classes,
+                         devices=mesh4, cache=large.device_cache, **kw)
+                launches = counts()
+                if not np.array_equal(got, lwant) or (
+                        on_card and launches["tile_exact"] < 1):
+                    fail(f"{fn.__name__} k=32: {launches}")
+                print(f"{fn.__name__} k=32 on large x4: equal to cuda, "
+                      f"launches {launches}")
+
+    # 4. The launcher: two ranks on the large fixture. One card: the two
+    # share it, on gloo; more cards: one rank per card, on NCCL.
+    single = run_cli([str(train_path), str(test_path), "5", *where])[0]
+    nprocs = [2] + ([min(4, res["cards"])] if res["cards"] >= 2 else [])
+    res["launcher"] = {}
+    for np_ in nprocs:
+        dump = data_dir / f"launch-{np_}.npy"
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "knn_tpu_torch.parallel.launch", "-np",
+             str(np_), "--device", card.type, "--timeout", "240",
+             str(train_path), str(test_path),
+             "5", "--json", "--dump-predictions", str(dump)],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"launch -np {np_} exited {out.returncode}: "
+                 f"{out.stderr[-2000:]}")
+        line, js = out.stdout.splitlines()[:2]
+        js = json.loads(js)
+        want_backend = "gloo" if np_ > res["cards"] else "nccl"
+        if (mask.sub("", line) != mask.sub("", single)
+                or js["dist_backend"] != want_backend
+                or not np.array_equal(np.load(dump), cuda(
+                    large, large_test, 5, device=card.type))):
+            fail(f"launch -np {np_}: {line!r} vs {single!r}, {js}")
+        res["launcher"][np_] = {"dist_backend": js["dist_backend"],
+                                "ms": js["ms"], "wall_s": wall}
+        print(f"launch -np {np_}: {out.stderr.strip().splitlines()[0]}; "
+              f"{line}; {json.dumps(js)}; wall {wall:.1f} s (process "
+              f"start-up included)")
+    if res["cards"] >= 2:
+        mesh = make_mesh(min(4, res["cards"]))
+        for fn in (predict_query_sharded, predict_train_sharded,
+                   predict_ring):
+            got = fn(tx, ty, q_all, k, ncls, devices=mesh, cache=cache)
+            if not np.array_equal(got, want):
+                fail(f"{fn.__name__} across {len(mesh)} cards differs")
+        print(f"the three engines across {len(mesh)} cards equal the "
+              f"single-card answer at xl")
+    else:
+        print("one card visible: the mesh across cards and the launcher on "
+              "NCCL are not run (logical shards of this card only)")
+
+    # 5. ServeApp(shards=4) on the xl index: answers byte-equal to the
+    # unsharded ones, launches = shards x batches, levels, memory.
+    obs.enable()
+    obs.reset()
+    registry = obs.registry()
+    buckets = tuple(sorted({b for b in DEFAULT_BATCH_BUCKETS if b < 256}
+                           | {256}))
+    idx_xl = data_dir / "idx-xl"
+    plain = artifact.load_index(idx_xl, device=card.type)
+    sync_d, sync_i = plain.kneighbors(Dataset(q_all, np.zeros(q, np.int32)))
+    sync_p = plain.predict_from_candidates(sync_d, sync_i)
+    del plain
+    mem = {}
+
+    def allocated():
+        return torch.cuda.memory_allocated() if on_card else 0
+
+    for label, shards in (("unsharded", None), ("shards4", 4)):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        m0 = allocated()
+        app = ServeApp(artifact.load_index(idx_xl, device=card.type),
+                       max_batch=256, max_wait_ms=2.0, batch_buckets=buckets,
+                       shards=shards)
+        app.warm()
+        mem[label] = allocated() - m0
+        if shards is None:
+            app.close()
+            del app
+    res["memory_bytes"] = mem
+    print(f"card memory of the xl index, warmed: {json.dumps(mem)}")
+    server, th, base = _start_server(app)
+    res["levels"] = {}
+    for kind, rows, clients, total in SHARDED_SERVE_LEVELS:
+        name = f"{kind}_r{rows}_c{clients}"
+        starts = [(j * rows) % (q - rows) for j in range(total)]
+        blocks = np.stack([q_all[s:s + rows] for s in starts])
+        b0 = _hist(registry, "knn_serve_batch_size")
+        reset_counts()
+        answers, lat, wall = _closed_loop(base, kind, blocks, clients)
+        got = counts()
+        batches = _hist(registry, "knn_serve_batch_size")[0] - b0[0]
+        if on_card and (got["stripe_scan"] != 4 * batches
+                        or got["stripe_merge"] != 4 * batches):
+            fail(f"shards=4 {name}: {batches} batches but launches {got}")
+        for j, doc in answers.items():
+            if doc["predictions"] != sync_p[starts[j]:starts[j] + rows
+                                            ].tolist():
+                fail(f"shards=4 {name}: request {j} differs from unsharded")
+        lat.sort()
+        lv = {"p50_ms": lat[len(lat) // 2],
+              "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+              "qps": total / wall, "batches": batches, "launches": got,
+              "unsharded": {key: serve_levels.get(name, {}).get(key)
+                            for key in ("p50_ms", "p99_ms", "qps")}}
+        res["levels"][name] = lv
+        print(f"xl shards=4 {name}: {json.dumps(lv)}")
+    reset_counts()
+    answers, _, _ = _closed_loop(base, "kneighbors",
+                                 q_all[:64].reshape(16, 4, -1), 4)
+    for j, doc in answers.items():
+        kd = np.asarray(doc["distances"], np.float32)
+        if not (np.array_equal(np.asarray(doc["indices"]),
+                               sync_i[4 * j:4 * j + 4])
+                and kd.tobytes() == sync_d[4 * j:4 * j + 4].tobytes()):
+            fail(f"shards=4 /kneighbors request {j} differs from unsharded")
+    st, _, body = _Client(base).call("GET", "/healthz")
+    shard_block = json.loads(body)["shard"]
+    if shard_block["num_shards"] != 4 or sum(
+            shard_block["rows_per_shard"]) != n:
+        fail(f"/healthz shard block {shard_block}")
+    res["shard_block"] = {k2: shard_block[k2]
+                          for k2 in ("num_shards", "rows_per_shard")}
+    print(f"/kneighbors through 4 shards byte-equal to unsharded; /healthz "
+          f"shard block {json.dumps(res['shard_block'])}")
+    _stop_server(server, th, app)
+
+    # 6. The ivf rung with shards (the ivf phase's partition, nprobe 32).
+    idx_ivf = data_dir / "idx-xl-ivf"
+    plain = artifact.load_index(idx_ivf, device=card.type)
+    sample = q_all[:128]
+    want_d, want_i = IVFServing(IVF_SERVE_PROBES, plain.ivf_.num_cells
+                                ).kneighbors(plain, sample)
+    app = ServeApp(artifact.load_index(idx_ivf, device=card.type),
+                   max_batch=256, max_wait_ms=2.0,
+                   ivf_probes=IVF_SERVE_PROBES, shards=4)
+    app.warm((1, 16))
+    handles = [app.batcher.submit(sample[16 * i:16 * i + 16], "kneighbors")
+               for i in range(8)]
+    got = [h.result(timeout=120) for h in handles]
+    rungs = {h.meta["rung"] for h in handles}
+    got_d = np.concatenate([g[0] for g in got])
+    got_i = np.concatenate([g[1] for g in got])
+    if rungs != {"ivf"} or not (np.array_equal(got_i, want_i)
+                                and got_d.tobytes() == want_d.tobytes()):
+        fail(f"ivf shards=4: rungs {rungs}, answers differ from unsharded")
+    ivf_block = app.health()["shard"]["ivf"]
+    res["ivf"] = {"num_shards": ivf_block["num_shards"],
+                  "rows_per_shard": ivf_block["rows_per_shard"]}
+    print(f"ivf_probes={IVF_SERVE_PROBES} with shards=4: 128 queries "
+          f"byte-equal to the unsharded ivf rung; cells over "
+          f"{ivf_block['num_shards']} shards, rows {ivf_block['rows_per_shard']}")
+    app.close()
+    del plain
+
+    # 7. --mutable on with shards: 256 inserts and 64 deletes, then the
+    # merged answers of the sharded app against the unsharded app's.
+    prev_tail = os.environ.get("KNN_TPU_DEVICE_TAIL")
+    os.environ["KNN_TPU_DEVICE_TAIL"] = "on"
+    try:
+        apps = {}
+        for label, shards in (("unsharded", None), ("shards4", 4)):
+            root = data_dir / f"sharded-mut-{label}"
+            shutil.rmtree(root, ignore_errors=True)
+            shutil.copytree(idx_xl, root)
+            apps[label] = ServeApp(
+                artifact.load_index(root, device=card.type), max_batch=256,
+                max_wait_ms=2.0,
+                index_path=str(root), mutable=True, delta_cap=4096,
+                compact_threshold=1 << 20, compact_interval_s=0.0,
+                shards=shards)
+        rng = np.random.default_rng(13)
+        rows = (xl_x[rng.choice(n, 256, replace=False)]
+                + rng.normal(0, 1e-3, (256, d))).astype(np.float32)
+        labels = rng.integers(0, ncls, 256)
+        for label, app in apps.items():
+            ids = []
+            for i in range(0, 256, 64):
+                ack = app.batcher.submit_mutation("insert", {
+                    "rows": rows[i:i + 64],
+                    "values": labels[i:i + 64].tolist()}).result(timeout=60)
+                ids.extend(ack["ids"])
+            app.batcher.submit_mutation(
+                "delete", {"ids": ids[::4]}).result(timeout=60)
+        merged = {}
+        for label, app in apps.items():
+            reset_counts()
+            out = [app.batcher.kneighbors(q_all[64 * i:64 * i + 64],
+                                          timeout=120) for i in range(4)]
+            merged[label] = (np.concatenate([o[0] for o in out]),
+                             np.concatenate([o[1] for o in out]), counts())
+        (ud, ui, ul), (sd, si, sl) = merged["unsharded"], merged["shards4"]
+        if not (np.array_equal(ui, si) and ud.tobytes() == sd.tobytes()):
+            fail("mutable shards=4: merged answers differ from unsharded")
+        res["mutable"] = {"inserts": 256, "deletes": 64,
+                          "launches_unsharded": ul, "launches_sharded": sl}
+        print(f"--mutable on with shards=4: 256 inserts, 64 deletes, 256 "
+              f"queries byte-equal to the unsharded merged answers; "
+              f"launches unsharded {ul}, sharded {sl} (the fused merge runs "
+              f"each shard on the torch scan)")
+        for app in apps.values():
+            app.close()
+    finally:
+        if prev_tail is None:
+            os.environ.pop("KNN_TPU_DEVICE_TAIL", None)
+        else:
+            os.environ["KNN_TPU_DEVICE_TAIL"] = prev_tail
+    obs.disable()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"sharded phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def _held_answers(base, held, d):
     """The held queries through ``/kneighbors`` (16 requests of 16 rows,
     one client) and ``/predict``: ``(distances, indices, predictions)``."""
@@ -3955,8 +4401,8 @@ def main() -> int:
     phase_cli_ladder(torch, cuda_knn, tile_knn, train_path, test_path, smi)
 
     phase("serve")
-    phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x, xl_y,
-                smi)
+    srv = phase_serve(torch, cuda_knn, tile_knn, train_path, test_path, xl_x,
+                      xl_y, smi)
 
     phase("ivf")
     phase_ivf(torch, cuda_knn, xl_x, xl_y, test.features, smi)
@@ -3974,6 +4420,11 @@ def main() -> int:
 
     phase("probe_wide")
     p1 = phase_probe_wide(torch, dev, probe_matmul)
+
+    phase("sharded")
+    shd = phase_sharded(torch, cuda_knn, tile_knn, train_path, test_path,
+                        xl_x, xl_y, test.features, srv["levels"], smi)
+    print(f"sharded: {json.dumps(shd)}")
 
     phase("kernels")
     replaces = {"scan": "knn_tpu/ops/pallas_knn.py:279",

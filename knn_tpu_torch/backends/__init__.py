@@ -13,6 +13,10 @@ Registry keys, as in the JAX package:
   the host instead).
 - ``cuda-tile`` — the wide-feature rung, the twin of ``tpu-pallas``: the
   stripe route or the tile kernel's merge route, in every distance form.
+- ``cuda-sharded``, ``cuda-train-sharded``, ``cuda-ring`` — the mesh rungs,
+  twins of ``tpu-sharded``, ``tpu-train-sharded`` and ``tpu-ring``
+  (``knn_tpu_torch/parallel/``): the same kernels per shard, the shards'
+  answers moved between devices by ``parallel/collectives.py``.
 
 ``native``/``native-mt`` are registered only when their library loads
 (built with ``g++`` when one of them is first asked for, or when
@@ -21,8 +25,8 @@ on that build). Every registered fn is wrapped by
 ``obs.instrument.observed_backend`` (a ``predict`` span and the
 per-backend metrics, no-ops while obs is off); the module-level fns stay
 unwrapped. ``resilience/degrade.py`` walks these rungs; a card rung
-(``cuda``, ``cuda-tile``) has no fallback. The sharded rungs wait for the
-multi-device slice.
+(``cuda``, ``cuda-tile``) has no fallback, and a sharded rung falls to
+``cuda``.
 """
 
 from __future__ import annotations
@@ -82,6 +86,9 @@ def _ensure_loaded(*names: str):
         from knn_tpu_torch.backends import cuda as _cuda  # noqa: F401
         from knn_tpu_torch.backends import oracle as _oracle  # noqa: F401
         from knn_tpu_torch.backends import tile as _tile  # noqa: F401
+        from knn_tpu_torch.parallel import query_sharded as _q  # noqa: F401
+        from knn_tpu_torch.parallel import ring as _ring  # noqa: F401
+        from knn_tpu_torch.parallel import train_sharded as _t  # noqa: F401
 
         _LOADED = True
     if _NATIVE_TRIED or not set(names) & set(_NATIVE):

@@ -10,15 +10,23 @@ device work.
 Personas keep the reference's invocations: ``--persona main`` (backend
 ``native``, ``./main train test k``), ``--persona multi-thread``
 (``native-mt``, ``./multi-thread train test k numThreads``: the ``threads``
-positional) and ``--persona cuda`` (the default, backend ``cuda``, the twin
-of the JAX CLI's ``tpu``). ``--backend`` overrides the persona's backend:
-``cuda`` (the stripe route's kernels or the XLA scans), ``cuda-tile`` (the
-wide-feature rung, the twin of ``tpu-pallas``), ``native``, ``native-mt``
-(the C++ kernel, built with ``g++`` at first use) or ``oracle`` (numpy).
+positional), ``--persona mpi`` (backend ``cuda-sharded``, ``./mpi train
+test k``: the queries scattered over the mesh, the twin of the JAX CLI's
+``tpu-sharded``) and ``--persona cuda`` (the default, backend ``cuda``,
+the twin of the JAX CLI's ``tpu``). ``--backend`` overrides the persona's
+backend: ``cuda`` (the stripe route's kernels or the XLA scans),
+``cuda-tile`` (the wide-feature rung, the twin of ``tpu-pallas``), the
+sharded rungs ``cuda-sharded``, ``cuda-train-sharded`` and ``cuda-ring``
+(``parallel/``), ``native``, ``native-mt`` (the C++ kernel, built with
+``g++`` at first use) or ``oracle`` (numpy). ``--devices N`` is the mesh
+of the sharded rungs: N cards (raising past the visible ones, as JAX
+does), or N logical shards of the host with ``--device cpu``.
 
 The other flags have the JAX CLI's names and defaults: ``--precision
 {exact,fast,bf16,auto}`` (``auto`` passes nothing, so the backend's own
-default applies), ``--metric``, ``--engine {auto,stripe,xla}``,
+default applies), ``--metric``, ``--engine {auto,stripe,xla,full,tiled}``
+(``full``/``tiled`` are the ring's per-step scorers; other rungs refuse
+them),
 ``--query-tile``, ``--train-tile``, ``--query-batch``, ``--approx`` and
 ``--recall-target`` (B6: exact selection on the card, recall 1.0, so
 JAX's sampled-recall guard has nothing to catch; ``--recall-target``
@@ -30,12 +38,14 @@ result line, with the classify region's ``phases`` when obs is on),
 JSON), both checked before any parse and written after the result line,
 ``--sweep-k K1,K2,...`` and ``--dump-predictions FILE.npy``. The port adds
 ``--device {cuda,cpu}`` (default ``cuda``; ``cpu`` runs the kernels' plain
-PyTorch versions). ``KNN_TPU_FAULTS`` arms the fault injection harness
-(``resilience/faults.py``) for a run.
+PyTorch versions). JAX's ``--platform`` is not accepted: ``--device`` is
+the port's one switch for where the work runs. ``KNN_TPU_FAULTS`` arms
+the fault injection harness (``resilience/faults.py``) for a run.
 
 The degradation ladder (``resilience/degrade.py``) stops at the card: a
 host rung that fails moves down ``native-mt → native → oracle`` with a
-``falling back`` warning, an unavailable native backend is replaced by
+``falling back`` warning, a sharded rung that fails moves to ``cuda`` (the
+same kernels on one card), an unavailable native backend is replaced by
 ``oracle`` up front (exit 2 under ``--no-fallback``), but on ``cuda`` and
 ``cuda-tile`` only transient retries and ``query_batch`` halving after an
 OOM remain: a persistent failure there exits 1, never answered from
@@ -63,8 +73,10 @@ artifact's partition), the answer-quality and capture flags
 ``--capture-burn-window-s``), the mutable tier's (``--mutable on``,
 ``--delta-cap``, ``--compact-threshold``, ``--compact-interval-s``: the
 server boots from the generation ``CURRENT.json`` names and replays the
-epoch log) and ``--device {cuda,cpu}``; the flags of the layers later
-slices bring are not in the parser, so argparse refuses them (exit 2).
+epoch log), ``--shards N|auto`` (the index partitioned over N logical
+shards on the card, ``auto`` one per visible card; ``shard/``) and
+``--device {cuda,cpu}``; the flags of the layers later slices bring are not in the
+parser, so argparse refuses them (exit 2).
 ``replay WORKLOAD (--url BASE | --index DIR)`` re-drives a captured
 workload (``obs/replay.py``) against a live server or an in-process
 micro-batcher on ``--device`` (``--mutable on``: with a mutable engine
@@ -101,7 +113,8 @@ EXIT_RUNTIME = 1
 _SUBCOMMANDS = ("classify", "serve", "save-index", "replay")
 
 # persona -> its default backend
-_PERSONAS = {"main": "native", "multi-thread": "native-mt", "cuda": "cuda"}
+_PERSONAS = {"main": "native", "multi-thread": "native-mt",
+             "mpi": "cuda-sharded", "cuda": "cuda"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -154,7 +167,8 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--backend", default=None,
                    help="override the persona's backend: cuda (the stripe "
                    "kernels or the XLA scans, as tpu), cuda-tile (the "
-                   "wide-feature rung), native, native-mt, oracle")
+                   "wide-feature rung), cuda-sharded, cuda-train-sharded, "
+                   "cuda-ring (the mesh rungs), native, native-mt, oracle")
     c.add_argument(
         "--no-fallback", action="store_true",
         help="disable the degradation ladder: an unavailable backend exits 2 "
@@ -171,11 +185,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default="euclidean",
                    help="distance metric (euclidean = reference semantics; "
                    "the native backends implement euclidean only)")
-    c.add_argument("--engine", choices=["auto", "stripe", "xla"],
+    c.add_argument("--engine",
+                   choices=["auto", "stripe", "xla", "full", "tiled"],
                    default="auto",
-                   help="candidate route of the cuda backend: auto (the "
-                   "stripe kernels where the tpu backend takes them), stripe "
-                   "(the kernels at any k), xla (the tiled scan)")
+                   help="candidate route of the cuda and sharded backends: "
+                   "auto (the stripe kernels for the euclidean forms), "
+                   "stripe (the kernels at any k), xla (the tiled scan); "
+                   "full/tiled are cuda-ring-only per-step scorers")
     c.add_argument("--query-tile", type=int, default=256)
     c.add_argument("--train-tile", type=int, default=2048)
     c.add_argument("--query-batch", type=int, default=None,
@@ -184,6 +200,10 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the cuda backends run (cpu: their plain "
                    "PyTorch versions)")
+    c.add_argument("--devices", type=int, default=None,
+                   help="mesh size of the sharded backends (default: every "
+                   "visible card; with --device cpu, logical shards, "
+                   "default 1)")
     c.add_argument("--warmup", action="store_true",
                    help="run once before timing (excludes build and upload)")
     c.add_argument(
@@ -277,6 +297,14 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the index is served (cpu: the kernels' plain "
                    "PyTorch versions)")
+    p.add_argument("--shards", default=None, metavar="N|auto",
+                   help="sharded serving: partition the index over N "
+                   "logical shards on the card — train rows for the exact "
+                   "rung, whole IVF cells for the ivf rung, delta slots "
+                   "for the mutable tail — answering bit-identically to "
+                   "the unsharded ladder. 'auto' shards one per visible "
+                   "card (one with --device cpu); unset (default) "
+                   "constructs no shard machinery")
     p.add_argument("--access-log", default=None, metavar="FILE",
                    help="append one structured JSON line per terminal "
                    "request outcome to FILE; '-' logs to stderr")
@@ -615,7 +643,9 @@ def _sweep_ks(args) -> "tuple[list[int] | None, str | None]":
         ("--approx", args.approx),
         ("--precision", args.precision not in ("exact", "auto")),
         ("--query-batch", args.query_batch is not None),
+        ("--engine full/tiled", args.engine in ("full", "tiled")),
         ("--threads", args.threads is not None),
+        ("--devices", args.devices is not None),
         ("--query-tile", args.query_tile != 256),
         ("--train-tile", args.train_tile != 2048),
     ) if bad]
@@ -721,6 +751,15 @@ def _run_classify(args, stdout) -> int:
     backend, code = _static_rung(args)
     if backend is None:
         return code
+    # MPI_Init's analogue: joins the process group a launcher (or torchrun)
+    # describes, so --persona mpi spans its processes; a no-op otherwise.
+    from knn_tpu_torch.parallel.mesh import maybe_init_distributed
+
+    try:
+        maybe_init_distributed(args.device)
+    except ResilienceError as e:
+        _error(f"{type(e).__name__}: {e}")
+        return EXIT_RUNTIME
     try:
         train = load_arff(args.train)
         test = load_arff(args.test)
@@ -745,6 +784,8 @@ def _run_classify(args, stdout) -> int:
         opts["recall_target"] = args.recall_target
     if args.threads is not None:
         opts["num_threads"] = args.threads
+    if args.devices is not None:
+        opts["num_devices"] = args.devices
     try:
         if args.warmup:
             warm = degrade.predict_with_ladder(
@@ -902,6 +943,27 @@ def _serve_batch_buckets(args) -> "tuple[tuple | None, str | None]":
     return tuple(sorted({*parsed, args.max_batch})), None
 
 
+def _serve_shards(args) -> "tuple[int | None, str | None]":
+    """``--shards``: None (unset), a positive count, or ``auto`` — one shard
+    per visible card (one on ``--device cpu``)."""
+    if args.shards is None:
+        return None, None
+    if str(args.shards).lower() == "auto":
+        if args.device == "cpu":
+            return 1, None
+        import torch
+
+        return max(1, torch.cuda.device_count()), None
+    try:
+        shards = int(args.shards)
+        if shards < 1:
+            raise ValueError
+    except ValueError:
+        return None, (f"--shards wants a positive integer or 'auto', got "
+                      f"{args.shards!r}")
+    return shards, None
+
+
 def _run_serve(args, stdout) -> int:
     """``serve INDEX``: load the artifact, warm every batch shape on the
     card, then serve until SIGINT/SIGTERM. Bad policy values or a bad
@@ -1006,6 +1068,10 @@ def _run_serve(args, stdout) -> int:
     if err is not None:
         _error(err)
         return EXIT_USAGE
+    shards, err = _serve_shards(args)
+    if err is not None:
+        _error(err)
+        return EXIT_USAGE
     from knn_tpu_torch.serve import artifact
     from knn_tpu_torch.serve.server import ServeApp, make_server, serve_forever
 
@@ -1064,6 +1130,7 @@ def _run_serve(args, stdout) -> int:
             compact_interval_s=args.compact_interval_s,
             mutable_current=current,
             mutable_base_dir=base_dir if mutable_on else None,
+            shards=shards,
         )
     except OSError as e:  # an unwritable --access-log / --capture-dir path
         _error(e)
@@ -1096,6 +1163,8 @@ def _run_serve(args, stdout) -> int:
     if app.ivf is not None:
         bucket_note += (f", ivf_probes={args.ivf_probes}/"
                         f"{model.ivf_.num_cells}")
+    if app.shards is not None:
+        bucket_note += f", shards={app.shards}"
     if app.mutable is not None:
         m = app.mutable.export()
         bucket_note += (f", mutable=on (gen={m['generation']}, "

@@ -118,6 +118,31 @@ def make_merge_tail(view: DeviceTailView, k: int):
     return tail
 
 
+def slice_view(view: DeviceTailView, start: int,
+               stop: int) -> DeviceTailView:
+    """One shard's contiguous slice of a device tail snapshot
+    (``shard/plan.plan_delta`` boundaries): slots ``[start, stop)`` become
+    a self-contained view whose ``base_n`` offset keeps positional ids
+    GLOBAL — slot ``j`` of the slice scores as id ``base_n + start + j``,
+    exactly what the unsliced view would assign it. The slices are views
+    of the frozen buffer (no copy, no host round trip), and every slot
+    below the slice's ``count`` is a real slot of the parent.
+
+    Sentinel caveat for callers: a slice that does not reach the parent's
+    count has sentinel ``base_n + stop`` — a REAL slot id of the next
+    shard — so per-shard survivors must remap their slice sentinel to the
+    parent's before any cross-shard merge (``shard/dispatch.py`` owns that
+    rewrite)."""
+    start = max(0, int(start))
+    stop = max(start, min(int(stop), view.count))
+    return DeviceTailView(
+        features=view.features[start:stop],
+        dead=view.dead[start:stop],
+        count=stop - start,
+        base_n=view.base_n + start,
+    )
+
+
 def rerank_merged(view, train_x: np.ndarray, queries: np.ndarray,
                   cand: np.ndarray, k: int, metric: str,
                   base_d: Optional[np.ndarray] = None):

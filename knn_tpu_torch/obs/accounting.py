@@ -116,7 +116,7 @@ def dispatch_padded_rows(model, rung: str, rows: int, cap: int) -> int:
     independently."""
     if rung == "xla":
         engine = "xla"
-    elif rung == "fast":
+    elif rung in ("fast", "unsharded"):
         engine = resolved_retrieval_engine(model)
     else:
         # The ivf rung (index/ivf.py) ranks cells and gathers exact

@@ -15,7 +15,10 @@ backend uniformly reports:
 plus a ``predict`` span wrapping the call; :func:`record_transfer` counts
 ``knn_transfer_bytes_total``; the ``record_serve_*`` helpers are the
 serving instrument set (``knn_tpu_torch/serve/``), with the JAX package's
-names, labels and buckets. The sharded set waits for its modules.
+names, labels and buckets; the sharded set (:func:`record_shard_dispatch`,
+:func:`record_shard_wall`, :func:`record_shard_candidates`,
+:func:`record_collective`, :data:`STRATEGY_PATHS`) is the multi-device
+slice's (``knn_tpu_torch/parallel/``, ``knn_tpu_torch/shard/``).
 Everything here is a no-op while ``knn_tpu_torch.obs`` is disabled.
 """
 
@@ -223,3 +226,76 @@ def record_transfer(nbytes: int, direction: str = "h2d",
             help="host<->device payload bytes moved by predict calls",
             direction=direction, backend=backend,
         )
+
+
+#: The sharded strategies whose dispatch walls feed the straggler gauges
+#: (``obs/aggregate.py``).
+STRATEGY_PATHS = ("query-sharded", "train-sharded", "ring")
+
+
+def record_shard_dispatch(path: str, t0_monotonic: float) -> None:
+    """Record this process's dispatch->fetch wall for one sharded predict
+    (``knn_shard_dispatch_ms{path=...}``, last call wins): the
+    per-process straggler signal ``obs/aggregate.py`` collects across the
+    launcher's processes."""
+    if obs.enabled():
+        obs.gauge_set(
+            "knn_shard_dispatch_ms",
+            round((time.monotonic() - t0_monotonic) * 1e3, 3),
+            help="this process's last sharded dispatch->fetch wall ms "
+                 "(the fleet straggler signal — obs/aggregate.py)",
+            path=path,
+        )
+
+
+def record_shard_wall(path: str, shard: int, wall_ms: float) -> None:
+    """One logical shard's dispatch->resolve wall within a sharded serve
+    process (``knn_shard_dispatch_ms{path=..., shard=N}``, last call
+    wins), the in-process twin of :func:`record_shard_dispatch`."""
+    if obs.enabled():
+        obs.gauge_set(
+            "knn_shard_dispatch_ms", round(wall_ms, 3),
+            help="this process's last sharded dispatch->fetch wall ms "
+                 "(the fleet straggler signal — obs/aggregate.py)",
+            path=path, shard=str(shard),
+        )
+
+
+def record_shard_candidates(path: str, shard: int, rows: int,
+                            nbytes: int) -> None:
+    """Per-shard candidate/byte counters for one sharded dispatch
+    (``knn_shard_candidates_total`` / ``knn_shard_bytes_total``): the
+    survivor candidates each shard contributed to the cross-shard merge,
+    and their host bytes."""
+    if not obs.enabled():
+        return
+    obs.counter_add(
+        "knn_shard_candidates_total", int(rows),
+        help="survivor candidate rows contributed to cross-shard merges "
+             "per shard", path=path, shard=str(shard),
+    )
+    obs.counter_add(
+        "knn_shard_bytes_total", int(nbytes),
+        help="host bytes of per-shard survivor candidates merged "
+             "cross-shard", path=path, shard=str(shard),
+    )
+
+
+def record_collective(path: str, op: str, nbytes: int) -> None:
+    """Count one sharded predict's collective bytes per device
+    (``knn_collective_bytes_total{path, op}``) and the dispatch
+    (``knn_collective_calls_total``). ``nbytes`` is what
+    ``parallel/collectives.py`` recorded for one device, which
+    ``parallel/comm_audit.py`` holds equal to its byte model."""
+    if not obs.enabled():
+        return
+    if nbytes:
+        obs.counter_add(
+            "knn_collective_bytes_total", int(nbytes),
+            help="modeled collective payload bytes on the sharded paths "
+                 "(comm_audit byte model)", path=path, op=op,
+        )
+    obs.counter_add(
+        "knn_collective_calls_total", 1,
+        help="sharded predict dispatches", path=path, op=op,
+    )

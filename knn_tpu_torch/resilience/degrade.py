@@ -7,6 +7,7 @@ route or from the host: a fault hidden behind a slower right answer. So
 the port's ladder stops at the card:
 
     cuda: ()          cuda-tile: ()
+    cuda-sharded → cuda    cuda-train-sharded → cuda    cuda-ring → cuda
     native-mt → native → oracle
 
 Every move whose two ends are both on the host is kept (``native-mt`` to
@@ -20,8 +21,12 @@ kernels:
   ``query_batch``) halves ``query_batch``, releases the caching
   allocator's blocks (``torch.cuda.empty_cache()``) and reruns the rung.
 
-Any other typed failure on ``cuda`` or ``cuda-tile`` raises. On a host
-rung it moves down the ladder, warning on stderr and counting
+A sharded rung (``cuda-sharded``, ``cuda-train-sharded``, ``cuda-ring``)
+that fails for good moves to ``cuda``: the same kernels over the whole
+train on one card, counted and warned as any move, with ``num_devices``
+and the mesh options dropped (JAX moves them to ``tpu``, then on down to
+the host; the port's walk ends at ``cuda``). Any other typed failure on
+``cuda`` or ``cuda-tile`` raises. On a host rung it moves down the ladder, warning on stderr and counting
 ``knn_fallback_total{from_backend,to,reason}``; a host rung that rejects
 the *options* (``--metric cosine`` on the native kernel) is skipped the
 same way, but only as a fallback rung — the user's chosen backend reports
@@ -48,6 +53,9 @@ DEGRADATION_ORDER: Tuple[str, ...] = (
 
 #: backend -> fallback rungs, most-capable first. The card rungs have none.
 LADDER: Dict[str, Tuple[str, ...]] = {
+    "cuda-sharded": ("cuda",),
+    "cuda-train-sharded": ("cuda",),
+    "cuda-ring": ("cuda",),
     "cuda": (),
     "cuda-tile": (),
     "native-mt": ("native", "oracle"),
@@ -55,14 +63,19 @@ LADDER: Dict[str, Tuple[str, ...]] = {
     "oracle": (),
 }
 
+_SHARDED = ("cuda-sharded", "cuda-train-sharded", "cuda-ring")
+
 #: options meaningful only to specific rungs — stripped when degrading so
 #: a fallback rung isn't rejected over a knob it never had.
 _RUNG_ONLY_OPTS = {
-    "device": ("cuda", "cuda-tile"),
+    "device": ("cuda", "cuda-tile", *_SHARDED),
     "approx": ("cuda",),
     "recall_target": ("cuda",),
     "query_batch": ("cuda",),
     "num_threads": ("native-mt",),
+    "num_devices": _SHARDED,
+    "devices": _SHARDED,
+    "mesh_shape": ("cuda-train-sharded",),
 }
 
 
@@ -83,14 +96,18 @@ def known_backend(backend: str) -> bool:
 
 def opts_for_rung(rung: str, origin: str, opts: dict) -> dict:
     """Sanitize ``opts`` for a fallback ``rung``: drop knobs owned by other
-    rungs. The origin rung (``rung == origin``) keeps its opts verbatim."""
+    rungs and map the ring-only engine names to ``auto``. The origin rung
+    (``rung == origin``) keeps its opts verbatim."""
     if rung == origin:
         return dict(opts)
-    return {
+    out = {
         name: value
         for name, value in opts.items()
         if rung in _RUNG_ONLY_OPTS.get(name, (rung,))
     }
+    if out.get("engine") in ("full", "tiled") and rung != "cuda-ring":
+        out["engine"] = "auto"  # the ring's own per-step scorers
+    return out
 
 
 def _default_warn(msg: str) -> None:

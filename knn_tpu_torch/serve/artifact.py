@@ -23,8 +23,10 @@ manifest or a swapped ``arrays.npz`` fails typed
 names a rung, and the JAX loader hands ``backend_opts`` to its own
 ``KNNClassifier``, so the port writes only names and options the JAX
 loader accepts and maps them on load, by one table
-(:data:`BACKEND_NAMES`): ``cuda ↔ tpu``, ``cuda-tile ↔ tpu-pallas``, the
-host rungs as they are. Run-time choices of the port (``device``) are
+(:data:`BACKEND_NAMES`): ``cuda ↔ tpu``, ``cuda-tile ↔ tpu-pallas``,
+``cuda-sharded ↔ tpu-sharded``, ``cuda-train-sharded ↔
+tpu-train-sharded``, ``cuda-ring ↔ tpu-ring``, the host rungs as they
+are. Run-time choices of the port (``device``) are
 never manifest fields: :func:`load_index` takes the device as an argument.
 
 **The IVF partition** (format 3, the index family): ``save_index(model,
@@ -84,6 +86,9 @@ CURRENT_NAME = "CURRENT.json"
 BACKEND_NAMES = {
     "cuda": "tpu",
     "cuda-tile": "tpu-pallas",
+    "cuda-sharded": "tpu-sharded",
+    "cuda-train-sharded": "tpu-train-sharded",
+    "cuda-ring": "tpu-ring",
     "native": "native",
     "native-mt": "native-mt",
     "oracle": "oracle",
@@ -341,8 +346,8 @@ def load_index(path, device="cuda"):
             backend = _PORT_BACKEND.get(name)
             if backend is None:
                 raise DataError(
-                    f"{root}: backend {name!r} has no rung on the card yet "
-                    f"(the sharded backends come with ROADMAP A11)"
+                    f"{root}: backend {name!r} is not a backend of this "
+                    f"package; known: {sorted(_PORT_BACKEND)}"
                 )
             opts = {k: v for k, v in manifest.get("backend_opts", {}).items()
                     if k not in RUNTIME_OPTS}

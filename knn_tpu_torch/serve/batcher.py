@@ -22,7 +22,11 @@ ladder's rule, ``resilience/degrade.py``). So the exact ladder here is the
 model's configured retrieval alone, the rung ``fast``: the hand-written
 kernels (the stripe scan and merge, or the tile kernel's exact form and
 the merge), or the torch scan when the model is configured with
-``engine="xla"`` or another metric.
+``engine="xla"`` or another metric. A sharded model (``serve --shards``,
+``knn_tpu_torch/shard/``) answers ``fast`` through its shards and has one
+rung more below it, ``unsharded``: the same retrieval over the whole train
+on the same card, where a shard-layer failure degrades (JAX's ``xla``
+rung there is single-device too).
 
 With ``ivf`` (an :class:`~knn_tpu_torch.index.ivf.IVFServing`, ``serve
 --ivf-probes``) and a model that carries a partition, the rung ``ivf``
@@ -912,7 +916,9 @@ class MicroBatcher:
         ladder, for a card this process cannot reach, or while the ivf
         rung answers (it scores host rows; the staged block would be an
         upload for nothing)."""
-        if self.buckets is None or self._ivf_active(model):
+        if (self.buckets is None or self._ivf_active(model)
+                or getattr(model, "shard_plan_", None) is not None):
+            # A sharded model's shards upload their own query blocks.
             self._stager = None
             return None
         if self._stager is None or self._stager.model is not model:
@@ -972,7 +978,25 @@ class MicroBatcher:
             ivf = self.ivf
             rungs.append(("ivf", lambda feats, prefetched=None:
                           ivf.kneighbors(model, np.asarray(feats))))
-        rungs.append(("fast", fast))
+        if getattr(model, "shard_plan_", None) is not None:
+            # A sharded model (knn_tpu_torch/shard/): ``fast`` IS the
+            # fanned-out dispatch — per-shard retrieval on the model's card,
+            # cross-shard lexicographic merge, bit-identical to the
+            # single-device rung — and a shard-layer failure degrades,
+            # typed, to ``unsharded``: the same retrieval over the whole
+            # train on the same card (its device copy made only then).
+            # Never to the host.
+            def unsharded(feats, prefetched=None, merge_tail=None):
+                return _kneighbors_arrays(
+                    train.features, np.asarray(feats, np.float32), k,
+                    metric=metric, engine=engine, cache=train.device_cache,
+                    device=model.device, merge_tail=merge_tail)
+
+            rungs.append(("fast", lambda feats, prefetched=None:
+                          model.sharded_kneighbors(np.asarray(feats))))
+            rungs.append(("unsharded", unsharded))
+        else:
+            rungs.append(("fast", fast))
         if mview is not None and not mview.empty:
             rungs = [(name, self._merged_rung(name, fn, model, mview, engine))
                      for name, fn in rungs]
@@ -991,6 +1015,9 @@ class MicroBatcher:
           device outputs (``merge_tail``) and the host re-rank restores
           the host merge's exact distances
           (``mutable/device_tail.rerank_merged``);
+        - **fast on a sharded model with a delta tail** (no base
+          tombstones, euclidean): each shard fuses its slice of the tail
+          (``shard/dispatch.exact_sharded``);
         - **everything else** (the kernels' route, other metrics,
           tombstoned bases, host-only tails): the host merge
           (``mutable/state.merge_candidates``), widening through the same
@@ -1012,7 +1039,22 @@ class MicroBatcher:
 
             return merged_ivf
         tview = mview.device
-        if (tview is not None and mview.tomb_base.size == 0
+        sharded = (name == "fast"
+                   and getattr(model, "shard_plan_", None) is not None)
+        if (sharded and tview is not None and mview.tomb_base.size == 0
+                and metric in (None, "euclidean")):
+            # Sharded fused merge: each shard carries its slice of the
+            # device tail in its own dispatch (on the torch-scan route,
+            # where the merge hook lives), survivors re-ranked through the
+            # same host exact pass as the single-device fused path.
+            def merged_shard(feats, prefetched=None):
+                with obs.span("mutable.device_merge", rows=feats.shape[0],
+                              delta_slots=mview.count):
+                    return model.sharded_kneighbors(
+                        np.asarray(feats, np.float32), view=mview)
+
+            return merged_shard
+        if (not sharded and tview is not None and mview.tomb_base.size == 0
                 and metric in (None, "euclidean")
                 and acct.resolved_retrieval_engine(model) == "xla"):
             from knn_tpu_torch.mutable import device_tail as dtail
@@ -1033,6 +1075,8 @@ class MicroBatcher:
 
         def wide(feats, k_wide):
             with obs.span("mutable.widen", rows=feats.shape[0], k=k_wide):
+                if sharded:
+                    return model.sharded_kneighbors(feats, k=k_wide)
                 return _kneighbors_arrays(
                     train.features, feats, k_wide, metric=metric,
                     engine=engine, cache=train.device_cache,

@@ -195,7 +195,15 @@ class ServeApp:
     :class:`~knn_tpu_torch.mutable.compact.Compactor` started after warmup
     (``compact_threshold`` pending mutations or ``/admin/compact`` fold;
     ``compact_interval_s`` 0 runs no timer thread). Off constructs
-    nothing."""
+    nothing.
+
+    ``shards`` (``serve --shards``, resolved: the CLI maps ``auto`` to the
+    visible cards) serves the model's sharded twin
+    (``shard/model.make_sharded``): train rows, IVF cells and delta slots
+    partitioned over that many logical shards on the model's card, answers
+    bit-identical to the unsharded ladder, the ``shard`` block in
+    ``/healthz`` and ``/debug/capacity``. None (the default) constructs no
+    shard machinery at all."""
 
     def __init__(self, model, *, max_batch: int = 256,
                  max_wait_ms: float = 2.0, max_queue_rows: int = 4096,
@@ -224,7 +232,7 @@ class ServeApp:
                  compact_threshold: int = 1024,
                  compact_interval_s: float = 30.0,
                  mutable_current: Optional[dict] = None,
-                 mutable_base_dir=None):
+                 mutable_base_dir=None, shards: Optional[int] = None):
         # Validated FIRST: a DataError here must abort before any worker
         # thread exists.
         if ivf_probes is not None:
@@ -243,6 +251,10 @@ class ServeApp:
                     f"partition has {partition.num_cells} cells"
                 )
         self.ivf_recall_floor = float(ivf_recall_floor)
+        self.shards: Optional[int] = None
+        if shards is not None:
+            model = self._wrap_shards_new(model, int(shards))
+            self.shards = model.shard_plan_.num_shards
         self.model = model
         self.device = device if device is not None else getattr(
             model, "device", "cuda")
@@ -401,10 +413,39 @@ class ServeApp:
         self.ready = True
         return self.warmup_ms
 
+    @staticmethod
+    def _wrap_shards_new(model, shards: int):
+        from knn_tpu_torch.shard.model import make_sharded
+
+        return make_sharded(model, shards)
+
+    def _wrap_shards(self, model):
+        """Shard a REPLACEMENT model (compaction fold, hot reload) when this
+        app serves sharded. Memoized on the unsharded instance so the warm
+        pass and the swap share one twin (and its per-shard device
+        copies)."""
+        if self.shards is None or getattr(
+                model, "shard_plan_", None) is not None:
+            return model
+        twin = getattr(model, "_sharded_twin", None)
+        if twin is None:
+            twin = model._sharded_twin = self._wrap_shards_new(
+                model, self.shards)
+        return twin
+
+    def shard_block(self) -> "Optional[dict]":
+        """The sharded-serving summary for ``/healthz`` and
+        ``/debug/capacity``: the frozen plan, per-shard walls of the last
+        fanned-out dispatch, and the straggler derivation. None while
+        ``--shards`` is unset."""
+        export = getattr(self.model, "shard_export", None)
+        return export() if export is not None else None
+
     def _warm_replacement(self, model) -> dict:
         """Warm a compaction's replacement model at the serving batch
         shapes, OFF the serving path (the reload warmup rule), on this
         app's card."""
+        model = self._wrap_shards(model)
         sizes = self._warm_sizes or (1, self.batcher.max_batch)
         with _on_device(self.device):
             out = artifact.warmup(model, batch_sizes=sizes,
@@ -419,6 +460,9 @@ class ServeApp:
         bookkeeping hot reload also does. Past the swap, that bookkeeping
         is best-effort: a failure there must not turn a served generation
         into a misreported rollback."""
+        # The engine rebases onto the UNSHARDED replacement; serving swaps
+        # to its sharded twin, the one _warm_replacement warmed.
+        model = self._wrap_shards(model)
         previous = self.batcher.swap_model(model, version, hook=rebase_hook)
         self.model = model
         self.index_version = version
@@ -535,6 +579,7 @@ class ServeApp:
                     f"IVF partition — rebuild it with `save-index "
                     f"--ivf-cells N` or redeploy exact-only"
                 )
+            model = self._wrap_shards(model)
             sizes = self._warm_sizes or (1, self.batcher.max_batch)
             with _on_device(self.device):
                 warmup_ms = artifact.warmup(
@@ -691,7 +736,7 @@ class ServeApp:
                         if self.mutable is not None else None),
             "workload": (self.workload.export()
                          if self.workload is not None else None),
-            "shard": None,
+            "shard": self.shard_block(),
             "fleet": None,
             "control": None,
             "history": None,
@@ -927,7 +972,7 @@ class _Handler(BaseHTTPRequestHandler):
             },
             "mutable": (self.app.mutable.export()
                         if self.app.mutable is not None else None),
-            "shard": None,
+            "shard": self.app.shard_block(),
             "index_version": self.app.index_version,
         }
         self._send(200, payload, tag_request_id=False)

@@ -856,3 +856,84 @@ def test_ivf_fused_delta_scorer_on_the_card(card, tmp_path):
     off.close()
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 32])
+def test_sharded_engines_on_one_card_repeated_4_times(card, k):
+    """Four logical shards of cuda:0: each engine's predictions equal the
+    single-card ``cuda`` backend's, its per-shard kernels launched (the
+    stripe scan at k <= 16, the tile kernel's exact form at k = 32), and
+    its collectives equal the byte model."""
+    from knn_tpu_torch.parallel import comm_audit
+    from knn_tpu_torch.parallel.query_sharded import predict_query_sharded
+    from knn_tpu_torch.parallel.ring import predict_ring
+    from knn_tpu_torch.parallel.train_sharded import predict_train_sharded
+
+    rng = np.random.default_rng(k)
+    train, test = _grid(rng, 5000, 301, 11)
+    labels = rng.integers(0, 4, 5000).astype(np.int32)
+    want = cuda_backend.predict_arrays(train, labels, test, k, 4)
+    mesh = (torch.device("cuda", 0),) * 4
+    for fn, kw in ((predict_query_sharded, {}),
+                   (predict_train_sharded, {"mesh_shape": (1, 4)}),
+                   (predict_ring, {})):
+        before = (cuda_knn.knn_stripe_scan.launches,
+                  tile_knn.knn_tile_scan.launches["exact"])
+        log = []
+        got = fn(train, labels, test, k, 4, devices=mesh, log=log, **kw)
+        np.testing.assert_array_equal(got, want)
+        after = (cuda_knn.knn_stripe_scan.launches,
+                 tile_knn.knn_tile_scan.launches["exact"])
+        moved = after[0] - before[0] if k <= 16 else after[1] - before[1]
+        assert moved >= 4, (fn.__name__, before, after)
+        if fn is predict_train_sharded:
+            comm_audit.audit_train_sharded(log, 301, k, 4)
+        if fn is predict_ring:
+            rows = -(-5000 // 4)
+            comm_audit.audit_ring(log, rows * 11 * 4, rows * 4, 4)
+
+
+@pytest.mark.cuda
+def test_sharded_model_on_one_card_repeated_4_times(card):
+    """A model sharded four ways on the card answers bit-identically to the
+    unsharded model, through the stripe kernels."""
+    from knn_tpu_torch.data.dataset import Dataset
+    from knn_tpu_torch.models.knn import KNNClassifier
+    from knn_tpu_torch.shard.model import make_sharded
+
+    rng = np.random.default_rng(3)
+    train, test = _grid(rng, 4000, 257, 11)
+    model = KNNClassifier(k=10).fit(
+        Dataset(train, rng.integers(0, 3, 4000).astype(np.int32)))
+    q = Dataset(test, np.zeros(len(test), np.int32))
+    want = model.kneighbors(q)
+    before = cuda_knn.knn_stripe_merge.launches
+    got = make_sharded(model, 4).kneighbors(q)
+    assert cuda_knn.knn_stripe_merge.launches == before + 4
+    np.testing.assert_array_equal(got[1], want[1])
+    assert (got[0].view(np.uint32) == want[0].view(np.uint32)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda-sharded", "cuda-train-sharded",
+                                     "cuda-ring"])
+def test_sharded_ladder_ends_typed_on_cuda(card, backend):
+    """An injected ``collective.step`` fault on a sharded rung moves the
+    ladder to ``cuda`` (the same kernels on one card), counted; never to
+    the host."""
+    from knn_tpu_torch.resilience import degrade, faults
+
+    rng = np.random.default_rng(1)
+    train, test = _grid(rng, 3000, 100, 7)
+    tr = dataset_from_arrays(train, rng.integers(0, 3, 3000).astype(np.int32))
+    te = dataset_from_arrays(test, np.zeros(100, np.int32))
+    warned = []
+    with faults.inject("collective.step=always"):
+        res = degrade.predict_with_ladder(backend, tr, te, 5,
+                                          {"num_devices": 1},
+                                          warn=warned.append)
+    assert res.backend == "cuda" and res.degraded
+    assert "falling back to 'cuda'" in warned[0]
+    np.testing.assert_array_equal(
+        res.predictions, get_backend("cuda")(tr, te, 5))

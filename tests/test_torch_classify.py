@@ -73,8 +73,9 @@ def test_candidates_arrays_chunked_equal_unchunked(small_port):
 def test_backend_registry_and_device_cache(small_port):
     train, test = small_port
     # native/native-mt register when their library builds (g++).
-    assert available_backends() == ["cuda", "cuda-tile", "native",
-                                    "native-mt", "oracle"]
+    assert available_backends() == ["cuda", "cuda-ring", "cuda-sharded",
+                                    "cuda-tile", "cuda-train-sharded",
+                                    "native", "native-mt", "oracle"]
     cache_train = load_arff(_paths("small")[0])
     first = get_backend("cuda")(cache_train, test, 3, device="cpu")
     key = ("train", "cpu", "torch.float32")

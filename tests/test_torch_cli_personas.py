@@ -104,10 +104,17 @@ class TestPersonas:
                        stdout=io.StringIO()) == 0
         assert seen == [6, 0, 1]  # 0: the hardware's concurrency
 
-    def test_mpi_persona_is_not_ported(self, capsys):
+    def test_mpi_persona_is_not_ported(self):
+        """Ported since the multi-device slice (the name is kept from when
+        the persona was refused): ``--persona mpi`` runs the query-sharded
+        backend and prints the JAX CLI's mpi line."""
         tr, te = _paths()
-        assert cli.run([tr, te, "3", "--persona", "mpi"]) == 2
-        assert "invalid choice" in capsys.readouterr().err
+        rc, got = _run(cli.run, [tr, te, "3", "--persona", "mpi", *CPU,
+                                 "--json"])
+        jrc, want = _jax([tr, te, "3", "--persona", "mpi"])
+        assert rc == jrc == 0
+        assert got.splitlines()[0] == want.splitlines()[0]
+        assert '"backend": "cuda-sharded"' in got
 
 
 class TestStaticRung:

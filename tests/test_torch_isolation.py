@@ -230,6 +230,58 @@ def test_mutable_tier_leaves_jax_and_knn_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_multi_device_slice_leaves_jax_and_knn_tpu_out():
+    # The multi-device slice: import its modules (the mesh engines, the
+    # collectives and their audit, the launcher and its worker, the shard
+    # layer, the fleet aggregation), run the mpi persona and each sharded
+    # backend through the CLI, the worker solo, a sharded ServeApp, then
+    # look.
+    code = (
+        "import io, os, sys, tempfile\n"
+        "import knn_tpu_torch.parallel, knn_tpu_torch.parallel.mesh\n"
+        "import knn_tpu_torch.parallel.collectives\n"
+        "import knn_tpu_torch.parallel.comm_audit\n"
+        "import knn_tpu_torch.parallel.query_sharded\n"
+        "import knn_tpu_torch.parallel.train_sharded\n"
+        "import knn_tpu_torch.parallel.ring\n"
+        "import knn_tpu_torch.parallel.multihost\n"
+        "import knn_tpu_torch.parallel.launch\n"
+        "import knn_tpu_torch.shard, knn_tpu_torch.shard.plan\n"
+        "import knn_tpu_torch.shard.dispatch, knn_tpu_torch.shard.model\n"
+        "import knn_tpu_torch.obs.aggregate\n"
+        "from knn_tpu_torch import cli\n"
+        "from knn_tpu_torch.parallel import multihost\n"
+        "from knn_tpu_torch.serve import artifact, server\n"
+        "tr, te = sys.argv[1:3]\n"
+        "for extra in (['--persona', 'mpi'],\n"
+        "              ['--backend', 'cuda-train-sharded', '--devices', '4'],\n"
+        "              ['--backend', 'cuda-ring', '--devices', '3']):\n"
+        "    assert cli.run([tr, te, '3', '--device', 'cpu', *extra],\n"
+        "                   stdout=io.StringIO()) == 0\n"
+        "os.environ[multihost.DEVICE_ENV] = 'cpu'\n"
+        "assert multihost._worker_main([tr, te, '3']) == 0\n"
+        "idx = os.path.join(tempfile.mkdtemp(), 'idx')\n"
+        "assert cli.run(['save-index', tr, idx, '--k', '3'],\n"
+        "               stdout=io.StringIO()) == 0\n"
+        "app = server.ServeApp(artifact.load_index(idx, device='cpu'),\n"
+        "                      max_wait_ms=0.0, shards=2)\n"
+        "app.batcher.submit(app.model.train_.features[:2],\n"
+        "                   'predict').result(timeout=30)\n"
+        "assert app.health()['shard']['num_shards'] == 2\n"
+        "app.close()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'knn_tpu'))\n"
+        "print(bad)\n"
+    )
+    d = fixtures.datasets_dir()
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(d / "small-train.arff"),
+                          str(d / "small-test.arff")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 # A path component "knn_tpu" in a string the code uses (not a docstring),
 # apart from a "knn_tpu/....py:LINE" reference to the reference's source.
 _JAX_PATH = re.compile(r"(^|[/\\])knn_tpu([/\\]|$)")

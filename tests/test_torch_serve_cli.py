@@ -4,9 +4,10 @@ cases of ``tests/test_cli.py`` and of ``scripts/serve_smoke.py`` steps
 
 - The validation tables and exit codes are the JAX CLI's: each bad value
   exits 2 before any compute in both CLIs, with one ``error:`` line.
-- The flags of later slices (fleet, shards, control, history) are not in
-  the port's parser: argparse exits 2 on each, where the JAX CLI accepts
-  it (ROADMAP A11-A12). The mutable tier's flags (``--mutable``,
+- The flags of later slices (fleet, control, history) are not in the
+  port's parser: argparse exits 2 on each, where the JAX CLI accepts it
+  (ROADMAP A12). ``--shards`` (ROADMAP A11) is, with JAX's validation
+  line. The mutable tier's flags (``--mutable``,
   ``--delta-cap``, ``--compact-threshold``, ``--compact-interval-s``,
   ROADMAP A10) are, with JAX's validation lines. The index family's flags
   (``save-index --ivf-cells/--ivf-seed/--ivf-iters``, ``serve
@@ -168,7 +169,8 @@ class TestServeExitCodes:
         ["--replicate-ack-timeout-s", "5"],
         ["--bootstrap", "auto"],
         ["--follower-of", "http://127.0.0.1:1"],
-        ["--replicate-to", "http://127.0.0.1:1"], ["--shards", "2"],
+        ["--replicate-to", "http://127.0.0.1:1"],
+        ["--history-interval-s", "5"],
         ["--priority", "a=0"], ["--brownout", "on"],
         ["--autotune-interval-s", "5"], ["--history-dir", "/tmp/h"],
         ["--alert-rules", "r.json"], ["--platform", "cpu"],
@@ -178,6 +180,22 @@ class TestServeExitCodes:
         than accepting and ignoring a flag whose layer is not ported."""
         assert cli.run(["serve", "/irrelevant/index", *extra]) == 2
         assert "unrecognized arguments" in capsys.readouterr().err
+
+    @pytest.mark.parametrize("value,code,line", [
+        ("0", 2, "--shards wants a positive integer or 'auto', got '0'"),
+        ("two", 2, "--shards wants a positive integer or 'auto'"),
+        ("2", 2, "not found"),
+        ("auto", 2, "not found"),
+    ])
+    def test_shards_flag_as_jax(self, capsys, value, code, line):
+        """``--shards N|auto`` (ROADMAP A11): a bad count exits 2 with JAX's
+        line in both CLIs; a good one gets past the checks to the artifact
+        load (missing here: exit 2 in both)."""
+        argv = ["serve", "/irrelevant/index", "--shards", value]
+        assert cli.run([*argv, "--device", "cpu"]) == code
+        assert line in capsys.readouterr().err
+        assert jrun([*argv, "--platform", "cpu"]) == code
+        assert line in capsys.readouterr().err
 
     @pytest.mark.parametrize("flag,bad,good", [
         ("--shadow-rate", ["1.5"], ["0.5"]),
