@@ -75,8 +75,14 @@ artifact's partition), the answer-quality and capture flags
 server boots from the generation ``CURRENT.json`` names and replays the
 epoch log), ``--shards N|auto`` (the index partitioned over N logical
 shards on the card, ``auto`` one per visible card; ``shard/``) and
-``--device {cuda,cpu}``; the flags of the layers later slices bring are not in the
+the control plane's (``--priority``, ``--brownout``,
+``--autotune-interval-s``; ``control/``), the durable history's and the
+alerts' (``--history-dir``, ``--history-interval-s``,
+``--history-retention-s``, ``--alert-rules``) and ``--device {cuda,cpu}``;
+the replication flags of the fleet layer, still to port, are not in the
 parser, so argparse refuses them (exit 2).
+``history DIR`` and ``report --history DIR`` read a history directory (of
+either package) after the process that wrote it is gone.
 ``replay WORKLOAD (--url BASE | --index DIR)`` re-drives a captured
 workload (``obs/replay.py``) against a live server or an in-process
 micro-batcher on ``--device`` (``--mutable on``: with a mutable engine
@@ -110,7 +116,8 @@ from knn_tpu_torch.utils.timing import RegionTimer, maybe_profile
 EXIT_USAGE = 2
 EXIT_RUNTIME = 1
 
-_SUBCOMMANDS = ("classify", "serve", "save-index", "replay")
+_SUBCOMMANDS = ("classify", "serve", "save-index", "replay", "history",
+                "report")
 
 # persona -> its default backend
 _PERSONAS = {"main": "native", "multi-thread": "native-mt",
@@ -122,8 +129,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="knn_tpu_torch",
         description="KNN classify on a CUDA card (PyTorch port of knn_tpu)",
     )
-    sub = p.add_subparsers(dest="command",
-                           metavar="{classify,serve,save-index,replay}")
+    sub = p.add_subparsers(
+        dest="command",
+        metavar="{classify,serve,save-index,replay,history,report}")
     _add_serve_args(sub.add_parser(
         "serve",
         help="long-lived micro-batching HTTP server over a prebuilt index",
@@ -151,6 +159,25 @@ def build_parser() -> argparse.ArgumentParser:
                     "mutation_seq match the capture, and emit a verdict "
                     "JSON (p50/p99/QPS, divergence counts, captured vs "
                     "replayed).",
+    ))
+    _add_history_cmd_args(sub.add_parser(
+        "history",
+        help="query a durable metrics-history directory post-mortem",
+        description="Decode the segment ring a serve process wrote under "
+                    "--history-dir (of either package; the process may be "
+                    "long dead); a torn final segment is repaired, "
+                    "corruption anywhere else refused typed; print the "
+                    "selected series.",
+    ))
+    _add_report_args(sub.add_parser(
+        "report",
+        help="stitch history, alerts, captures and logs into one incident "
+             "report",
+        description="Build a deterministic markdown+JSON incident report "
+                    "from a --history-dir: metrics history, alert "
+                    "fire/resolve pairs and action outcomes, alert-armed "
+                    "workload captures, frozen slowest-K forensics and "
+                    "access-log errors on ONE merged timeline.",
     ))
     c = sub.add_parser(
         "classify",
@@ -250,9 +277,42 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _add_history_cmd_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("dir", help="the --history-dir a serve process wrote")
+    p.add_argument("--metric", default=None, metavar="NAME",
+                   help="filter to one instrument (default: all)")
+    p.add_argument("--label", action="append", default=[], metavar="K=V",
+                   help="label subset filter (repeatable)")
+    p.add_argument("--window", default=None, metavar="W",
+                   help="trailing window back from the newest snapshot "
+                   "(e.g. 300, 300s, 5m, 1h; default: everything)")
+    p.add_argument("--json", action="store_true",
+                   help="print the full query document as JSON instead "
+                   "of the human summary")
+
+
+def _add_report_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--history", required=True, metavar="DIR",
+                   help="the --history-dir the incident's process wrote")
+    p.add_argument("--window", default=None, metavar="W",
+                   help="trailing window back from the newest artifact "
+                   "timestamp (e.g. 15m, 1h; default: everything)")
+    p.add_argument("--access-log", default=None, metavar="FILE",
+                   help="the serve --access-log file; its error lines "
+                   "join the timeline")
+    p.add_argument("--captures", default=None, metavar="DIR",
+                   help="the serve --capture-dir; workload manifests "
+                   "(alert-armed ones included) join the timeline")
+    p.add_argument("--out", default=None, metavar="FILE",
+                   help="write the markdown report to FILE (default: "
+                   "stdout)")
+    p.add_argument("--json-out", default=None, metavar="FILE",
+                   help="also write the JSON document to FILE")
+
+
 def _add_serve_args(p: argparse.ArgumentParser) -> None:
-    """The default ``serve`` path's flags, with the JAX CLI's names and
-    defaults. The flags of the layers later slices bring are absent, so
+    """The ``serve`` flags, with the JAX CLI's names and defaults. The
+    replication flags of the fleet layer, still to port, are absent, so
     argparse refuses them (exit 2)."""
     p.add_argument("index", help="index artifact directory (save-index "
                    "output, of either package)")
@@ -411,6 +471,56 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--capture-burn-window-s", type=float, default=60.0,
                    help="burn-triggered capture windows auto-stop after "
                    "this many seconds (or at --capture-max-requests)")
+    p.add_argument("--priority", default=None,
+                   metavar="CLASS=LEVEL,...",
+                   help="priority admission: map request classes to shed "
+                   "levels (e.g. 'interactive=0,batch=1,bulk=2'; LOWER = "
+                   "more protected). Past the knee (headroom under the "
+                   "floor, or availability/latency burn over threshold) "
+                   "the HIGHEST levels shed first with a typed 429 + "
+                   "headroom-derived Retry-After, tier by tier; the lowest "
+                   "level is never shed by policy. Needs --cost-accounting "
+                   "on. Unset (default): no admission machinery")
+    p.add_argument("--brownout", choices=["on", "off"], default="off",
+                   help="reversible brownout ladder: under sustained "
+                   "pressure walk shadow/drift sampling rates, ivf nprobe "
+                   "to base and the deadline down one cooldown at a time, "
+                   "each step audited and walked back on recovery; "
+                   "compaction and sampling defer while headroom is "
+                   "negative. Needs one such knob. 'off' (default): "
+                   "nothing constructed")
+    p.add_argument("--autotune-interval-s", type=float, default=None,
+                   metavar="S",
+                   help="adaptive batching: every S seconds capture a short "
+                   "live-arrival window, sweep max_wait_ms candidates "
+                   "through the what-if frontier, and apply the best one "
+                   "ONLY after a replay of the window on the live batcher "
+                   "verifies bit-identical answers. Needs --capture-dir "
+                   "and --cost-accounting on. Unset (default): "
+                   "max_wait_ms stays static")
+    p.add_argument("--history-dir", default=None, metavar="DIR",
+                   help="durable metrics history: append delta-encoded "
+                   "registry snapshots to an on-disk segment ring under "
+                   "DIR, queryable live at GET /debug/history and "
+                   "post-mortem with `history DIR`. Unset (default): no "
+                   "history machinery")
+    p.add_argument("--history-interval-s", type=float, default=5.0,
+                   metavar="S",
+                   help="snapshot cadence for --history-dir (and the "
+                   "alert-rule evaluation cadence); default 5")
+    p.add_argument("--history-retention-s", type=float, default=3600.0,
+                   metavar="S",
+                   help="on-disk retention: whole segments older than "
+                   "this are pruned (default 3600)")
+    p.add_argument("--alert-rules", default=None, metavar="RULES.json",
+                   help="declarative alerting: threshold / burn-rate / "
+                   "absence / derivative rules with for: durations and "
+                   "hysteretic fire->resolve, evaluated each "
+                   "--history-interval-s; transitions land in alerts.jsonl "
+                   "under --history-dir, knn_alerts_firing{alert} and GET "
+                   "/debug/alerts; actions arm a workload capture, take a "
+                   "profile or run an audited command. Unset (default): "
+                   "no alerting machinery")
 
 
 def _add_replay_args(p: argparse.ArgumentParser) -> None:
@@ -538,6 +648,10 @@ def _run(argv: Optional[Sequence[str]], stdout) -> int:
         return _run_save_index(args, stdout)
     if args.command == "replay":
         return _run_replay(args, stdout)
+    if args.command == "history":
+        return _run_history(args, stdout)
+    if args.command == "report":
+        return _run_report(args, stdout)
     return _run_classify(args, stdout)
 
 
@@ -970,6 +1084,7 @@ def _run_serve(args, stdout) -> int:
     artifact exit 2 before any compute; bind/warmup failures exit 1 (a
     missing card fails the warmup)."""
     from knn_tpu_torch.resilience.errors import DataError
+    from knn_tpu_torch.serve.server import control_flag_error
 
     for bad, msg in (
         (args.max_batch < 1, f"--max-batch must be >= 1, got {args.max_batch}"),
@@ -1047,6 +1162,29 @@ def _run_serve(args, stdout) -> int:
     ):
         if bad:
             _error(msg)
+            return EXIT_USAGE
+    err = control_flag_error(
+        cost_accounting=args.cost_accounting == "on",
+        priority=args.priority is not None,
+        autotune_interval_s=args.autotune_interval_s,
+        capture_dir=args.capture_dir,
+        history_interval_s=args.history_interval_s,
+        history_retention_s=args.history_retention_s)
+    if err is not None:
+        _error(err)
+        return EXIT_USAGE
+    alert_rules, err = _load_alert_rules(args)
+    if err is not None:
+        _error(err)
+        return EXIT_USAGE
+    priority_map = None
+    if args.priority is not None:
+        from knn_tpu_torch.control.admission import parse_priority_map
+
+        try:
+            priority_map = parse_priority_map(args.priority)
+        except ValueError as e:
+            _error(f"--priority: {e}")
             return EXIT_USAGE
     slo_windows = None
     if args.slo_windows is not None:
@@ -1130,7 +1268,13 @@ def _run_serve(args, stdout) -> int:
             compact_interval_s=args.compact_interval_s,
             mutable_current=current,
             mutable_base_dir=base_dir if mutable_on else None,
-            shards=shards,
+            shards=shards, priority_map=priority_map,
+            brownout=(args.brownout == "on"),
+            autotune_interval_s=args.autotune_interval_s,
+            history_dir=args.history_dir,
+            history_interval_s=args.history_interval_s,
+            history_retention_s=args.history_retention_s,
+            alert_rules=alert_rules,
         )
     except OSError as e:  # an unwritable --access-log / --capture-dir path
         _error(e)
@@ -1171,6 +1315,14 @@ def _run_serve(args, stdout) -> int:
                         f"epoch={m['epoch']}, "
                         f"replayed_delta={m['delta_slots']}, "
                         f"delta_cap={args.delta_cap})")
+    if app.admission is not None:
+        bucket_note += ", priority=" + "/".join(
+            f"{c}:{level}" for c, level in sorted(priority_map.items()))
+    if app.brownout is not None:
+        bucket_note += ", brownout=" + "+".join(
+            s.name for s in app.brownout.steps)
+    if app.autotune is not None:
+        bucket_note += f", autotune={args.autotune_interval_s:g}s"
     print(
         f"knn-tpu serve: ready on http://{host}:{port} "
         f"(family={app.family}, k={model.k}, "
@@ -1180,6 +1332,126 @@ def _run_serve(args, stdout) -> int:
         file=stdout, flush=True,
     )
     return serve_forever(server, drain_timeout_s=args.drain_timeout_s)
+
+
+def _load_alert_rules(args):
+    """Parse ``--alert-rules`` (None when unset): ``(rules, None)`` or
+    ``(None, error)``. Every failure is a pre-boot usage error (exit 2),
+    including an action whose layer the other flags left off."""
+    if args.alert_rules is None:
+        return None, None
+    from knn_tpu_torch.obs.alerts import load_rules
+    from knn_tpu_torch.resilience.errors import DataError
+
+    try:
+        rules = load_rules(args.alert_rules)
+    except DataError as e:
+        return None, str(e)
+    actions = {a["do"] for r in rules for a in r["actions"]}
+    if args.history_dir is None and "profile" in actions:
+        return None, ("--alert-rules: profile actions write under "
+                      "--history-dir; set it")
+    if args.capture_dir is None and "capture" in actions:
+        return None, ("--alert-rules: capture actions arm the workload "
+                      "recorder; set --capture-dir")
+    return rules, None
+
+
+def _parse_window_arg(raw) -> "tuple[float | None, str | None]":
+    """``--window`` of ``history``/``report``: ``(seconds, None)``,
+    ``(None, None)`` when unset, or ``(None, error)``."""
+    if raw is None:
+        return None, None
+    from knn_tpu_torch.obs.history import parse_window
+
+    try:
+        return parse_window(raw), None
+    except ValueError as e:
+        return None, f"--window: {e}"
+
+
+def _run_history(args, stdout) -> int:
+    """``history DIR``: decode a (possibly dead) serve's segment ring,
+    repairing a torn final segment, and answer a range query. Unreadable
+    or corrupt history and bad filters exit 2."""
+    from knn_tpu_torch.obs.history import load_history
+    from knn_tpu_torch.resilience.errors import DataError
+
+    labels = {}
+    for item in args.label:
+        k, sep, v = item.partition("=")
+        if not sep or not k:
+            _error(f"--label {item!r}: want K=V")
+            return EXIT_USAGE
+        labels[k] = v
+    window_s, err = _parse_window_arg(args.window)
+    if err is not None:
+        _error(err)
+        return EXIT_USAGE
+    try:
+        hist = load_history(args.dir)
+    except (DataError, OSError) as e:
+        _error(e)
+        return EXIT_USAGE
+    doc = hist.query(metric=args.metric, labels=labels, window_s=window_s)
+    doc["segments"] = len(hist.segments)
+    doc["samples"] = len(hist.samples)
+    doc["repaired_torn_tail"] = hist.repaired
+    if args.json:
+        print(json.dumps(doc, indent=2, sort_keys=True), file=stdout)
+        return 0
+    w = doc["window"]
+    print(f"knn-tpu history: {args.dir}: {doc['samples']} snapshot(s) in "
+          f"{doc['segments']} segment(s), window {w['from']}..{w['to']}"
+          + (" (torn tail repaired)" if hist.repaired else ""),
+          file=stdout)
+    for s in doc["series"]:
+        labels_txt = ",".join(f"{k}={v}"
+                              for k, v in sorted(s["labels"].items()))
+        pts = s["points"]
+        if not pts:
+            continue
+        first, last = pts[0], pts[-1]
+        print(f"  {s['name']}{{{labels_txt}}} [{s['kind']}] "
+              f"{len(pts)} point(s): {first[1]} @ {first[0]} -> "
+              f"{last[1]} @ {last[0]}", file=stdout)
+    if not doc["series"]:
+        print("  (no matching series)", file=stdout)
+    return 0
+
+
+def _run_report(args, stdout) -> int:
+    """``report --history DIR``: the one-command incident report. Missing
+    or corrupt inputs exit 2; the output is deterministic (every timestamp
+    comes from the artifacts)."""
+    from knn_tpu_torch.obs.report import build_report, render_markdown
+    from knn_tpu_torch.resilience.errors import DataError
+
+    window_s, err = _parse_window_arg(args.window)
+    if err is not None:
+        _error(err)
+        return EXIT_USAGE
+    try:
+        doc = build_report(args.history, window=window_s,
+                           access_log=args.access_log,
+                           captures=args.captures)
+    except (DataError, OSError) as e:
+        _error(e)
+        return EXIT_USAGE
+    md = render_markdown(doc)
+    if args.json_out is not None:
+        with open(args.json_out, "w", encoding="utf-8") as f:
+            json.dump(doc, f, indent=2, sort_keys=True)
+            f.write("\n")
+    if args.out is not None:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(md)
+        print(f"knn-tpu report: wrote {args.out}"
+              + (f" and {args.json_out}" if args.json_out else ""),
+              file=stdout)
+    else:
+        print(md, file=stdout)
+    return 0
 
 
 def _run_replay(args, stdout) -> int:

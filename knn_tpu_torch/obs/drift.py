@@ -343,6 +343,21 @@ class DriftMonitor:
     def shed(self) -> int:
         return self._sq.shed
 
+    def set_rate(self, rate: float) -> None:
+        """Move the live sampling rate (the control plane's brownout knob,
+        :mod:`knn_tpu_torch.control.brownout`). 0 is legal here: a paused
+        layer is a reversible operating point, unlike one built to sample
+        nothing."""
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"drift rate must be in [0, 1], got {rate}")
+        self.rate = float(rate)
+        self._sq.rate = float(rate)
+
+    def set_defer(self, defer) -> None:
+        """Install (or clear, with None) the brownout's headroom gate: while
+        it returns True, offers are counted shed instead of queued."""
+        self._sq.defer = defer
+
     # -- producer side (the batcher worker thread) -------------------------
 
     def offer(self, features: np.ndarray) -> bool:

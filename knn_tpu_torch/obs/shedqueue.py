@@ -19,8 +19,11 @@ Contract:
 - ``autostart=False`` holds the consumer off so tests can pin the
   shed/queue mechanics deterministically; :meth:`start` arms it later.
 
-JAX's copy also carries the control plane's brownout gate (``defer``);
-it comes with that plane (ROADMAP A12).
+- ``defer`` — an optional zero-arg gate the control plane's brownout
+  installs (:mod:`knn_tpu_torch.control.brownout`): while it returns
+  True an offer that wins its draw is counted shed and never queued, so
+  background scoring schedules into measured headroom. None (the
+  default, and always without the control plane) costs one predicate.
 
 Nothing here touches the card: the consumers are host work beside the
 serving worker, and launch no kernel.
@@ -64,6 +67,7 @@ class ShedQueue:
         self._closed = False
         self._in_flight = False
         self.shed = 0
+        self.defer: Optional[Callable[[], bool]] = None
         self._worker: Optional[threading.Thread] = None
         if autostart:
             self.start()
@@ -81,6 +85,14 @@ class ShedQueue:
         queued."""
         with self._lock:
             if self._closed or self._rng.random() >= self.rate:
+                return False
+            if self.defer is not None and self.defer():
+                # Headroom-negative deferral: the draw was consumed like an
+                # admitted one (the RNG stream stays JAX's), the sample is
+                # counted shed.
+                self.shed += 1
+                if self._on_shed is not None:
+                    self._on_shed()
                 return False
             if len(self._queue) >= self.queue_cap:
                 self.shed += 1

@@ -13,7 +13,9 @@ Callers branch on type, not text:
 - :class:`WorkerLostError` — a worker process or the cluster is gone.
 - :class:`DeadlineExceededError` — a wait ran out of time before the work
   finished (``AsyncResult.result(timeout=...)``).
-- :class:`OverloadError`   — a bounded queue refused new work.
+- :class:`OverloadError`   — a bounded queue refused new work;
+  :class:`ShedByPolicy`, its subclass, is the priority admission's
+  deliberate shed of a low-priority class.
 
 ``DataError`` subclasses ``ValueError`` and every class subclasses
 ``ResilienceError`` (itself an ``Exception``), so ``except ValueError``
@@ -96,6 +98,25 @@ class DeadlineExceededError(ResilienceError):
 class OverloadError(ResilienceError):
     """A bounded queue refused new work. Not transient for the internal
     retry loop: an immediate re-attempt meets the same full queue."""
+
+
+class ShedByPolicy(OverloadError):
+    """Admission DELIBERATELY refused this request because its priority
+    class is below the control plane's current admission cutoff
+    (:mod:`knn_tpu_torch.control.admission`) — overload pressure, not a
+    full queue. Distinct from the base :class:`OverloadError` so the
+    serving layer can label the outcome ``shed`` (not ``rejected``) and the
+    SLO availability SLI can exclude policy sheds of non-protected classes.
+    ``retry_after_s`` is the headroom-derived client backoff the 429's
+    ``Retry-After`` header carries; ``request_class`` names the shed
+    class."""
+
+    def __init__(self, message: str, *, request_class: str,
+                 retry_after_s: float,
+                 fault_point: "str | None" = None):
+        super().__init__(message, fault_point=fault_point)
+        self.request_class = request_class
+        self.retry_after_s = float(retry_after_s)
 
 
 # cudaErrorMemoryAllocation: what a C launch entry returns when the card's

@@ -118,6 +118,7 @@ from knn_tpu_torch.resilience.errors import (
     DeviceError,
     OverloadError,
     ResilienceError,
+    ShedByPolicy,
 )
 
 KINDS = ("predict", "kneighbors")
@@ -456,7 +457,13 @@ class MicroBatcher:
     ``mutable``        — an optional
                          :class:`~knn_tpu_torch.mutable.engine.MutableEngine`
                          (see the module docstring); None constructs
-                         nothing.
+                         nothing;
+    ``admission``      — an optional
+                         :class:`~knn_tpu_torch.control.admission.PriorityAdmission`:
+                         a request whose class is below its cutoff fails
+                         :class:`ShedByPolicy` before the queue bound is
+                         checked, and batches (and top-ups) fill highest
+                         priority first, FIFO within a class.
 
     The three layers are host work on threads of their own: a layer that
     is off costs one ``is None`` test per call site, and none of them
@@ -469,7 +476,7 @@ class MicroBatcher:
                  recorder: "Optional[reqtrace.FlightRecorder]" = None,
                  accounting=None, capacity=None, buckets=None,
                  result_cache_rows: int = 0, ivf=None, quality=None,
-                 drift=None, workload=None, mutable=None):
+                 drift=None, workload=None, mutable=None, admission=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_wait_ms < 0:
@@ -500,6 +507,10 @@ class MicroBatcher:
         self.drift = drift
         self.workload = workload
         self.mutable = mutable
+        # Priority admission (control/admission.py): None (no --priority)
+        # constructs nothing — no cutoff evaluation, no re-ordering, FIFO
+        # as before; one `is None` test per call site.
+        self.admission = admission
         # TEST-ONLY corruption hook: when set, served neighbor indices are
         # rotated by one train row — a silently-wrong index whose
         # responses still look healthy to every other SLI. The shadow
@@ -586,6 +597,14 @@ class MicroBatcher:
             if self.accounting is not None:
                 trace.annotate(request_class=request_class)
         try:
+            if self.admission is not None:
+                # Priority admission BEFORE the queue bound: a shed decides
+                # WHO queues, the row bound HOW MUCH; the typed
+                # ShedByPolicy is what tells the two apart downstream.
+                shed = self.admission.admit(request_class)
+                if shed is not None:
+                    instrument.record_serve_rejected("shed")
+                    raise shed
             with self._cond:
                 if self._closed:
                     instrument.record_serve_rejected("closed")
@@ -611,18 +630,21 @@ class MicroBatcher:
         except OverloadError as e:
             # A refused admission is still a terminal outcome: the class
             # label survives the 429 path, the arrival still counts
-            # (capacity tracks OFFERED load), and the trace resolves.
+            # (capacity tracks OFFERED load), and the trace resolves. A
+            # policy shed keeps its own outcome label end to end.
+            outcome = ("shed" if isinstance(e, ShedByPolicy)
+                       else "rejected")
             if self.accounting is not None:
-                self.accounting.note_outcome(request_class, "rejected")
+                self.accounting.note_outcome(request_class, outcome)
             if self.capacity is not None:
                 self.capacity.note_arrival(req.rows)
             if self.workload is not None:
                 # A refused admission is still workload: a capture without
                 # its 429s would replay as lighter load than was offered.
-                self.workload.note_request(req, "rejected")
+                self.workload.note_request(req, outcome)
             if trace is not None:
                 trace.annotate(error=f"{type(e).__name__}: {e}")
-                trace.finish("rejected")
+                trace.finish(outcome)
             raise
         instrument.record_serve_request(kind, req.rows)
         if self.capacity is not None:
@@ -838,6 +860,8 @@ class MicroBatcher:
                         if wait_s <= 0:
                             break
                         self._cond.wait(wait_s)
+                if self.admission is not None and len(self._queue) > 1:
+                    self._order_by_priority()
                 batch, rows = [], 0
                 while self._queue:
                     nxt = self._queue[0]
@@ -850,6 +874,17 @@ class MicroBatcher:
                     return batch
                 # The queue was cleared under the window (fail_pending on
                 # an expired drain): not a shutdown — wait again.
+
+    def _order_by_priority(self) -> None:
+        """Priority-aware pickup (with an admission policy only): the queue
+        sorted by (priority, arrival), so a forming batch fills highest
+        priority first and stays FIFO within a class. Runs AFTER the
+        coalescing window, whose deadline anchors to the oldest arrival
+        whatever its class. Caller holds ``self._cond``."""
+        priority_of = self.admission.priority_of
+        self._queue = deque(sorted(
+            self._queue,
+            key=lambda r: (priority_of(r.request_class), r.enqueued_ns)))
 
     def _run(self) -> None:
         while True:
@@ -1321,6 +1356,9 @@ class MicroBatcher:
         if rows >= boundary:
             return
         with self._cond:
+            if self.admission is not None and len(self._queue) > 1:
+                # Free top-up rows go to the highest-priority waiters.
+                self._order_by_priority()
             while self._queue and rows + self._queue[0].rows <= boundary:
                 nxt = self._queue.popleft()
                 self._queued_rows -= nxt.rows

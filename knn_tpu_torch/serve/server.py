@@ -53,12 +53,22 @@ Endpoint contract (the JAX package's, docs/SERVING.md):
   ``mutation_seq``, and ``/healthz`` and ``/debug/capacity`` the
   ``mutable`` block.
 
-The routes of the layers later slices bring answer as the JAX package
-answers them with the layer off: ``/debug/control``, ``/debug/history``
-and ``/debug/alerts`` are 200 with ``enabled`` false and null blocks; the
-replication routes (``/admin/wal-append``, ``/admin/promote``,
-``/admin/bootstrap``, ``/admin/wal-since``, ``/admin/snapshot``, ROADMAP
-A12) are 404 with the layer named.
+- ``GET /debug/control`` → the overload control plane (``control/``):
+  priority admission's shed tiers and audit (``--priority``), the brownout
+  ladder's level and audit (``--brownout``), the autotuner's cycles
+  (``--autotune-interval-s``) and the degradation order. A policy shed is
+  a 429 typed ``ShedByPolicy`` with a headroom-derived ``Retry-After``
+  that spends no availability budget.
+- ``GET /debug/history`` → the live metrics-history window
+  (``obs/history.py``, ``--history-dir``; ``?metric=``, ``&label=k=v``,
+  ``&window=5m``); ``GET /debug/alerts`` → every alert rule's state and
+  the audit tail (``obs/alerts.py``, ``--alert-rules``). All three are 200
+  with ``enabled`` false and null blocks while their layer is off.
+
+The replication routes (``/admin/wal-append``, ``/admin/promote``,
+``/admin/bootstrap``, ``/admin/wal-since``, ``/admin/snapshot``, the fleet
+layer still to port) are 404 with the layer named, as the JAX package
+answers them with the layer off.
 
 Every request carries a **request id** (a valid ``x-request-id``, else a
 generated one), echoed on every response (header + JSON body), resolvable
@@ -103,6 +113,7 @@ from knn_tpu_torch.resilience.errors import (
     DataError,
     DeadlineExceededError,
     OverloadError,
+    ShedByPolicy,
 )
 from knn_tpu_torch.serve import artifact
 from knn_tpu_torch.serve.batcher import MicroBatcher
@@ -164,6 +175,35 @@ class ReloadInProgress(OverloadError):
     HTTP 409."""
 
 
+def control_flag_error(*, cost_accounting: bool, priority: bool,
+                       autotune_interval_s: Optional[float],
+                       capture_dir, history_interval_s: float,
+                       history_retention_s: float) -> Optional[str]:
+    """The control plane's and the history's flag rules, in the CLI's
+    words: the first one broken, or None. The CLI checks them before the
+    index loads, ServeApp before any thread starts."""
+    for bad, msg in (
+        (priority and not cost_accounting,
+         "--priority sheds by request class, and classes are only "
+         "parsed with --cost-accounting on"),
+        (autotune_interval_s is not None and autotune_interval_s <= 0,
+         f"--autotune-interval-s must be > 0, got {autotune_interval_s}"),
+        (autotune_interval_s is not None
+         and (capture_dir is None or not cost_accounting),
+         "--autotune-interval-s tunes from captured arrivals against "
+         "the fitted dispatch model; it needs --capture-dir and "
+         "--cost-accounting on"),
+        (history_interval_s <= 0,
+         f"--history-interval-s must be > 0, got {history_interval_s}"),
+        (history_retention_s < history_interval_s,
+         f"--history-retention-s ({history_retention_s}) must be >= "
+         f"--history-interval-s ({history_interval_s})"),
+    ):
+        if bad:
+            return msg
+    return None
+
+
 class ServeApp:
     """Everything the handlers need, built once at boot.
 
@@ -203,7 +243,21 @@ class ServeApp:
     partitioned over that many logical shards on the model's card, answers
     bit-identical to the unsharded ladder, the ``shard`` block in
     ``/healthz`` and ``/debug/capacity``. None (the default) constructs no
-    shard machinery at all."""
+    shard machinery at all.
+
+    The control plane (``control/``): ``priority_map`` (``--priority``;
+    needs ``cost_accounting``) builds priority admission into the batcher;
+    ``brownout`` (``--brownout on``; needs a reversible knob: shadow or
+    drift sampling, the ivf rung, a deadline) builds the brownout ladder,
+    whose headroom gate also defers shadow/drift sampling and compaction;
+    ``autotune_interval_s`` (needs ``capture_dir`` and
+    ``cost_accounting``) re-tunes ``max_wait_ms`` from captured arrivals,
+    each candidate proven by a replay on the live batcher. ``history_dir``
+    / ``history_interval_s`` / ``history_retention_s`` write the durable
+    metrics history, and ``alert_rules`` (parsed rules) evaluates on its
+    cadence (memory-only without a directory). Each off constructs
+    nothing: no import of ``control`` or ``obs.history``/``obs.alerts``,
+    no thread."""
 
     def __init__(self, model, *, max_batch: int = 256,
                  max_wait_ms: float = 2.0, max_queue_rows: int = 4096,
@@ -232,9 +286,31 @@ class ServeApp:
                  compact_threshold: int = 1024,
                  compact_interval_s: float = 30.0,
                  mutable_current: Optional[dict] = None,
-                 mutable_base_dir=None, shards: Optional[int] = None):
+                 mutable_base_dir=None, shards: Optional[int] = None,
+                 priority_map: Optional[dict] = None,
+                 brownout: bool = False,
+                 autotune_interval_s: Optional[float] = None,
+                 history_dir: Optional[str] = None,
+                 history_interval_s: float = 5.0,
+                 history_retention_s: float = 3600.0,
+                 alert_rules=None):
         # Validated FIRST: a DataError here must abort before any worker
         # thread exists.
+        err = control_flag_error(
+            cost_accounting=cost_accounting, priority=bool(priority_map),
+            autotune_interval_s=autotune_interval_s, capture_dir=capture_dir,
+            history_interval_s=history_interval_s,
+            history_retention_s=history_retention_s)
+        if err is not None:
+            raise DataError(err)
+        if brownout and not (shadow_rate > 0 or drift_rate > 0
+                             or ivf_probes is not None
+                             or deadline_ms is not None):
+            raise DataError(
+                "--brownout needs at least one reversible knob on this "
+                "serve; enable --shadow-rate, --drift-rate, --ivf-probes, "
+                "or --deadline-ms"
+            )
         if ivf_probes is not None:
             from knn_tpu_torch.index.ivf import IVF_ATTR
 
@@ -353,6 +429,31 @@ class ServeApp:
                 raise
         else:
             self.mutable = None
+        if priority_map:
+            from knn_tpu_torch.control.admission import PriorityAdmission
+
+            self.admission = PriorityAdmission(
+                priority_map, slo=self.slo, capacity=self.capacity)
+        else:
+            self.admission = None
+        if alert_rules:
+            from knn_tpu_torch.obs.alerts import AlertEngine
+
+            try:
+                self.alerts = AlertEngine(
+                    alert_rules, slo=self.slo, workload=self.workload,
+                    recorder=self.recorder, history_dir=history_dir)
+            except BaseException:
+                # An action whose layer is off aborts the boot: no layer
+                # thread left behind.
+                self.close_layers()
+                if self.mutable is not None:
+                    self.mutable.close()
+                raise
+        else:
+            self.alerts = None
+        self.brownout = (self._build_brownout(shadow_rate, drift_rate)
+                         if brownout else None)
         self.batcher = MicroBatcher(
             model, max_batch=max_batch, max_wait_ms=max_wait_ms,
             max_queue_rows=max_queue_rows, index_version=index_version,
@@ -360,7 +461,7 @@ class ServeApp:
             capacity=self.capacity, buckets=batch_buckets,
             result_cache_rows=result_cache_rows, ivf=self.ivf,
             quality=self.quality, drift=self.drift, workload=self.workload,
-            mutable=self.mutable,
+            mutable=self.mutable, admission=self.admission,
         )
         if mutable:
             from knn_tpu_torch.mutable.compact import Compactor
@@ -369,9 +470,34 @@ class ServeApp:
                 self.mutable, swap=self._mutable_swap,
                 warm=self._warm_replacement, threshold=compact_threshold,
                 interval_s=compact_interval_s,
+                # Brownout's headroom gate: compaction waits for measured
+                # headroom (POST /admin/compact still overrides).
+                defer=(self.brownout.defer_background
+                       if self.brownout is not None else None),
             )
         else:
             self.compactor = None
+        if autotune_interval_s is not None:
+            from knn_tpu_torch.control.autotune import BatchAutotuner
+
+            self.autotune = BatchAutotuner(
+                self.batcher, self.capacity, self.workload,
+                interval_s=float(autotune_interval_s),
+                deadline_fn=lambda: self.deadline_ms)
+        else:
+            self.autotune = None
+        if history_dir is not None or alert_rules:
+            from knn_tpu_torch.obs.history import HistoryRecorder
+
+            self.history = HistoryRecorder(
+                history_dir, interval_s=history_interval_s,
+                retention_s=history_retention_s, source="serve",
+                sample_fn=self._history_sample,
+                on_sample=(self.alerts.evaluate
+                           if self.alerts is not None else None),
+            )
+        else:
+            self.history = None
         self.ready = False
         self.draining = False
         self.started_unix = time.time()
@@ -381,6 +507,58 @@ class ServeApp:
         self._reload_lock = threading.Lock()
         self._inflight = 0
         self._inflight_cond = threading.Condition()
+
+    def _build_brownout(self, shadow_rate: float, drift_rate: float):
+        """The brownout ladder over the knobs this serve has, in order:
+        shadow and drift sampling to a tenth, the ivf rung's nprobe to
+        base, the deadline halved; each step's revert restores the boot
+        value. Its headroom gate also defers shadow and drift sampling."""
+        from knn_tpu_torch.control.brownout import (
+            BrownoutController,
+            BrownoutStep,
+        )
+
+        steps = []
+        if self.quality is not None:
+            q, r = self.quality, float(shadow_rate)
+            steps.append(BrownoutStep(
+                "shadow_rate", lambda: q.set_rate(r * 0.1),
+                lambda: q.set_rate(r)))
+        if self.drift is not None:
+            dm, dr = self.drift, float(drift_rate)
+            steps.append(BrownoutStep(
+                "drift_rate", lambda: dm.set_rate(dr * 0.1),
+                lambda: dm.set_rate(dr)))
+        if self.ivf is not None:
+            pol = self.ivf.policy
+            steps.append(BrownoutStep(
+                "ivf_probes_to_base", lambda: pol.set_brownout(True),
+                lambda: pol.set_brownout(False)))
+        if self.deadline_ms is not None:
+            base = float(self.deadline_ms)
+            steps.append(BrownoutStep(
+                "deadline_tighten",
+                lambda: setattr(self, "deadline_ms", base * 0.5),
+                lambda: setattr(self, "deadline_ms", base)))
+        ctl = BrownoutController(steps, slo=self.slo, capacity=self.capacity)
+        for layer in (self.quality, self.drift):
+            if layer is not None:
+                layer.set_defer(ctl.defer_background)
+        return ctl
+
+    def _history_sample(self) -> list:
+        """One history snapshot: ``slo.export`` refreshes the
+        ``knn_slo_*`` gauges (so burn lands in history) and
+        ``workload.export`` finalizes a timed capture window whose traffic
+        ceased (an alert-armed window completes within one interval)."""
+        from knn_tpu_torch.obs import aggregate
+
+        self.slo.export()
+        if self.workload is not None:
+            self.workload.export()
+        if not obs.enabled():
+            return []
+        return aggregate.snapshot_registry()
 
     @property
     def primary_rung(self) -> str:
@@ -694,6 +872,18 @@ class ServeApp:
 
     def close(self) -> None:
         self.ready = False
+        if self.history is not None:
+            # FIRST, while every layer is live: close() takes one final
+            # snapshot, so the durable record extends to shutdown.
+            self.history.close()
+        if self.alerts is not None:
+            self.alerts.close()
+        if self.autotune is not None:
+            # Before the batcher: a cycle's capture or replay must not race
+            # the worker's teardown.
+            self.autotune.close()
+        if self.brownout is not None:
+            self.brownout.close()
         if self.compactor is not None:
             self.compactor.stop()
         self.batcher.close()
@@ -738,17 +928,39 @@ class ServeApp:
                          if self.workload is not None else None),
             "shard": self.shard_block(),
             "fleet": None,
-            "control": None,
-            "history": None,
-            "alerts": None,
+            "control": self.control_block(),
+            "history": (self.history.status()
+                        if self.history is not None else None),
+            "alerts": ({"firing": self.alerts.export()["firing"],
+                        "rules": len(self.alerts.rules)}
+                       if self.alerts is not None else None),
         }
         if self.recorder is not None:
             h["flight_recorder"] = self.recorder.stats()
         return h
 
+    def control_block(self) -> "Optional[dict]":
+        """The control plane's summary for ``/healthz`` and
+        ``/debug/control``: admission, brownout, autotune (each None while
+        off); None when no control layer exists."""
+        if (self.admission is None and self.brownout is None
+                and self.autotune is None):
+            return None
+        return {
+            "admission": (self.admission.export()
+                          if self.admission is not None else None),
+            "brownout": (self.brownout.export()
+                         if self.brownout is not None else None),
+            "autotune": (self.autotune.export()
+                         if self.autotune is not None else None),
+        }
+
     def overload_retry_after_s(self) -> float:
-        """The Retry-After for 429/503: a jittered 1-2 s, never 0, so a
+        """The Retry-After for 429/503: headroom-derived with jitter while
+        priority admission runs, else a jittered 1-2 s; never 0, so a
         herd's retries spread."""
+        if self.admission is not None:
+            return self.admission.retry_after_s()
         return 1.0 + random.random()
 
     def quality_block(self) -> dict:
@@ -879,24 +1091,11 @@ class _Handler(BaseHTTPRequestHandler):
                              "index_version": self.app.index_version},
                        tag_request_id=False)
         elif route == "/debug/control":
-            from knn_tpu_torch.resilience.degrade import DEGRADATION_ORDER
-
-            self._send(200, {
-                "enabled": {"admission": False, "brownout": False,
-                            "autotune": False},
-                "admission": None, "brownout": None, "autotune": None,
-                "degradation_order": list(DEGRADATION_ORDER),
-                "index_version": self.app.index_version,
-            }, tag_request_id=False)
+            self._do_control()
         elif route == "/debug/history":
-            self._send(200, {"enabled": False, "series": [],
-                             "index_version": self.app.index_version},
-                       tag_request_id=False)
+            self._do_history()
         elif route == "/debug/alerts":
-            self._send(200, {"enabled": False, "rules": [], "firing": [],
-                             "recent": [],
-                             "index_version": self.app.index_version},
-                       tag_request_id=False)
+            self._do_alerts()
         elif route == "/debug/profile":
             self._do_profile()
         elif route in _OFF_GET:
@@ -932,6 +1131,74 @@ class _Handler(BaseHTTPRequestHandler):
                 200, obs.registry().to_prometheus(),
                 "text/plain; version=0.0.4",
             )
+
+    def _do_control(self):
+        """The control plane's status page: admission shed tiers and
+        audit, brownout level and audit, autotune cycles, and the
+        degradation order. Always 200: a layer that is off reports null."""
+        from knn_tpu_torch.resilience.degrade import DEGRADATION_ORDER
+
+        app = self.app
+        block = app.control_block() or {
+            "admission": None, "brownout": None, "autotune": None}
+        self._send(200, {
+            "enabled": {"admission": app.admission is not None,
+                        "brownout": app.brownout is not None,
+                        "autotune": app.autotune is not None},
+            **block,
+            "degradation_order": list(DEGRADATION_ORDER),
+            "index_version": app.index_version,
+        }, tag_request_id=False)
+
+    def _do_history(self):
+        """The live metrics-history window: ``?metric=NAME``,
+        ``&label=k=v`` (repeatable, subset match), ``&window=5m`` (trailing
+        from the newest snapshot). Always 200 while the layer is off
+        (``enabled: false``); a bad label or window is a 400."""
+        app = self.app
+        if app.history is None:
+            self._send(200, {"enabled": False, "series": [],
+                             "index_version": app.index_version},
+                       tag_request_id=False)
+            return
+        from knn_tpu_torch.obs.history import parse_window
+
+        q = parse_qs(urlparse(self.path).query)
+        labels = {}
+        for item in q.get("label", []):
+            k, sep, v = item.partition("=")
+            if not sep or not k:
+                self._send(400, {"error": f"bad label={item!r}: want k=v"})
+                return
+            labels[k] = v
+        window_s = None
+        if q.get("window", [None])[0] is not None:
+            try:
+                window_s = parse_window(q["window"][0])
+            except ValueError as exc:
+                self._send(400, {"error": str(exc)})
+                return
+        self._send(200, {
+            "enabled": True, "status": app.history.status(),
+            **app.history.query(metric=q.get("metric", [None])[0],
+                                labels=labels, window_s=window_s),
+            "index_version": app.index_version,
+        }, tag_request_id=False)
+
+    def _do_alerts(self):
+        """The alert engine's status page: every rule's state, the firing
+        set and the audit tail. Always 200 (``enabled: false`` without
+        ``--alert-rules``)."""
+        app = self.app
+        if app.alerts is None:
+            self._send(200, {"enabled": False, "rules": [], "firing": [],
+                             "recent": [],
+                             "index_version": app.index_version},
+                       tag_request_id=False)
+            return
+        self._send(200, {"enabled": True, **app.alerts.export(),
+                         "index_version": app.index_version},
+                   tag_request_id=False)
 
     def _do_quality(self):
         """The answer-quality join: shadow recall/accuracy and per-rung
@@ -1282,7 +1549,13 @@ class _Handler(BaseHTTPRequestHandler):
         HTTP status (+ finish, for requests the batcher never admitted),
         and the access-log line."""
         ms = (time.monotonic() - t0) * 1e3
-        if status != 400:
+        if outcome == "shed":
+            # A policy shed of a non-protected class spends no objective's
+            # budget: counted in the SLO export's policy_sheds, excluded
+            # from every denominator. Protected classes are never shed by
+            # policy, so their overload 429s arrive "rejected" and burn.
+            self.app.slo.record_shed()
+        elif status != 400:
             self.app.slo.record(status == 200, ms,
                                 degraded=(rung != self.app.primary_rung))
         if trace is not None:
@@ -1378,11 +1651,16 @@ class _Handler(BaseHTTPRequestHandler):
                                              trace=trace,
                                              request_class=req_class)
         except OverloadError as e:
+            # A ShedByPolicy carries its own headroom-derived Retry-After
+            # and the outcome "shed" (_account keeps it out of the
+            # availability SLI).
             st = 503 if self.app.draining else 429
+            shed = isinstance(e, ShedByPolicy)
             self._send(st, {"error": str(e)},
-                       retry_after=self.app.overload_retry_after_s())
-            self._account(kind, st, "rejected", t0, trace=trace, rows=rows,
-                          req_class=req_class)
+                       retry_after=(e.retry_after_s if shed else
+                                    self.app.overload_retry_after_s()))
+            self._account(kind, st, "shed" if shed else "rejected", t0,
+                          trace=trace, rows=rows, req_class=req_class)
             return
         except ValueError as e:  # shape/kind rejection
             self._send(400, {"error": str(e)})
