@@ -229,7 +229,27 @@ Phases, each printed as it runs; any failure exits non-zero:
                         batch, then ``history --json`` (its sample count
                         and widest gap) and ``report`` over the
                         directories.
-23. ``kernels``       — one JSON line describing every kernel.
+23. ``fleet``         — the fleet layer (after ``control``), on the xl index
+                        served ``--mutable on``: A, in this process, a
+                        primary and a follower behind a ``RouterApp``,
+                        single-row reads at c = 8 through the router while
+                        a writer inserts and deletes: every acked write at
+                        the follower's seq by its 200, every read equal to
+                        the merged oracle at its ``mutation_seq``, batches
+                        = scan launches = merge launches; the insert's
+                        latency with ``--replicate-ack any`` against
+                        ``none``. B, as subprocesses: a primary, two
+                        followers and ``route`` with auto-failover, the
+                        router absent from the card's compute apps, its
+                        added read latency at c = 1 and 8, then under
+                        reads and a writer a follower SIGKILLed, the
+                        primary SIGKILLed (typed 503s until the promote,
+                        no acked write lost), the ex-primary rejoined and
+                        a wiped follower rebooted from the snapshot, no
+                        read failing; federated /metrics, a stitched
+                        request, lag 0, the audit events. One ``fleet:
+                        {...}`` JSON line.
+24. ``kernels``       — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -277,6 +297,12 @@ BF16_BIGK_TIMED = (32, 256)
 
 
 def phase(name: str) -> None:
+    """Announce a phase, after the wall of the one before it."""
+    now = time.perf_counter()
+    last = getattr(phase, "last", None)
+    if last is not None:
+        print(f"-- {last[0]}: {now - last[1]:.1f} s", flush=True)
+    phase.last = (name, now)
     print(f"== {name}", flush=True)
 
 
@@ -4639,7 +4665,11 @@ def phase_control(torch, cuda_knn, tile_knn, q_all, smi) -> dict:
     applied = [e for e in brown["audit"] if e["action"] == "apply"]
     reverted = [e for e in brown["audit"] if e["action"] == "revert"]
     print(f"control brownout audit: {json.dumps(brown['audit'])}")
+    share_sheds = obs.registry().counter(
+        "knn_serve_rejected_total", reason="queue_share").value
+    res["queue_share_sheds"] = share_sheds
     print(f"control admission: moves {control['admission']['moves']}, "
+          f"sheds at a tier's share of the queue bound {share_sheds}, "
           f"audit {json.dumps(control['admission']['audit'])}")
     outcomes = [(e["outcome"], {k: e.get(k) for k in (
         "reason", "current_max_wait_ms", "candidate_max_wait_ms",
@@ -4779,6 +4809,885 @@ def phase_control(torch, cuda_knn, tile_knn, q_all, smi) -> dict:
     res["wall_s"] = time.perf_counter() - t_phase
     print(f"control phase wall {res['wall_s']:.1f} s")
     return res
+
+
+FLEET_CLIENTS = 8          # A's readers, and the router-latency level c = 8
+FLEET_A_READS = 800        # A's reads (single-row, kneighbors and predict)
+FLEET_A_POOL = 64          # A's distinct query rows
+FLEET_ACK_BLOCK = 100      # sequential inserts per ack-mode block in A
+FLEET_A_WRITE_GAP_S = 0.1  # A's 24 writes spread over its reads
+FLEET_LAT_REQUESTS = {1: 200, 8: 800}
+FLEET_WRITE_GAP_S = 0.05   # B's writer: one single-row insert per gap
+FLEET_READERS = 4          # B's closed-loop readers
+# Serve flags of every fleet replica: no compaction during the phase (the
+# WAL oracle and the positional ids then span the whole phase).
+FLEET_SERVE = ["--mutable", "on", "--max-batch", "256", "--max-wait-ms",
+               "2", "--delta-cap", "65536", "--compact-threshold",
+               "1000000", "--compact-interval-s", "0"]
+
+# The fleet phase's client, its own process (its own interpreter lock):
+# argv[1] is a JSON spec. mode "reads": `total` single-row requests at
+# `clients`, kneighbors and predict in turns, query rows cycling through the
+# pool; mode "mixed": `clients` closed-loop readers and one writer of
+# single-row inserts (one each `gap_s`) until the file `stop` exists; mode
+# "inserts": `total` sequential single-row inserts. Every request carries
+# an x-request-id; every outcome is recorded with its time from the start.
+# Writes in mode "mixed" record the typed 503 window (first 503 to the first
+# 200 after it). Prints one JSON object.
+_FLEET_CLIENT = r"""
+import http.client, json, os, sys, threading, time
+from urllib.parse import urlparse
+import numpy as np
+spec = json.loads(sys.argv[1])
+u = urlparse(spec["base"])
+pool = np.load(spec["queries"])
+ins = np.load(spec["inserts"]) if spec.get("inserts") else None
+lock = threading.Lock()
+reads, writes, failures = [], [], []
+t0 = time.perf_counter()
+def conn():
+    return http.client.HTTPConnection(u.hostname, u.port, timeout=60)
+def call(c, path, body, rid):
+    t = time.perf_counter()
+    try:
+        c.request("POST", path, body=json.dumps(body), headers={
+            "Content-Type": "application/json", "x-request-id": rid})
+        r = c.getresponse()
+        data = r.read()
+        status = r.status
+    except Exception as e:
+        return None, {"error": f"{type(e).__name__}: {e}"}, t, \
+            time.perf_counter()
+    try:
+        doc = json.loads(data)
+    except ValueError:
+        doc = {"untyped": data[:200].decode("utf-8", "replace")}
+    return status, doc, t, time.perf_counter()
+def reader(t, stop):
+    c = conn()
+    n = 0
+    while True:
+        j = t + n * spec["clients"]
+        if spec["mode"] == "reads" and j >= spec["total"]:
+            break
+        if stop is not None and os.path.exists(stop):
+            break
+        row = j % len(pool)
+        kind = "kneighbors" if j % 2 == 0 else "predict"
+        rid = f"{spec['tag']}-r{j}"
+        st, doc, ta, tb = call(c, "/" + kind,
+                               {"instances": [pool[row].tolist()]}, rid)
+        if st is None:
+            c.close()
+            c = conn()
+        rec = {"j": j, "row": row, "kind": kind, "status": st, "rid": rid,
+               "t": ta - t0, "ms": (tb - ta) * 1e3}
+        if st == 200:
+            rec["seq"] = doc.get("mutation_seq")
+            for key in ("indices", "distances", "predictions"):
+                if key in doc:
+                    rec[key] = doc[key]
+        else:
+            rec["error"] = doc
+        with lock:
+            (reads if st == 200 else failures).append(rec)
+        n += 1
+    c.close()
+def writer(stop, total):
+    c = conn()
+    n = 0
+    while (total is None or n < total) and not (stop and os.path.exists(stop)):
+        row = ins[n % len(ins)].tolist()
+        label = n % spec["classes"]
+        rid = f"{spec['tag']}-w{n}"
+        st, doc, ta, tb = call(c, "/insert",
+                               {"rows": [row], "labels": [label]}, rid)
+        if st is None:
+            c.close()
+            c = conn()
+        rec = {"n": n, "status": st, "rid": rid, "t": ta - t0,
+               "t_end": tb - t0, "ms": (tb - ta) * 1e3, "rows": [row]}
+        if st == 200:
+            rec["seq"] = doc["seq"]
+        else:
+            rec["error"] = doc
+        with lock:
+            writes.append(rec)
+        n += 1
+        if spec.get("gap_s"):
+            time.sleep(spec["gap_s"])
+    c.close()
+threads = []
+if spec["mode"] == "inserts":
+    writer(None, spec["total"])
+else:
+    stop = spec["stop"] if spec["mode"] == "mixed" else None
+    threads = [threading.Thread(target=reader, args=(t, stop))
+               for t in range(spec["clients"])]
+    if spec["mode"] == "mixed":
+        threads.append(threading.Thread(target=writer, args=(stop, None)))
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+print(json.dumps({"reads": reads, "writes": writes, "failures": failures,
+                  "wall": time.perf_counter() - t0}))
+"""
+
+
+class _FleetLoad:
+    """One run of ``_FLEET_CLIENT`` in its own process; ``finish()`` stops
+    a ``mixed`` run and returns its record."""
+
+    def __init__(self, work: Path, tag: str, base: str, spec: dict):
+        self.stop = work / f"{tag}.stop"
+        self.stop.unlink(missing_ok=True)
+        spec = {"tag": tag, "base": base, "stop": str(self.stop), **spec}
+        self.out = work / f"{tag}.client.json"
+        self._fh = open(self.out, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _FLEET_CLIENT, json.dumps(spec)],
+            stdout=self._fh, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+
+    def finish(self, timeout_s: float = 300.0) -> dict:
+        self.stop.touch()
+        try:
+            _, err = self.proc.communicate(timeout=timeout_s)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+            self._fh.close()
+        if self.proc.returncode != 0:
+            raise SystemExit(f"fleet: the client exited "
+                             f"{self.proc.returncode}: {err[-2000:]}")
+        return json.loads(self.out.read_text())
+
+
+class _Procs:
+    """The fleet's serve, route and client processes, each in its own
+    process group (a failed run leaves none alive: ``close`` SIGKILLs every
+    group)."""
+
+    def __init__(self, work: Path, env: dict):
+        self.work, self.env = work, env
+        self.live: "dict[str, subprocess.Popen]" = {}
+        self.logs: "dict[str, Path]" = {}
+        self.loads: "list[_FleetLoad]" = []
+        self.n = 0
+
+    def spawn(self, name: str, argv: list) -> float:
+        """Start ``python -m knn_tpu_torch ARGV`` and wait for its ``ready
+        on`` banner; returns the seconds to it."""
+        self.n += 1
+        out = self.work / f"{name}.{self.n}.out"
+        err = self.work / f"{name}.{self.n}.err"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "knn_tpu_torch", *argv], cwd=REPO,
+            env=self.env, stdout=open(out, "w"), stderr=open(err, "w"),
+            start_new_session=True)
+        self.live[name], self.logs[name] = proc, err
+        deadline = t0 + 240
+        while time.perf_counter() < deadline:
+            if "ready on " in out.read_text():
+                return time.perf_counter() - t0
+            if proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise SystemExit(f"fleet: {name} never printed its ready banner "
+                         f"(exit {proc.poll()}): "
+                         f"{err.read_text()[-2000:]}")
+
+    def stderr(self, name: str) -> str:
+        return self.logs[name].read_text()
+
+    def kill(self, name: str) -> None:
+        """SIGKILL the process group: no drain, the listener gone."""
+        import signal
+
+        proc = self.live.pop(name)
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait(timeout=30)
+
+    def close(self) -> None:
+        import signal
+
+        for load in self.loads:
+            if load.proc.poll() is None:
+                os.killpg(load.proc.pid, signal.SIGKILL)
+                load.proc.wait(timeout=30)
+        for name in list(self.live):
+            self.kill(name)
+
+
+def _free_ports(n: int) -> "list[int]":
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _json_get(base: str, path: str, timeout: float = 10.0):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(base + path, timeout=timeout) as r:
+            body = r.read()
+            status = r.status
+    except urllib.error.HTTPError as e:
+        body, status = e.read(), e.code
+    try:
+        return status, json.loads(body)
+    except ValueError:
+        return status, body.decode("utf-8", "replace")
+
+
+def _wait_for(pred, timeout_s: float, what: str, every_s: float = 0.1):
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        try:
+            got = pred()
+        except OSError:
+            got = None
+        if got:
+            return got
+        time.sleep(every_s)
+    raise SystemExit(f"fleet: {what} within {timeout_s:.0f} s")
+
+
+def _pcts(lat) -> dict:
+    lat = sorted(lat)
+    if not lat:
+        return {"n": 0}
+    return {"n": len(lat), "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))]}
+
+
+def _wal(base: str) -> "dict[int, dict]":
+    """A replica's whole write-ahead log by seq, through ``/admin/wal-since``
+    (digest-stamped records, as a shipper reads them)."""
+    out, seq = {}, 0
+    while True:
+        st, doc = _json_get(base, f"/admin/wal-since?seq={seq}&limit=512")
+        if st != 200:
+            raise SystemExit(f"fleet: {base}/admin/wal-since: {st} {doc}")
+        for rec in doc["records"]:
+            out[int(rec["seq"])] = rec
+        if not doc["records"]:
+            return out
+        seq = max(out)
+
+
+def phase_fleet(torch, cuda_knn, tile_knn, idx_xl: Path, q_all, smi,
+                device: str = "cuda") -> dict:
+    """The fleet layer on the card (ROADMAP A12b), after ``control``: the
+    xl index (k = 10) served ``--mutable on`` by a replica set.
+
+    A, in this process (the kernels' accounting): a primary and a follower
+    (``ServeApp`` on the card) behind a ``RouterApp``; single-row
+    /kneighbors and /predict at c = 8 through the router (clients in
+    another process) while a writer inserts and deletes through it; every
+    acked write is at the follower's seq by its 200, every read equals the
+    merged oracle at its ``mutation_seq``, and batches = scan launches =
+    merge launches (the tile scan and an extra merge only for a widening);
+    then sequential inserts through the router, the ack mode ``any``
+    against ``none`` in turns.
+
+    B, as subprocesses (``python -m knn_tpu_torch serve|route``): a
+    primary (``--replicate-to F1,F2 --replicate-ack any``), two followers
+    and a router with auto-failover; the replicas in the card's compute
+    apps and the router not; the router's added read latency at c = 1 and
+    8; then, under closed-loop reads and a writer, in the order of the JAX
+    fleet soak's phases 1, 2, 3 and 5: a follower SIGKILLed; the primary
+    SIGKILLed (typed 503s until auto-failover, every acked write in the
+    new primary's WAL); the ex-primary rebooted as a follower (its
+    unacknowledged tail truncated, caught up); a follower's directory
+    wiped and rebooted (the snapshot installed, drained to lag 0). No read
+    may fail in any leg. Then the router's federated /metrics, a stitched
+    /debug/requests?id=, lag 0 and the audit events."""
+    import shutil
+    import threading
+
+    from knn_tpu_torch import obs
+    from knn_tpu_torch.fleet.router import RouterApp, make_router_server
+    from knn_tpu_torch.models.knn import DEFAULT_BATCH_BUCKETS
+    from knn_tpu_torch.mutable.state import (
+        merge_candidates,
+        merged_oracle_kneighbors,
+        predict_from_view,
+    )
+    from knn_tpu_torch.backends.oracle import oracle_kneighbors
+    from knn_tpu_torch.serve import artifact
+    from knn_tpu_torch.serve.server import ServeApp
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    work = REPO / "build" / "chip_smoke" / "fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    scan, merge = cuda_knn.knn_stripe_scan, cuda_knn.knn_stripe_merge
+    tile_scan = tile_knn.knn_tile_scan
+    buckets = tuple(sorted({b for b in DEFAULT_BATCH_BUCKETS if b < 256}
+                           | {256}))
+    res = {"smi": smi}
+
+    def fail(msg):
+        raise SystemExit(f"fleet: {msg}")
+
+    def copy(name):
+        dst = work / name
+        shutil.copytree(idx_xl, dst)
+        return dst
+
+    def launches():
+        return {"stripe_scan": scan.launches, "stripe_merge": merge.launches,
+                "tile_scan": sum(tile_scan.launches.values())}
+
+    pool_rows = np.ascontiguousarray(q_all[:FLEET_A_POOL])
+    pool_path = work / "pool.npy"
+    np.save(pool_path, pool_rows)
+    ins_path = work / "inserts.npy"
+    np.save(ins_path, np.ascontiguousarray(q_all[FLEET_A_POOL:
+                                                 FLEET_A_POOL + 4096]))
+
+    # -- A: in-process primary, follower and router --------------------------
+    obs.enable()
+    obs.reset()
+
+    def boot(root, **kw):
+        base_dir, cur = artifact.resolve_mutable_base(root)
+        app = ServeApp(
+            artifact.load_index(base_dir, device=device), max_batch=256,
+            max_wait_ms=2.0, batch_buckets=buckets, index_path=str(root),
+            index_version=artifact.index_version(
+                artifact.read_manifest(base_dir)),
+            mutable=True, delta_cap=65536, compact_threshold=1_000_000,
+            compact_interval_s=0.0, mutable_current=cur,
+            mutable_base_dir=base_dir, **kw)
+        app.warm()
+        return (app, *_start_server(app))
+
+    f_app, f_srv, f_th, f_url = boot(copy("a-f"),
+                                     follower_of="http://127.0.0.1:9")
+    p_app, p_srv, p_th, p_url = boot(copy("a-p"), replicate_to=[f_url],
+                                     replicate_ack_timeout_s=10.0)
+    router = RouterApp([p_url, f_url], health_interval_s=0.3)
+    r_srv = make_router_server(router)
+    r_th = threading.Thread(target=r_srv.serve_forever,
+                            kwargs={"poll_interval": 0.05}, daemon=True)
+    r_th.start()
+    r_url = "http://%s:%d" % r_srv.server_address[:2]
+    model = p_app.model
+    train = model.train_
+    n, d = train.features.shape
+    k = model.k
+    ncls = train.num_classes
+    res["shape"] = f"n={n} d={d} k={k}"
+    views = {0: p_app.mutable.snapshot()}
+    acks, ack_errors = [], []
+    client = _Client(r_url)
+    scan.launches = merge.launches = 0
+    for form in tile_scan.launches:
+        tile_scan.launches[form] = 0
+    b0 = _hist(obs.registry(), "knn_serve_batch_size")[0]
+    n_spans = len(obs.tracer().spans())
+    load = _FleetLoad(work, "a", r_url, {
+        "mode": "reads", "clients": FLEET_CLIENTS, "total": FLEET_A_READS,
+        "queries": str(pool_path), "classes": ncls})
+
+    def write(path, payload):
+        st, _, body = client.call("POST", path, payload)
+        doc = json.loads(body)
+        if st != 200:
+            ack_errors.append((path, st, doc))
+            return None
+        seq = doc["seq"]
+        views[seq] = p_app.mutable.snapshot()  # the one writer: seq's view
+        if f_app.mutable.seq < seq:
+            ack_errors.append((path, "follower behind its ack",
+                               f_app.mutable.seq, seq))
+        acks.append(seq)
+        return doc
+
+    # The writes: 16 single-row inserts, one delete of 8 base rows (far
+    # from every pool query: k + 8 > 16 sends any widening to the tile
+    # scan) and deletes of inserted rows, spaced through the reads once
+    # the first of them is served.
+    base_far = np.argsort(((train.features[:4096, None, :]
+                            - pool_rows[None, :, :]) ** 2).sum(-1).min(1)
+                          )[-8:].tolist()
+    _wait_for(lambda: _hist(obs.registry(), "knn_serve_batch_size")[0] > b0,
+              60, "A: the readers' first batch never came")
+    inserted = []
+    for j in range(24):
+        if j < 16:
+            doc = write("/insert", {"rows": [q_all[FLEET_A_POOL + j].tolist()],
+                                    "labels": [j % ncls]})
+            if doc is not None:
+                inserted.extend(doc["ids"])
+        elif j == 16:
+            write("/delete", {"ids": base_far})
+        else:
+            write("/delete", {"ids": [inserted[j - 17]]})
+        time.sleep(FLEET_A_WRITE_GAP_S)
+    got = load.finish()
+    client.close()
+    if ack_errors:
+        fail(f"A: writes {ack_errors[:3]}")
+    if got["failures"]:
+        fail(f"A: {len(got['failures'])} failed reads "
+             f"({got['failures'][:2]})")
+    batches = _hist(obs.registry(), "knn_serve_batch_size")[0] - b0
+    widens = sum(1 for s in obs.tracer().spans()[n_spans:]
+                 if s.name == "mutable.widen")
+    la = launches()
+    if on_card and (batches < 1 or la["stripe_scan"] != batches
+                    or la["stripe_merge"] != batches + la["tile_scan"]
+                    or (la["tile_scan"] and not widens)):
+        fail(f"A: {batches} batches, {widens} widened, launches {la}")
+    # Every read against the merged oracle at its mutation_seq: the base
+    # oracle once per pool row, then each view's fold (merged_oracle_
+    # kneighbors, with its base retrieval cached), checked once against the
+    # uncached function.
+    t0 = time.perf_counter()
+    base_d, base_i = oracle_kneighbors(train.features, pool_rows, k,
+                                       model.metric)
+    oracle = {}
+
+    def oracle_at(seq):
+        if seq not in oracle:
+            v = views[seq]
+            od, oi = merge_candidates(
+                v, pool_rows, base_d, base_i, k, model.metric,
+                lambda feats, kw: oracle_kneighbors(
+                    train.features, feats, kw, model.metric))
+            oracle[seq] = (od, oi, predict_from_view(model, v, od, oi))
+        return oracle[seq]
+
+    last = max(views)
+    cd, ci = merged_oracle_kneighbors(model, views[last], pool_rows[:8])
+    if not (np.array_equal(ci, oracle_at(last)[1][:8])
+            and np.array_equal(cd, oracle_at(last)[0][:8])):
+        fail("A: the cached oracle differs from merged_oracle_kneighbors")
+    seqs, near, checked = set(), 0, 0
+    for rec in got["reads"]:
+        seq, row = rec["seq"], rec["row"]
+        if seq not in views:
+            fail(f"A: read {rec['rid']} at mutation_seq {seq}, not an "
+                 f"acked write's")
+        seqs.add(seq)
+        od, oi, op = oracle_at(seq)
+        v = views[seq]
+        q = pool_rows[row:row + 1]
+        if rec["kind"] == "kneighbors":
+            ki = np.asarray(rec["indices"], np.int64)
+            kd = np.asarray(rec["distances"], np.float32)
+            if not np.array_equal(ki, oi[row:row + 1]):
+                if not _view_near_tie_ok(train.features, v, q, ki,
+                                         oi[row:row + 1], d):
+                    fail(f"A: read {rec['rid']} indices differ from the "
+                         f"merged oracle at seq {seq} beyond a near tie")
+                near += 1
+            if not np.allclose(kd, od[row:row + 1], rtol=d * 2.0 ** -24,
+                               atol=0):
+                fail(f"A: read {rec['rid']} distances beyond the ulp rule")
+        elif rec["predictions"] != np.asarray(op[row:row + 1]).tolist():
+            # Only a near tie at the k-th neighbour may move a vote: the
+            # (k+1)-th of the oracle within the ulp rule of the k-th.
+            bd, bi = oracle_kneighbors(train.features, q, k + 1,
+                                       model.metric)
+            wd, _ = merge_candidates(
+                v, q, bd, bi, k + 1, model.metric,
+                lambda feats, kw: oracle_kneighbors(
+                    train.features, feats, kw, model.metric))
+            if not np.isclose(wd[0, k - 1], wd[0, k], rtol=d * 2.0 ** -24,
+                              atol=0):
+                fail(f"A: read {rec['rid']} prediction "
+                     f"{rec['predictions']} != the merged oracle's "
+                     f"{op[row]} at seq {seq}, no near tie at the k-th")
+            near += 1
+        checked += 1
+    res["A"] = {
+        "reads": checked, "read_seqs": len(seqs), "acked_writes": len(acks),
+        "near_tie_rows": near, "batches": batches, "widened": widens,
+        "launches": la, "oracle_s": time.perf_counter() - t0,
+        "read_lat_c8": _pcts([r["ms"] for r in got["reads"]]),
+    }
+    print(f"fleet A: {checked} reads at {len(seqs)} sequence points equal "
+          f"to the merged oracle ({near} near ties), {len(acks)} acked "
+          f"writes each at the follower's seq by its 200; {batches} "
+          f"batches, launches {la}, {widens} widened")
+    # The semi-synchronous ack's price: sequential single-row inserts
+    # through the router, ack any against none in turns.
+    ack = {"any": [], "none": []}
+    for mode in ("any", "none", "any", "none"):
+        p_app.fleet.ack_mode = mode
+        out = _FleetLoad(work, f"ack-{mode}-{len(ack[mode])}", r_url, {
+            "mode": "inserts", "total": FLEET_ACK_BLOCK,
+            "queries": str(pool_path), "inserts": str(ins_path),
+            "classes": ncls}).finish()
+        bad = [w for w in out["writes"] if w["status"] != 200]
+        if bad:
+            fail(f"A: ack={mode} inserts failed: {bad[:2]}")
+        ack[mode].extend(w["ms"] for w in out["writes"])
+    p_app.fleet.ack_mode = "any"
+    res["insert_ack_any_vs_none"] = {m: _pcts(v) for m, v in ack.items()}
+    print(f"fleet A inserts through the router: "
+          f"{json.dumps(res['insert_ack_any_vs_none'])}")
+    r_srv.shutdown()
+    r_srv.server_close()
+    router.close()
+    _stop_server(p_srv, p_th, p_app)
+    _stop_server(f_srv, f_th, f_app)
+    obs.disable()
+
+    # -- B: the CLI legs, as subprocesses -------------------------------------
+    env = dict(os.environ, KNN_TPU_SHIP_RETRY_S="1.0",
+               KNN_TPU_BOOTSTRAP_COOLDOWN_S="2.0")
+    procs = _Procs(work, env)
+    try:
+        _fleet_legs(res, procs, work, idx_xl, pool_path, ins_path, ncls,
+                    device, on_card, fail)
+    finally:
+        procs.close()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet phase: {res['phase_s']:.1f} s")
+    return res
+
+
+def _fleet_legs(res, procs, work, idx_xl, pool_path, ins_path, ncls,
+                device, on_card, fail):
+    """Part B of :func:`phase_fleet` (``procs`` holds every process it
+    starts)."""
+    import concurrent.futures as cf
+    import shutil
+
+    pp, pf1, pf2, pr = _free_ports(4)
+    url = {name: f"http://127.0.0.1:{port}"
+           for name, port in (("P", pp), ("F1", pf1), ("F2", pf2))}
+    dirs = {name: work / f"b-{name}" for name in url}
+    for path in dirs.values():
+        shutil.copytree(idx_xl, path)
+    common = [*FLEET_SERVE, "--device", device]
+
+    def serve(name, *extra):
+        return procs.spawn(name, ["serve", str(dirs[name]), "--port",
+                                  url[name].rsplit(":", 1)[1], *common,
+                                  *extra])
+
+    def health(base):
+        st, doc = _json_get(base, "/healthz")
+        return doc if isinstance(doc, dict) else {}
+
+    def seq_of(name):
+        return health(url[name]).get("mutable", {}).get("seq", -1)
+
+    with cf.ThreadPoolExecutor(3) as ex:
+        futs = {
+            "F1": ex.submit(serve, "F1", "--follower-of", url["P"]),
+            "F2": ex.submit(serve, "F2", "--follower-of", url["P"]),
+            "P": ex.submit(serve, "P", "--replicate-to",
+                           f"{url['F1']},{url['F2']}", "--replicate-ack",
+                           "any", "--replicate-ack-timeout-s", "10"),
+        }
+        boot = {name: f.result() for name, f in futs.items()}
+    router = f"http://127.0.0.1:{pr}"
+    boot["router"] = procs.spawn("router", [
+        "route", url["P"], url["F1"], url["F2"], "--port", str(pr),
+        "--health-interval-s", "0.3", "--hedge-ms", "auto",
+        "--auto-failover", "on", "--event-log", str(work / "events.jsonl"),
+        "--history-dir", str(work / "router-history"),
+        "--history-interval-s", "1"])
+    print(f"fleet B boot to ready (s, the three replicas at once): "
+          f"{json.dumps(boot)}")
+    _wait_for(lambda: health(router).get("usable") == 3, 30,
+              "the router never saw 3 usable replicas")
+    for name in url:
+        card = health(url[name]).get("device", {}).get("card")
+        if on_card and not card:
+            fail(f"{name}'s /healthz names no card")
+    # The card's compute apps: each replica, never the router (it loads no
+    # kernel library and never creates a CUDA context).
+    pids = {name: procs.live[name].pid for name in ("P", "F1", "F2",
+                                                    "router")}
+    maps = {}
+    for name, pid in pids.items():
+        try:
+            maps[name] = "libcuda.so" in Path(f"/proc/{pid}/maps").read_text()
+        except OSError:
+            maps[name] = None
+    smi_pids = []
+    if on_card:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        smi_pids = [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+        replicas = [pids[n] for n in ("P", "F1", "F2")]
+        if any(p in smi_pids for p in replicas):
+            if not all(p in smi_pids for p in replicas):
+                fail(f"nvidia-smi lists {smi_pids}, not every replica "
+                     f"{replicas}")
+            how = "nvidia-smi"
+        else:
+            # Another PID namespace: nvidia-smi names other PIDs. It still
+            # lists one app per context: this process and the replicas.
+            if len(smi_pids) != 1 + len(replicas):
+                fail(f"nvidia-smi lists {len(smi_pids)} compute apps, not "
+                     f"this process and the {len(replicas)} replicas")
+            how = ("nvidia-smi's app count and /proc/PID/maps (nvidia-smi "
+                   "lists other PIDs)")
+        if pids["router"] in smi_pids or maps["router"]:
+            fail(f"the router holds a CUDA context (nvidia-smi {smi_pids}, "
+                 f"libcuda mapped {maps['router']})")
+        if not all(maps[n] for n in ("P", "F1", "F2")):
+            fail(f"a replica maps no libcuda: {maps}")
+        res["compute_apps"] = {"checked_by": how, "nvidia_smi_pids": smi_pids,
+                               "pids": pids, "libcuda_mapped": maps}
+        print(f"fleet B compute apps: {json.dumps(res['compute_apps'])}")
+
+    # The router's added read latency: single-row /kneighbors direct to the
+    # primary against through the router, in turns, at c = 1 and 8.
+    lat = {}
+    for c, total in FLEET_LAT_REQUESTS.items():
+        for where in ("direct", "router", "router", "direct"):
+            base = url["P"] if where == "direct" else router
+            blocks = np.load(pool_path)[np.arange(total) % FLEET_A_POOL][
+                :, None, :]
+            _, ms, _ = _closed_loop(base, "kneighbors", blocks, c)
+            lat.setdefault(f"c{c}", {}).setdefault(where, []).extend(ms)
+    res["router_read_latency"] = {
+        c: {where: _pcts(v) for where, v in levels.items()}
+        for c, levels in lat.items()}
+    print(f"fleet B read latency, direct vs through the router: "
+          f"{json.dumps(res['router_read_latency'])}")
+
+    def mixed(tag):
+        load = _FleetLoad(work, tag, router, {
+            "mode": "mixed", "clients": FLEET_READERS,
+            "queries": str(pool_path), "inserts": str(ins_path),
+            "classes": ncls, "gap_s": FLEET_WRITE_GAP_S})
+        procs.loads.append(load)
+        return load
+
+    def no_failed_reads(leg, out, min_reads=50):
+        if out["failures"]:
+            fail(f"{leg}: {len(out['failures'])} failed reads "
+                 f"({out['failures'][:2]})")
+        if len(out["reads"]) < min_reads:
+            fail(f"{leg}: only {len(out['reads'])} reads")
+
+    acked = {}
+
+    def note_writes(leg, out, allowed=(200,)):
+        for w in out["writes"]:
+            if w["status"] == 200:
+                acked[w["seq"]] = w["rows"]
+            elif w["status"] not in allowed or not isinstance(
+                    w.get("error"), dict) or "error" not in w["error"]:
+                fail(f"{leg}: write {w['rid']} -> {w['status']} "
+                     f"{w.get('error')}")
+
+    legs = {}
+    # Leg 1: a follower SIGKILLed under load.
+    load = mixed("leg1")
+    time.sleep(2.0)
+    procs.kill("F2")
+    time.sleep(3.0)
+    out = load.finish()
+    no_failed_reads("leg 1", out)
+    note_writes("leg 1", out)
+    h = health(router)
+    if h["replicas"][url["F2"]]["healthy"]:
+        fail("leg 1: the router still reports the killed follower healthy")
+    legs["follower_kill"] = {"reads": len(out["reads"]),
+                             "writes_ok": len(out["writes"])}
+    boot["follower_reboot"] = serve("F2", "--follower-of", url["P"])
+    _wait_for(lambda: seq_of("F2") >= seq_of("P"), 60,
+              "the rebooted follower never caught up")
+    _wait_for(lambda: health(router).get("usable") == 3, 30,
+              "the router never saw 3 usable replicas after the reboot")
+    print(f"fleet B leg 1: follower SIGKILL, {len(out['reads'])} reads, "
+          f"none failed; rebooted in {boot['follower_reboot']:.1f} s")
+
+    # Leg 2: the primary SIGKILLed: typed 503s until auto-failover.
+    load = mixed("leg2")
+    time.sleep(2.0)
+    t_kill = time.perf_counter()
+    procs.kill("P")
+
+    def new_primary():
+        p = health(router).get("primary")
+        return p if p and p != url["P"] else None
+
+    promoted = _wait_for(new_primary, 60, "auto-failover promoted no one")
+    t_promote = time.perf_counter() - t_kill
+    time.sleep(3.0)
+    out = load.finish()
+    no_failed_reads("leg 2", out)
+    note_writes("leg 2", out, allowed=(200, 502, 503))
+    st503 = [w for w in out["writes"] if w["status"] == 503]
+    if not st503:
+        fail("leg 2: no typed 503 while the primary was down")
+    first503 = min(w["t"] for w in st503)
+    after = [w for w in out["writes"] if w["status"] == 200
+             and w["t"] > first503]
+    if not after:
+        fail("leg 2: writes never resumed after the promote")
+    client_window_ms = (min(w["t_end"] for w in after) - first503) * 1e3
+    new = {v: k for k, v in url.items()}[promoted]
+    cap = health(promoted)["fleet"]["promoted_at_seq"]
+    wal = _wal(promoted)
+    lost = [s for s, rows in acked.items()
+            if s not in wal or json.dumps(wal[s]["rows"]) != json.dumps(rows)]
+    if lost:
+        fail(f"leg 2: {len(lost)} acknowledged writes not byte-equal in "
+             f"the new primary's WAL (seqs {lost[:5]})")
+    ev = _json_get(router, "/debug/events")[1]["events"]
+    win = [e for e in ev if e["event"] == "failover-window"]
+    legs["primary_kill"] = {
+        "reads": len(out["reads"]), "writes_503": len(st503),
+        "writes_502": sum(1 for w in out["writes"] if w["status"] == 502),
+        "promoted": new, "promote_after_kill_s": t_promote,
+        "takeover_seq": cap, "acked_checked": len(acked),
+        "window_ms_client": client_window_ms,
+        "window_ms_router": win[-1]["window_ms"] if win else None}
+    print(f"fleet B leg 2: primary SIGKILL, {len(st503)} typed 503s, "
+          f"{new} promoted {t_promote:.2f} s after the kill, the 503 window "
+          f"{client_window_ms:.0f} ms (client) / "
+          f"{legs['primary_kill']['window_ms_router']} ms (router); "
+          f"{len(acked)} acked writes byte-equal in its WAL")
+
+    # Leg 3: the ex-primary rejoins as a follower of the new primary.
+    from knn_tpu_torch.serve import artifact
+
+    tail = sum(1 for _n, path in artifact.list_epochs(dirs["P"])
+               for r in artifact.read_epoch_records(
+                   path, tolerate_torn=True)[0] if int(r["seq"]) > cap)
+    load = mixed("leg3")
+    time.sleep(1.0)
+    t0 = time.perf_counter()
+    boot["rejoin"] = serve("P", "--follower-of", promoted)
+    dropped = 0
+    for line in procs.stderr("P").splitlines():
+        if "rejoin truncated" in line:
+            dropped = int(line.split("rejoin truncated ")[1].split()[0])
+    if dropped != tail:
+        fail(f"leg 3: {tail} records past the takeover seq {cap} on disk, "
+             f"the rejoin truncated {dropped}")
+
+    def caught_up(name, primary):
+        ship = (health(primary).get("fleet", {}).get("followers")
+                or {}).get(url[name], {})
+        return (ship.get("state") == "ok" and ship.get("lag") == 0
+                and seq_of(name) >= health(primary)["mutable"]["seq"])
+
+    _wait_for(lambda: caught_up("P", promoted), 90,
+              "the rejoined ex-primary never caught up")
+    catch_up_s = time.perf_counter() - t0
+    time.sleep(1.0)
+    out = load.finish()
+    no_failed_reads("leg 3", out)
+    note_writes("leg 3", out)
+    mine, theirs = _wal(url["P"]), _wal(promoted)
+    if mine != {s: r for s, r in theirs.items() if s <= max(mine)}:
+        fail("leg 3: the rejoined replica's WAL differs from the new "
+             "primary's")
+    legs["rejoin"] = {"tail_truncated": dropped, "takeover_seq": cap,
+                      "boot_s": boot["rejoin"], "catch_up_s": catch_up_s,
+                      "reads": len(out["reads"])}
+    print(f"fleet B leg 3: ex-primary rejoined ({dropped} unacknowledged "
+          f"records truncated), ready in {boot['rejoin']:.1f} s, lag 0 "
+          f"{catch_up_s:.1f} s after its spawn")
+
+    # Leg 4: a follower's directory wiped; it reboots from the snapshot.
+    load = mixed("leg4")
+    time.sleep(1.0)
+    procs.kill("P")
+    shutil.rmtree(dirs["P"])
+    dirs["P"].mkdir()
+    t0 = time.perf_counter()
+    boot["blank_follower"] = serve("P", "--follower-of", promoted)
+    line = [ln for ln in procs.stderr("P").splitlines()
+            if "bootstrap: installed generation" in ln]
+    if not line or not (dirs["P"] / "CURRENT.json").exists():
+        fail("leg 4: the blank follower booted without a snapshot install")
+    snap_bytes = int(line[0].split("(")[1].split()[0])
+    snap_ms = float(line[0].rsplit(" in ", 1)[1].split()[0])
+    _wait_for(lambda: caught_up("P", promoted), 120,
+              "the blank follower never drained to lag 0")
+    drain_s = time.perf_counter() - t0
+    time.sleep(1.0)
+    out = load.finish()
+    no_failed_reads("leg 4", out)
+    note_writes("leg 4", out)
+    legs["blank_bootstrap"] = {
+        "boot_s": boot["blank_follower"], "snapshot_mb": snap_bytes / 1e6,
+        "snapshot_ms": snap_ms,
+        "snapshot_mb_per_s": snap_bytes / 1e6 / (snap_ms / 1e3),
+        "lag0_s": drain_s, "reads": len(out["reads"])}
+    print(f"fleet B leg 4: blank follower installed "
+          f"{snap_bytes / 1e6:.1f} MB in {snap_ms:.0f} ms, ready in "
+          f"{boot['blank_follower']:.1f} s, lag 0 after {drain_s:.1f} s")
+    res["legs"] = legs
+    res["boot_s"] = boot
+
+    # Every acked write of the four legs, in the primary's WAL.
+    wal = _wal(promoted)
+    lost = [s for s, rows in acked.items()
+            if s not in wal or json.dumps(wal[s]["rows"]) != json.dumps(rows)]
+    if lost:
+        fail(f"{len(lost)} acknowledged writes lost (seqs {lost[:5]})")
+    # The observability plane: federated /metrics, a stitched request, lag
+    # 0, the audit events.
+    import urllib.request
+
+    # The writer has stopped: one poll later every follower is at lag 0 in
+    # the router's view (health() refreshes the router's lag gauges).
+    lag = _wait_for(lambda: (lambda g: g if g and not any(g.values())
+                             else None)(health(router).get("lag")), 10,
+                    "the router's replication lag never read 0")
+    with urllib.request.urlopen(router + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    live = [url[n] for n in ("P", "F1", "F2")]
+    if not all(f'replica="{u}"' in text for u in live):
+        fail("the router's /metrics lacks a replica's {replica=} series")
+    rid = out["reads"][-1]["rid"]
+    st, doc = _json_get(router, f"/debug/requests?id={rid}")
+    reps = doc.get("replicas", {}) if st == 200 else {}
+    if (st != 200 or doc["router"]["request_id"] != rid
+            or not any(tl and tl.get("request_id") == rid
+                       for tl in reps.values())):
+        fail(f"/debug/requests?id={rid} did not stitch a replica's "
+             f"timeline: {st} {str(doc)[:300]}")
+    lag_lines = [ln for ln in text.splitlines()
+                 if ln.startswith("knn_fleet_replication_lag_seq{")
+                 and any(f'follower="{u}"' in ln for u in live
+                         if u != promoted) and "replica=" not in ln]
+    if (any(v != 0 for v in lag.values()) or not lag_lines
+            or any(float(ln.rsplit(" ", 1)[1]) != 0 for ln in lag_lines)):
+        fail(f"replication lag is not back to 0: {lag} {lag_lines}")
+    events = [e["event"] for e in
+              _json_get(router, "/debug/events?n=512")[1]["events"]]
+    for want in ({"demote", "passive-demote"}, {"auto-failover"},
+                 {"rejoin"}):
+        if not want & set(events):
+            fail(f"/debug/events holds none of {sorted(want)}: {events}")
+    res["checks"] = {"federated_replicas": len(live), "stitched": rid,
+                     "lag": lag, "events": sorted(set(events)),
+                     "acked_writes": len(acked)}
+    print(f"fleet B: {len(acked)} acked writes in the primary's WAL, "
+          f"/metrics federates {len(live)} replicas, request {rid} "
+          f"stitched, lag {lag}, events {sorted(set(events))}")
 
 
 def main() -> int:
@@ -5006,6 +5915,12 @@ def main() -> int:
     phase("control")
     ctl = phase_control(torch, cuda_knn, tile_knn, test.features, smi)
     print(f"control: {json.dumps(ctl)}")
+
+    phase("fleet")
+    flt = phase_fleet(torch, cuda_knn, tile_knn,
+                      REPO / "build" / "chip_smoke" / "idx-xl",
+                      test.features, smi)
+    print(f"fleet: {json.dumps(flt)}")
 
     phase("kernels")
     replaces = {"scan": "knn_tpu/ops/pallas_knn.py:279",

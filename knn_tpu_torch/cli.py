@@ -78,9 +78,15 @@ shards on the card, ``auto`` one per visible card; ``shard/``) and
 the control plane's (``--priority``, ``--brownout``,
 ``--autotune-interval-s``; ``control/``), the durable history's and the
 alerts' (``--history-dir``, ``--history-interval-s``,
-``--history-retention-s``, ``--alert-rules``) and ``--device {cuda,cpu}``;
-the replication flags of the fleet layer, still to port, are not in the
-parser, so argparse refuses them (exit 2).
+``--history-retention-s``, ``--alert-rules``), the fleet's
+(``--follower-of URL``, ``--replicate-to URL1,URL2``, ``--replicate-ack
+{any,none}``, ``--replicate-ack-timeout-s``, ``--bootstrap {auto,off}``: a
+blank index directory with ``--follower-of`` installs the primary's
+snapshot before boot, and a rebooting ex-primary truncates its
+unacknowledged WAL tail before replay) and ``--device {cuda,cpu}``.
+``route URL...`` boots the fleet router (``fleet/router.py``) with the JAX
+CLI's flags and ``ready on`` banner; it loads no model and never touches
+the card.
 ``history DIR`` and ``report --history DIR`` read a history directory (of
 either package) after the process that wrote it is gone.
 ``replay WORKLOAD (--url BASE | --index DIR)`` re-drives a captured
@@ -116,8 +122,8 @@ from knn_tpu_torch.utils.timing import RegionTimer, maybe_profile
 EXIT_USAGE = 2
 EXIT_RUNTIME = 1
 
-_SUBCOMMANDS = ("classify", "serve", "save-index", "replay", "history",
-                "report")
+_SUBCOMMANDS = ("classify", "serve", "save-index", "route", "replay",
+                "history", "report")
 
 # persona -> its default backend
 _PERSONAS = {"main": "native", "multi-thread": "native-mt",
@@ -131,7 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(
         dest="command",
-        metavar="{classify,serve,save-index,replay,history,report}")
+        metavar="{classify,serve,save-index,route,replay,history,report}")
     _add_serve_args(sub.add_parser(
         "serve",
         help="long-lived micro-batching HTTP server over a prebuilt index",
@@ -147,6 +153,17 @@ def build_parser() -> argparse.ArgumentParser:
                     "(arrays.npz + manifest.json) that `serve` boots from "
                     "without re-parsing ARFF; the JAX package's format, "
                     "readable by either package.",
+    ))
+    _add_route_args(sub.add_parser(
+        "route",
+        help="a fault-tolerant router over N serve replicas",
+        description="Route /predict and /kneighbors reads to healthy "
+                    "replicas (health-polled + passively demoted, "
+                    "cross-replica retry, optional tail hedging), "
+                    "/insert and /delete writes to the one primary, "
+                    "with coordinated reload, serialized compaction, "
+                    "and optional automatic failover. Host only: it "
+                    "loads no model and never touches the card.",
     ))
     _add_replay_args(sub.add_parser(
         "replay",
@@ -311,9 +328,8 @@ def _add_report_args(p: argparse.ArgumentParser) -> None:
 
 
 def _add_serve_args(p: argparse.ArgumentParser) -> None:
-    """The ``serve`` flags, with the JAX CLI's names and defaults. The
-    replication flags of the fleet layer, still to port, are absent, so
-    argparse refuses them (exit 2)."""
+    """The ``serve`` flags, with the JAX CLI's names and defaults
+    (``--platform`` aside: ``--device`` is the port's switch)."""
     p.add_argument("index", help="index artifact directory (save-index "
                    "output, of either package)")
     p.add_argument("--host", default="127.0.0.1")
@@ -471,6 +487,44 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--capture-burn-window-s", type=float, default=60.0,
                    help="burn-triggered capture windows auto-stop after "
                    "this many seconds (or at --capture-max-requests)")
+    p.add_argument("--follower-of", default=None, metavar="PRIMARY_URL",
+                   help="boot as a READ-ONLY replica of the primary at "
+                   "this base URL: client /insert and /delete are refused "
+                   "409, primary-shipped WAL records apply through POST "
+                   "/admin/wal-append, and POST /admin/promote flips "
+                   "this process to primary in place. Requires --mutable "
+                   "on. A rebooting ex-primary passes the NEW primary "
+                   "here; its unacknowledged WAL tail past the takeover "
+                   "point is truncated before replay")
+    p.add_argument("--replicate-to", default=None,
+                   metavar="URL1,URL2,...",
+                   help="boot as the PRIMARY of a replica set, fanning "
+                   "every acknowledged WAL record out to these follower "
+                   "base URLs (one ordered cursor each; follower lag in "
+                   "the /healthz fleet block and "
+                   "knn_fleet_replication_lag_seq). Requires --mutable on")
+    p.add_argument("--replicate-ack", choices=["any", "none"],
+                   default="any",
+                   help="write-durability bar with --replicate-to: 'any' "
+                   "(default) holds each mutation's 200 until at least one "
+                   "follower confirmed its seq, which is what makes "
+                   "promoting the most-caught-up follower lose no "
+                   "acknowledged write; 'none' acks on the local WAL "
+                   "flush alone (faster, loses the failover guarantee)")
+    p.add_argument("--replicate-ack-timeout-s", type=float, default=5.0,
+                   help="how long a mutation waits for the follower ack "
+                   "before returning the typed 503 applied-but-"
+                   "unconfirmed outcome")
+    p.add_argument("--bootstrap", choices=["auto", "off"], default="auto",
+                   help="with --follower-of over a BLANK index directory: "
+                   "'auto' (default) pulls the primary's current "
+                   "generation over the chunked, digest-verified "
+                   "/admin/snapshot transfer before boot, and the WAL "
+                   "shipper then catches the replica up from the "
+                   "installed cursor; 'off' keeps the typed refusal of a "
+                   "missing artifact. An EXISTING artifact is never "
+                   "overwritten at boot (a stale replica re-seeds through "
+                   "POST /admin/bootstrap instead)")
     p.add_argument("--priority", default=None,
                    metavar="CLASS=LEVEL,...",
                    help="priority admission: map request classes to shed "
@@ -498,6 +552,11 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
                    "verifies bit-identical answers. Needs --capture-dir "
                    "and --cost-accounting on. Unset (default): "
                    "max_wait_ms stays static")
+    _add_history_args(p)
+
+
+def _add_history_args(p: argparse.ArgumentParser) -> None:
+    """The history and alerting flags ``serve`` and ``route`` share."""
     p.add_argument("--history-dir", default=None, metavar="DIR",
                    help="durable metrics history: append delta-encoded "
                    "registry snapshots to an on-disk segment ring under "
@@ -521,6 +580,84 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
                    "/debug/alerts; actions arm a workload capture, take a "
                    "profile or run an audited command. Unset (default): "
                    "no alerting machinery")
+
+
+def _add_route_args(p: argparse.ArgumentParser) -> None:
+    """``route``'s flags, with the JAX CLI's names and defaults."""
+    p.add_argument("replicas", nargs="+", metavar="REPLICA_URL",
+                   help="replica base URLs (e.g. http://127.0.0.1:8099); "
+                   "at least one. Join N cooperating serve processes "
+                   "into one shard group with '+': url1+url2 forwards "
+                   "to url1 and treats the pair as usable only while "
+                   "BOTH are healthy")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8098,
+                   help="TCP port (0 picks an ephemeral port, reported "
+                   "in the ready line)")
+    p.add_argument("--health-interval-s", type=float, default=1.0,
+                   help="active /healthz poll interval per replica "
+                   "(passive demotion on forward errors is immediate "
+                   "regardless)")
+    p.add_argument("--health-timeout-s", type=float, default=2.0,
+                   help="per-poll timeout before a replica is marked "
+                   "unusable")
+    p.add_argument("--forward-timeout-s", type=float, default=30.0,
+                   help="per-forward timeout for reads and writes")
+    p.add_argument("--admin-timeout-s", type=float, default=300.0,
+                   help="timeout for coordinated reload/compact calls "
+                   "(reloads warm a whole index)")
+    p.add_argument("--hedge-ms", default="off", metavar="MS|auto|off",
+                   help="tail-read hedging: fire a second attempt on "
+                   "another replica once the first has been out this "
+                   "long ('auto' derives the delay from the observed "
+                   "read p99, so ~1%% of reads hedge; 'off' default)")
+    p.add_argument("--auto-failover", choices=["on", "off"],
+                   default="off",
+                   help="promote the most-caught-up usable follower "
+                   "automatically once the primary has been unusable "
+                   "for --failover-after-s, and re-seed a follower the "
+                   "primary reports parked (off: POST /admin/promote and "
+                   "/admin/bootstrap are the operator's levers)")
+    p.add_argument("--failover-after-s", type=float, default=3.0,
+                   help="how long the primary must be continuously "
+                   "unusable before --auto-failover acts")
+    p.add_argument("--flight-recorder-size", type=int, default=256,
+                   help="router-side flight recorder ring (last-N "
+                   "request timelines at /debug/requests, stitched "
+                   "cross-tier with ?id=; 0 disables tracing)")
+    p.add_argument("--slowest-k", type=int, default=32,
+                   help="slowest-request reservoir kept alongside the "
+                   "flight recorder ring")
+    p.add_argument("--access-log", default=None, metavar="PATH",
+                   help="append one JSON line per routed request "
+                   "(outcome, replica, attempts, hedged) to PATH "
+                   "('-' = stderr; default: off)")
+    p.add_argument("--event-log", default=None, metavar="PATH",
+                   help="append-only fleet audit log (demote/promote/"
+                   "auto-failover/rejoin/hedge-fired/reload events as "
+                   "JSON lines) to PATH ('-' = stderr), also served at "
+                   "/debug/events (default: off — nothing constructed)")
+    p.add_argument("--scale-cmd", default=None, metavar="CMD",
+                   help="fleet autoscaler: when offered load approaches "
+                   "the usable fleet's summed sustainable QPS, run "
+                   "`CMD up URL` to boot the next registered-but-down "
+                   "replica (snapshot bootstrap catches it up under "
+                   "live traffic); when load recedes well under "
+                   "capacity, run `CMD down URL` to drain a surplus "
+                   "non-primary. Decisions land in the audit log "
+                   "(--event-log) and knn_fleet_scale_total. Unset "
+                   "(default): no autoscaler machinery")
+    p.add_argument("--scale-min", type=int, default=1,
+                   help="autoscaler floor: never drain below this many "
+                   "usable replicas (default 1)")
+    p.add_argument("--scale-max", type=int, default=None,
+                   help="autoscaler ceiling: never boot past this many "
+                   "usable replicas (default: every registered replica)")
+    p.add_argument("--scale-cooldown-s", type=float, default=60.0,
+                   help="freeze between autoscale actions (a booted "
+                   "replica needs time to bootstrap, warm, and show up "
+                   "in the capacity sum before the next decision)")
+    _add_history_args(p)
 
 
 def _add_replay_args(p: argparse.ArgumentParser) -> None:
@@ -646,6 +783,8 @@ def _run(argv: Optional[Sequence[str]], stdout) -> int:
         return _run_serve(args, stdout)
     if args.command == "save-index":
         return _run_save_index(args, stdout)
+    if args.command == "route":
+        return _run_route(args, stdout)
     if args.command == "replay":
         return _run_replay(args, stdout)
     if args.command == "history":
@@ -1084,7 +1223,10 @@ def _run_serve(args, stdout) -> int:
     artifact exit 2 before any compute; bind/warmup failures exit 1 (a
     missing card fails the warmup)."""
     from knn_tpu_torch.resilience.errors import DataError
-    from knn_tpu_torch.serve.server import control_flag_error
+    from knn_tpu_torch.serve.server import (
+        control_flag_error,
+        fleet_flag_error,
+    )
 
     for bad, msg in (
         (args.max_batch < 1, f"--max-batch must be >= 1, got {args.max_batch}"),
@@ -1163,13 +1305,18 @@ def _run_serve(args, stdout) -> int:
         if bad:
             _error(msg)
             return EXIT_USAGE
-    err = control_flag_error(
-        cost_accounting=args.cost_accounting == "on",
-        priority=args.priority is not None,
-        autotune_interval_s=args.autotune_interval_s,
-        capture_dir=args.capture_dir,
-        history_interval_s=args.history_interval_s,
-        history_retention_s=args.history_retention_s)
+    err = fleet_flag_error(
+        follower_of=args.follower_of,
+        replicate_to=args.replicate_to is not None,
+        mutable=args.mutable == "on",
+        replicate_ack_timeout_s=args.replicate_ack_timeout_s) \
+        or control_flag_error(
+            cost_accounting=args.cost_accounting == "on",
+            priority=args.priority is not None,
+            autotune_interval_s=args.autotune_interval_s,
+            capture_dir=args.capture_dir,
+            history_interval_s=args.history_interval_s,
+            history_retention_s=args.history_retention_s)
     if err is not None:
         _error(err)
         return EXIT_USAGE
@@ -1213,6 +1360,21 @@ def _run_serve(args, stdout) -> int:
     from knn_tpu_torch.serve import artifact
     from knn_tpu_torch.serve.server import ServeApp, make_server, serve_forever
 
+    replicate_to = None
+    if args.replicate_to is not None:
+        replicate_to = [u.strip() for u in args.replicate_to.split(",")
+                        if u.strip()]
+        if not replicate_to or any(
+                not u.startswith(("http://", "https://"))
+                for u in replicate_to):
+            _error(f"--replicate-to wants comma-separated base URLs, got "
+                   f"{args.replicate_to!r}")
+            return EXIT_USAGE
+    if args.follower_of is not None:
+        err = _join_fleet(args)
+        if err is not None:
+            _error(err)
+            return EXIT_USAGE
     mutable_on = args.mutable == "on"
     try:
         if mutable_on:
@@ -1274,7 +1436,9 @@ def _run_serve(args, stdout) -> int:
             history_dir=args.history_dir,
             history_interval_s=args.history_interval_s,
             history_retention_s=args.history_retention_s,
-            alert_rules=alert_rules,
+            alert_rules=alert_rules, follower_of=args.follower_of,
+            replicate_to=replicate_to, replicate_ack=args.replicate_ack,
+            replicate_ack_timeout_s=args.replicate_ack_timeout_s,
         )
     except OSError as e:  # an unwritable --access-log / --capture-dir path
         _error(e)
@@ -1315,6 +1479,12 @@ def _run_serve(args, stdout) -> int:
                         f"epoch={m['epoch']}, "
                         f"replayed_delta={m['delta_slots']}, "
                         f"delta_cap={args.delta_cap})")
+    if app.fleet is not None:
+        bucket_note += (f", fleet={app.fleet.role}"
+                        + (f" of {args.follower_of}"
+                           if app.fleet.role == "follower"
+                           else f" -> {len(replicate_to)} follower(s) "
+                                f"ack={args.replicate_ack}"))
     if app.admission is not None:
         bucket_note += ", priority=" + "/".join(
             f"{c}:{level}" for c, level in sorted(priority_map.items()))
@@ -1334,6 +1504,155 @@ def _run_serve(args, stdout) -> int:
     return serve_forever(server, drain_timeout_s=args.drain_timeout_s)
 
 
+def _join_fleet(args) -> Optional[str]:
+    """``serve --follower-of``'s steps before the engine boots, or the
+    error line (exit 2). A blank index directory with ``--bootstrap auto``
+    installs the primary's snapshot (an existing artifact is never
+    touched here); then the WAL tail past the primary's takeover point is
+    truncated (on a rebooting ex-primary it is unacknowledged by
+    construction). An unreachable primary skips the truncation: the
+    wal-append digest check still catches a divergence, typed."""
+    from knn_tpu_torch.fleet import bootstrap
+    from knn_tpu_torch.fleet.replica import reconcile_wal_with_primary
+    from knn_tpu_torch.resilience.errors import DataError
+
+    if args.bootstrap == "auto" and not bootstrap.artifact_present(
+            args.index):
+        import time
+
+        t0 = time.monotonic()
+        try:
+            doc = bootstrap.install_snapshot(args.index, args.follower_of)
+        except (DataError, OSError) as e:
+            return (f"snapshot bootstrap from {args.follower_of} "
+                    f"failed: {e}")
+        print(f"knn-tpu serve: {bootstrap.summary_line(doc)} in "
+              f"{(time.monotonic() - t0) * 1e3:.0f} ms", file=sys.stderr,
+              flush=True)
+    try:
+        outcome = reconcile_wal_with_primary(args.index, args.follower_of)
+    except DataError as e:
+        return str(e)
+    if outcome and outcome.get("reconciled") and outcome.get("dropped"):
+        print(f"knn-tpu serve: rejoin truncated {outcome['dropped']} "
+              f"unacknowledged WAL record(s) past the takeover seq "
+              f"{outcome['cap']}", file=sys.stderr, flush=True)
+    return None
+
+
+def _run_route(args, stdout) -> int:
+    """``route URL...``: boot the fleet router. Bad policy values (or a
+    port that cannot bind) follow the serve exit-code contract. The router
+    loads no model and no kernel library: it never touches the card."""
+    for bad, msg in (
+        (not 0 <= args.port <= 65535, f"--port out of range: {args.port}"),
+        (args.health_interval_s <= 0,
+         f"--health-interval-s must be > 0, got {args.health_interval_s}"),
+        (args.health_timeout_s <= 0,
+         f"--health-timeout-s must be > 0, got {args.health_timeout_s}"),
+        (args.forward_timeout_s <= 0,
+         f"--forward-timeout-s must be > 0, got {args.forward_timeout_s}"),
+        (args.admin_timeout_s <= 0,
+         f"--admin-timeout-s must be > 0, got {args.admin_timeout_s}"),
+        (args.failover_after_s <= 0,
+         f"--failover-after-s must be > 0, got {args.failover_after_s}"),
+        (args.flight_recorder_size < 0,
+         f"--flight-recorder-size must be >= 0, got "
+         f"{args.flight_recorder_size}"),
+        (args.slowest_k < 0,
+         f"--slowest-k must be >= 0, got {args.slowest_k}"),
+        (args.scale_min < 1,
+         f"--scale-min must be >= 1, got {args.scale_min}"),
+        (args.scale_max is not None and args.scale_max < args.scale_min,
+         f"--scale-max ({args.scale_max}) must be >= --scale-min "
+         f"({args.scale_min})"),
+        (args.scale_cooldown_s <= 0,
+         f"--scale-cooldown-s must be > 0, got {args.scale_cooldown_s}"),
+        (args.scale_cmd is None
+         and (args.scale_min != 1 or args.scale_max is not None),
+         "--scale-min/--scale-max bound the autoscaler; they need "
+         "--scale-cmd"),
+    ):
+        if bad:
+            _error(msg)
+            return EXIT_USAGE
+    err = obs.history_flag_error(args.history_interval_s,
+                                 args.history_retention_s)
+    alert_rules = None
+    if err is None:
+        alert_rules, err = _load_alert_rules(args)
+    if err is not None:
+        _error(err)
+        return EXIT_USAGE
+    for spec in args.replicas:
+        members = [u for u in spec.split("+") if u]
+        if not members:
+            _error(f"empty replica spec {spec!r}")
+            return EXIT_USAGE
+        for url in members:
+            if not url.startswith(("http://", "https://")):
+                _error(f"replica URL {url!r} must start with http:// or "
+                       f"https://")
+                return EXIT_USAGE
+    from knn_tpu_torch.fleet.router import (
+        RouterApp,
+        make_router_server,
+        router_forever,
+    )
+    from knn_tpu_torch.resilience.errors import DataError
+
+    # The /metrics endpoint is the router's observability artifact.
+    obs.enable()
+    try:
+        app = RouterApp(
+            args.replicas,
+            health_interval_s=args.health_interval_s,
+            poll_timeout_s=args.health_timeout_s,
+            forward_timeout_s=args.forward_timeout_s,
+            admin_timeout_s=args.admin_timeout_s,
+            hedge=args.hedge_ms,
+            auto_failover=(args.auto_failover == "on"),
+            failover_after_s=args.failover_after_s,
+            flight_recorder_size=args.flight_recorder_size,
+            slowest_k=args.slowest_k,
+            access_log=args.access_log,
+            event_log=args.event_log,
+            scale_cmd=args.scale_cmd,
+            scale_min=args.scale_min,
+            scale_max=args.scale_max,
+            scale_cooldown_s=args.scale_cooldown_s,
+            history_dir=args.history_dir,
+            history_interval_s=args.history_interval_s,
+            history_retention_s=args.history_retention_s,
+            alert_rules=alert_rules,
+        )
+    except (ValueError, OSError, DataError) as e:
+        # A bad --hedge-ms or duplicate URLs, an unwritable log path, a
+        # burn_rate rule (a router has no request SLOs).
+        _error(e)
+        return EXIT_USAGE
+    try:
+        server = make_router_server(app, args.host, args.port)
+    except OSError as e:
+        _error(f"cannot bind {args.host}:{args.port}: {e}")
+        app.close()
+        return EXIT_RUNTIME
+    host, port = server.server_address[:2]
+    usable = app.set.export()["usable"]
+    scale_note = ""
+    if args.scale_cmd is not None:
+        scale_note = (f", scale={args.scale_min}.."
+                      f"{args.scale_max or len(args.replicas)}")
+    print(
+        f"knn-tpu route: ready on http://{host}:{port} "
+        f"(replicas={len(args.replicas)}, usable={usable}, "
+        f"hedge={args.hedge_ms}, auto_failover={args.auto_failover}"
+        f"{scale_note})",
+        file=stdout, flush=True,
+    )
+    return router_forever(server)
+
+
 def _load_alert_rules(args):
     """Parse ``--alert-rules`` (None when unset): ``(rules, None)`` or
     ``(None, error)``. Every failure is a pre-boot usage error (exit 2),
@@ -1351,9 +1670,13 @@ def _load_alert_rules(args):
     if args.history_dir is None and "profile" in actions:
         return None, ("--alert-rules: profile actions write under "
                       "--history-dir; set it")
-    if args.capture_dir is None and "capture" in actions:
+    if getattr(args, "capture_dir", None) is None and "capture" in actions:
         return None, ("--alert-rules: capture actions arm the workload "
-                      "recorder; set --capture-dir")
+                      "recorder; set --capture-dir"
+                      if hasattr(args, "capture_dir") else
+                      "--alert-rules: capture actions need a serve process "
+                      "with --capture-dir (routers have no workload "
+                      "recorder)")
     return rules, None
 
 

@@ -33,6 +33,18 @@ the host's monotonic clock reads. (JAX starts them at 0, so on a host up
 for less than one cooldown its first move waits out a cooldown nothing
 started.)
 
+The queue bound is divided by tier too (:meth:`PriorityAdmission.queue_share`):
+of ``n`` tiers, the ``i``-th from the top may queue while the queued rows
+are under ``(n - i) / n`` of the batcher's ``max_queue_rows``, and past
+that it is shed by policy at once, whatever the cutoff. The top tier may
+fill the whole bound and alone meets the plain queue-full 429. JAX lets
+every class fill the one bound: the cutoff moves on windowed signals (one
+evaluation per ``eval_ms``, one move per cooldown), and after a shed the
+headroom ratio prices requests by the SERVED mix, which turns single-row
+while a 64-row class is shed; so it can restore that class while it still
+arrives above what the replica serves, and the class then fills the queue
+within a cooldown and takes the plain 429 meant for the protected tier.
+
 Env-tunable (read at construction, like the probe policy):
 
 ======================================  =====  =========================
@@ -47,6 +59,7 @@ Env-tunable (read at construction, like the probe policy):
 
 from __future__ import annotations
 
+import bisect
 import os
 import random
 import threading
@@ -220,7 +233,40 @@ class PriorityAdmission:
             if prio < cutoff:
                 return None
             headroom = self._last_headroom
-        retry = self.retry_after_s()
+        return self._shed(
+            request_class,
+            f"request class {request_class!r} (priority {prio}) shed by "
+            f"admission policy: overload cutoff at priority < {cutoff} "
+            f"(headroom "
+            f"{round(headroom, 3) if headroom is not None else None}); "
+            f"retry after backoff")
+
+    def queue_share(self, request_class: Optional[str]) -> float:
+        """The share of the queue bound this class's tier may fill:
+        ``(n - i) / n`` for the ``i``-th of ``n`` tiers from the top (the
+        top tier, and every class that admits at its priority, 1.0)."""
+        tier = bisect.bisect_left(self.levels,
+                                  self.priority_of(request_class))
+        n = len(self.levels)
+        return (n - min(tier, n - 1)) / n
+
+    def admit_queued(self, request_class: Optional[str], queued_rows: int,
+                     max_queue_rows: int):
+        """The queue's share by tier, checked under the batcher's queue
+        lock: None while ``queued_rows`` is under this class's share of
+        ``max_queue_rows`` or the class is in the top tier (the plain bound
+        is its limit), else a ready :class:`ShedByPolicy`."""
+        limit = self.queue_share(request_class) * max_queue_rows
+        if queued_rows < limit or self.protected(request_class):
+            return None
+        return self._shed(
+            request_class,
+            f"request class {request_class!r} (priority "
+            f"{self.priority_of(request_class)}) shed by admission policy: "
+            f"{queued_rows} rows queued, its tier's share of the queue "
+            f"bound {max_queue_rows} is {int(limit)}; retry after backoff")
+
+    def _shed(self, request_class: Optional[str], message: str):
         obs.counter_add(
             "knn_control_shed_total",
             help="requests shed by the priority-admission cutoff "
@@ -229,13 +275,9 @@ class PriorityAdmission:
             request_class=request_class or acct.DEFAULT_CLASS,
         )
         return ShedByPolicy(
-            f"request class {request_class!r} (priority {prio}) shed by "
-            f"admission policy: overload cutoff at priority < {cutoff} "
-            f"(headroom "
-            f"{round(headroom, 3) if headroom is not None else None}); "
-            f"retry after backoff",
+            message,
             request_class=request_class or acct.DEFAULT_CLASS,
-            retry_after_s=retry,
+            retry_after_s=self.retry_after_s(),
         )
 
     def retry_after_s(self) -> float:

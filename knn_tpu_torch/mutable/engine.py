@@ -183,6 +183,7 @@ class MutableEngine:
         self._fresh = _Freshness()
         self._last_compaction: Optional[dict] = None
         self._on_pressure = None  # Compactor.kick, wired after build
+        self._on_applied = None  # the fleet shippers' kick, wired after build
         # seq -> content digest for the replication overlap check
         # (wal_record_digest); bounded, pruned oldest-first.
         self._digests: "dict[int, str]" = {}
@@ -485,6 +486,7 @@ class MutableEngine:
         self._note_visible(submitted_ns)
         self._note_mutation("insert", "ok", rows.shape[0])
         self._maybe_kick(pressure)
+        self._notify_applied()
         return {"op": "insert", "ids": ids, "rows": rows.shape[0],
                 "seq": seq, "epoch": epoch, "index_version": version}
 
@@ -553,10 +555,11 @@ class MutableEngine:
         self._note_visible(submitted_ns)
         self._note_mutation("delete", "ok", len(ids))
         self._maybe_kick(pressure)
+        self._notify_applied()
         return {"op": "delete", "deleted": len(ids), "seq": seq,
                 "epoch": epoch, "index_version": version}
 
-    # -- replication (the fleet's, ROADMAP A12; no route calls these yet) --
+    # -- replication (the fleet's: knn_tpu_torch/fleet/) -------------------
 
     def apply_replicated(self, rec: dict) -> dict:
         """Apply ONE primary-shipped WAL record through the exact same
@@ -635,7 +638,21 @@ class MutableEngine:
         self._note_mutation(op, "replicated",
                             len(clean.get("rows", clean.get("sids", [0]))))
         self._maybe_kick(pressure)
+        self._notify_applied()
         return {"applied": True, "seq": seq}
+
+    def apply_replicated_records(self, records) -> dict:
+        """Apply one shipped batch, already in seq order, through
+        :meth:`apply_replicated`: ``{"applied": n, "skipped": m}``. The
+        first refusal raises unchanged with the records before it applied
+        (the JAX follower's order of effects). The serving path runs this
+        on the batcher's worker thread, the one thread that touches the
+        card (``MicroBatcher.submit_mutation("replicate", ...)``)."""
+        out = {"applied": 0, "skipped": 0}
+        for rec in records:
+            out["applied" if self.apply_replicated(rec)["applied"]
+                else "skipped"] += 1
+        return out
 
     def records_since(self, after_seq: int,
                       limit: int = 512) -> "tuple[list[dict], int]":
@@ -916,6 +933,20 @@ class MutableEngine:
 
     def on_pressure(self, cb) -> None:
         self._on_pressure = cb
+
+    def on_applied(self, cb) -> None:
+        """Register the fan-out kick: called (outside the lock) after
+        every applied mutation so the WAL shippers wake at once instead of
+        on their poll interval."""
+        self._on_applied = cb
+
+    def _notify_applied(self) -> None:
+        cb = self._on_applied
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — shipping nudge only
+                pass
 
     def _maybe_kick(self, pressure: int) -> None:
         cb = self._on_pressure

@@ -99,6 +99,20 @@ def enable(annotations: bool = False) -> None:
     _TRACER.annotations = bool(annotations)
 
 
+def history_flag_error(interval_s: float,
+                       retention_s: float) -> "str | None":
+    """The durable history's flag rules (``--history-interval-s``,
+    ``--history-retention-s``; ``serve`` and ``route`` share them), in the
+    CLI's words: the first one broken, or None. Pure, so a flag check
+    imports nothing of ``obs.history``."""
+    if interval_s <= 0:
+        return f"--history-interval-s must be > 0, got {interval_s}"
+    if retention_s < interval_s:
+        return (f"--history-retention-s ({retention_s}) must be >= "
+                f"--history-interval-s ({interval_s})")
+    return None
+
+
 def disable() -> None:
     global _ENABLED
     _ENABLED = False

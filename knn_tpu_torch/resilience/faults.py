@@ -17,9 +17,11 @@ error, so typos fail loudly). The port's classify path reaches these:
 ``native.load``     native C++ library load/call (arff + runtime kernels)
 ==================  =========================================================
 
-The others (``collective.step``, ``multihost.init``, ``serve.dispatch``,
-``mutable.compact``, ``fleet.*``) keep their names for the modules still to
-port (multi-device, serving, the mutable tier, the fleet).
+The others keep the JAX package's names: ``collective.step`` and
+``multihost.init`` (multi-device), ``serve.dispatch`` (serving),
+``mutable.compact`` (the mutable tier), and ``fleet.forward``,
+``fleet.wal_ship`` and ``fleet.snapshot_ship`` (the fleet: one router
+forward, one WAL shipment, the snapshot install before its commit).
 
 Fault-plan syntax (``KNN_TPU_FAULTS`` env var or :func:`inject`):
 

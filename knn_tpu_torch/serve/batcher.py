@@ -60,7 +60,9 @@ Design notes:
 - Both ``predict`` and ``kneighbors`` requests coalesce into the SAME
   retrieval dispatch — predict is kneighbors + a host-side vote.
 - Admission control is row-bounded: ``max_queue_rows`` queued rows → new
-  submissions fail fast with :class:`OverloadError` (HTTP 429 upstream). A
+  submissions fail fast with :class:`OverloadError` (HTTP 429 upstream);
+  with a priority policy, a class below the top tier is shed by policy
+  once the queue holds its tier's share of that bound. A
   per-request ``deadline_ms`` expires requests still queued when their
   batch closes with :class:`DeadlineExceededError` (HTTP 504).
 - Futures are :class:`~knn_tpu_torch.models.knn.AsyncResult` handles whose
@@ -77,10 +79,11 @@ Design notes:
 
 **The mutable tier** (``mutable=``, a
 :class:`~knn_tpu_torch.mutable.engine.MutableEngine`, ``serve --mutable
-on``): :meth:`submit_mutation` queues inserts and deletes, which the
-worker applies between dispatches (writes serialize against reads for
-free); every batch snapshots the view in the same critical section as the
-model, so (model, version, view) are one consistent triple, and a
+on``): :meth:`submit_mutation` queues inserts, deletes and a follower's
+replicated WAL batches, which the worker applies between dispatches
+(writes serialize against reads for free); every batch snapshots the view
+in the same critical section as the model, so (model, version, view) are
+one consistent triple, and a
 non-empty view wraps each rung in the merge (:meth:`_merged_rung`). An
 empty view takes the plain ladder: mutable-on with no mutation serves the
 bytes and the launches of mutable-off. Responses carry the view's
@@ -126,7 +129,10 @@ KINDS = ("predict", "kneighbors")
 #: The fault point and retry site of the batcher's dispatch.
 DISPATCH_SITE = "serve.dispatch"
 
-MUTATION_OPS = ("insert", "delete")
+#: ``replicate`` is a follower's shipped WAL batch (``fleet/replica.py``):
+#: applied here, on the worker, like a local write, since the apply
+#: reaches the delta tail on the card.
+MUTATION_OPS = ("insert", "delete", "replicate")
 
 
 class _Mutation:
@@ -615,6 +621,15 @@ class MicroBatcher:
                         "server is draining (shutting down); no new work "
                         "accepted — retry against another replica"
                     )
+                if self.admission is not None:
+                    # The queue bound divided by tier: below the top tier
+                    # a class past its share is shed by policy here.
+                    shed = self.admission.admit_queued(
+                        request_class, self._queued_rows,
+                        self.max_queue_rows)
+                    if shed is not None:
+                        instrument.record_serve_rejected("queue_share")
+                        raise shed
                 if self._queued_rows + req.rows > self.max_queue_rows:
                     instrument.record_serve_rejected("queue_full")
                     raise OverloadError(
@@ -655,7 +670,8 @@ class MicroBatcher:
         """Enqueue one mutation for the worker to apply between read
         dispatches (reads never block on a write's WAL append).
         ``payload``: ``{"rows", "values"}`` for insert, ``{"ids"}`` (and an
-        optional ``"expect_version"``) for delete. Raises
+        optional ``"expect_version"``) for delete, ``{"records"}`` (in seq
+        order) for a follower's replicated batch. Raises
         :class:`OverloadError` while draining or closed, or when the delta
         tier is already full (a cheap pre-check; the engine re-checks at
         apply)."""
@@ -916,6 +932,11 @@ class MicroBatcher:
             self._mutations.clear()
         for mut in muts:
             try:
+                if mut.op == "replicate":
+                    # Not captured here: the primary's capture holds it.
+                    mut.succeed(self.mutable.apply_replicated_records(
+                        mut.payload["records"]))
+                    continue
                 if mut.op == "insert":
                     out = self.mutable.apply_insert(
                         mut.payload["rows"], mut.payload["values"],

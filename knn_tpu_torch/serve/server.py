@@ -65,10 +65,30 @@ Endpoint contract (the JAX package's, docs/SERVING.md):
   the audit tail (``obs/alerts.py``, ``--alert-rules``). All three are 200
   with ``enabled`` false and null blocks while their layer is off.
 
-The replication routes (``/admin/wal-append``, ``/admin/promote``,
-``/admin/bootstrap``, ``/admin/wal-since``, ``/admin/snapshot``, the fleet
-layer still to port) are 404 with the layer named, as the JAX package
-answers them with the layer off.
+The replication routes (``fleet/``, docs/SERVING.md §Running a replica
+set), with JAX's statuses and bodies:
+
+- ``GET /admin/wal-since?seq=N[&limit=M]`` → this replica's WAL records
+  past ``seq``, digest-stamped (409 when ``seq`` predates the fold point);
+  ``GET /admin/snapshot`` → the snapshot manifest, ``?file=&offset=
+  &length=&generation=`` one raw chunk (409 when a compaction superseded
+  the generation); ``POST /admin/bootstrap`` body ``{"from": URL}`` →
+  re-seed this replica from that source's snapshot, the old state serving
+  until the atomic flip (409 on the primary, 502 with
+  ``prior_state_serving`` when the transfer failed). These three need
+  ``--mutable on``.
+- ``POST /admin/wal-append`` body ``{"records": [...], "primary_seq": N}``
+  → a follower applies a shipped batch on the batcher's worker (409 with
+  ``applied_seq`` on a gap, 409 ``diverged`` on a divergence, 409 on the
+  primary); ``POST /admin/promote`` body ``{"replicate_to": [...]}`` → flip
+  this follower to primary in place (409 when already primary). These two
+  need a fleet role (``--follower-of`` or ``--replicate-to``).
+- A follower refuses ``/insert`` and ``/delete`` with 409; on a primary a
+  write's 200 waits until a follower holds its seq (``--replicate-ack
+  any``), else the typed 503 ``applied: true``.
+
+With its layer off, each route is 404 with the layer named, as the JAX
+package answers it.
 
 Every request carries a **request id** (a valid ``x-request-id``, else a
 generated one), echoed on every response (header + JSON body), resolvable
@@ -124,8 +144,8 @@ MAX_BODY_BYTES = 64 * 1024 * 1024
 #: The 404 text of the mutable tier's routes while ``--mutable off``.
 _MUTABLE_OFF = "mutable serving is off — boot with `serve INDEX --mutable on`"
 
-#: POST routes of later layers -> the 404 message JAX gives with the layer
-#: off.
+#: The fleet's POST routes -> the 404 message JAX gives with their layer
+#: off (``/admin/bootstrap``: the mutable tier; the others: a fleet role).
 _OFF_POST = {
     "/admin/bootstrap": "mutable serving is off — boot with `serve INDEX "
                         "--mutable on`",
@@ -134,6 +154,7 @@ _OFF_POST = {
     "/admin/promote": "fleet replication is off — this process has no role "
                       "to promote",
 }
+#: The fleet's GET routes -> their 404 message with the mutable tier off.
 _OFF_GET = {
     "/admin/wal-since": "mutable serving is off — there is no write-ahead "
                         "log to export",
@@ -170,6 +191,31 @@ class AccessLog:
                     pass
 
 
+def fleet_flag_error(*, follower_of: Optional[str], replicate_to,
+                     mutable: bool,
+                     replicate_ack_timeout_s: float) -> Optional[str]:
+    """The fleet layer's flag rules, in the CLI's words: the first one
+    broken, or None. The CLI checks them before the index loads, ServeApp
+    before any thread starts."""
+    for bad, msg in (
+        (follower_of is not None and bool(replicate_to),
+         "--follower-of and --replicate-to are contradictory: a replica "
+         "is born either the primary or a follower"),
+        ((follower_of is not None or bool(replicate_to)) and not mutable,
+         "--follower-of/--replicate-to ship the mutable tier's "
+         "write-ahead log; they need --mutable on"),
+        (follower_of is not None
+         and not follower_of.startswith(("http://", "https://")),
+         f"--follower-of wants a base URL, got {follower_of!r}"),
+        (replicate_ack_timeout_s <= 0,
+         f"--replicate-ack-timeout-s must be > 0, got "
+         f"{replicate_ack_timeout_s}"),
+    ):
+        if bad:
+            return msg
+    return None
+
+
 class ReloadInProgress(OverloadError):
     """A hot reload is already running; the admin endpoint maps this to
     HTTP 409."""
@@ -193,15 +239,10 @@ def control_flag_error(*, cost_accounting: bool, priority: bool,
          "--autotune-interval-s tunes from captured arrivals against "
          "the fitted dispatch model; it needs --capture-dir and "
          "--cost-accounting on"),
-        (history_interval_s <= 0,
-         f"--history-interval-s must be > 0, got {history_interval_s}"),
-        (history_retention_s < history_interval_s,
-         f"--history-retention-s ({history_retention_s}) must be >= "
-         f"--history-interval-s ({history_interval_s})"),
     ):
         if bad:
             return msg
-    return None
+    return obs.history_flag_error(history_interval_s, history_retention_s)
 
 
 class ServeApp:
@@ -257,7 +298,15 @@ class ServeApp:
     metrics history, and ``alert_rules`` (parsed rules) evaluates on its
     cadence (memory-only without a directory). Each off constructs
     nothing: no import of ``control`` or ``obs.history``/``obs.alerts``,
-    no thread."""
+    no thread.
+
+    The fleet role (``fleet/``; needs ``mutable``): ``follower_of`` (the
+    primary's base URL) boots a read-only follower whose shipped WAL
+    batches the batcher's worker applies, ``replicate_to`` (follower base
+    URLs) a primary shipping to them, each write's 200 held until a
+    follower holds its seq (``replicate_ack="any"``) for at most
+    ``replicate_ack_timeout_s``. Without either, nothing of ``fleet`` is
+    built or imported."""
 
     def __init__(self, model, *, max_batch: int = 256,
                  max_wait_ms: float = 2.0, max_queue_rows: int = 4096,
@@ -293,14 +342,19 @@ class ServeApp:
                  history_dir: Optional[str] = None,
                  history_interval_s: float = 5.0,
                  history_retention_s: float = 3600.0,
-                 alert_rules=None):
+                 alert_rules=None, follower_of: Optional[str] = None,
+                 replicate_to=None, replicate_ack: str = "any",
+                 replicate_ack_timeout_s: float = 5.0):
         # Validated FIRST: a DataError here must abort before any worker
         # thread exists.
         err = control_flag_error(
             cost_accounting=cost_accounting, priority=bool(priority_map),
             autotune_interval_s=autotune_interval_s, capture_dir=capture_dir,
             history_interval_s=history_interval_s,
-            history_retention_s=history_retention_s)
+            history_retention_s=history_retention_s) or fleet_flag_error(
+            follower_of=follower_of, replicate_to=replicate_to,
+            mutable=mutable,
+            replicate_ack_timeout_s=replicate_ack_timeout_s)
         if err is not None:
             raise DataError(err)
         if brownout and not (shadow_rate > 0 or drift_rate > 0
@@ -429,6 +483,20 @@ class ServeApp:
                 raise
         else:
             self.mutable = None
+        if follower_of is not None or replicate_to:
+            from knn_tpu_torch.fleet.replica import FleetReplica
+
+            self.fleet = FleetReplica(
+                self.mutable,
+                role="follower" if follower_of is not None else "primary",
+                primary_url=follower_of,
+                replicate_to=tuple(replicate_to or ()),
+                ack_mode=replicate_ack,
+                ack_timeout_s=replicate_ack_timeout_s,
+                apply=self._apply_replicated,
+            )
+        else:
+            self.fleet = None
         if priority_map:
             from knn_tpu_torch.control.admission import PriorityAdmission
 
@@ -447,6 +515,8 @@ class ServeApp:
                 # An action whose layer is off aborts the boot: no layer
                 # thread left behind.
                 self.close_layers()
+                if self.fleet is not None:
+                    self.fleet.close()
                 if self.mutable is not None:
                     self.mutable.close()
                 raise
@@ -470,6 +540,10 @@ class ServeApp:
                 self.mutable, swap=self._mutable_swap,
                 warm=self._warm_replacement, threshold=compact_threshold,
                 interval_s=compact_interval_s,
+                # A replicating primary defers epoch pruning while a live
+                # follower's cursor still needs those records.
+                retention_floor=(self.fleet.retention_floor
+                                 if self.fleet is not None else None),
                 # Brownout's headroom gate: compaction waits for measured
                 # headroom (POST /admin/compact still overrides).
                 defer=(self.brownout.defer_background
@@ -505,6 +579,7 @@ class ServeApp:
         self.reloads = 0
         self._warm_sizes = None
         self._reload_lock = threading.Lock()
+        self._bootstrap_lock = threading.Lock()
         self._inflight = 0
         self._inflight_cond = threading.Condition()
 
@@ -703,6 +778,94 @@ class ServeApp:
                 best = wall if best is None else min(best, wall)
             self.capacity.seed_dispatch_model(rows, best)
 
+    # -- fleet replication -------------------------------------------------
+
+    def _apply_replicated(self, records) -> dict:
+        """A follower's shipped batch, applied by the batcher's worker
+        between read dispatches (the apply reaches the delta tail on the
+        card); the handler thread waits. The engine's typed refusals
+        (gap, divergence, conflict) reach the handler unchanged."""
+        return self.batcher.submit_mutation(
+            "replicate", {"records": records}).result(timeout=30)
+
+    def bootstrap_from(self, source_url: str, *,
+                       timeout_s: float = 60.0) -> dict:
+        """``POST /admin/bootstrap``: abandon this replica's lineage and
+        re-seed from ``source_url``'s current generation snapshot, the old
+        state serving until the atomic flip. Download and digest checks
+        run outside any critical section (reads keep flowing); the warm of
+        the replacement runs off the serving path, as a compaction's; the
+        durable commit (the old lineage's epochs cleared, ``CURRENT.json``
+        replaced) runs inside the engine's reseed, in the batcher's
+        model-swap critical section, with the compaction lock held. Any
+        failure leaves the prior state serving."""
+        if self.mutable is None:
+            raise DataError(
+                "bootstrap re-seeds the mutable tier; boot with "
+                "`serve INDEX --mutable on`"
+            )
+        if self.fleet is not None and self.fleet.role == "primary":
+            from knn_tpu_torch.mutable.state import MutationConflict
+
+            raise MutationConflict(
+                "this replica is the primary — it is the snapshot "
+                "SOURCE; bootstrap a follower from it instead"
+            )
+        import shutil
+
+        from knn_tpu_torch.fleet import bootstrap
+
+        if not self._bootstrap_lock.acquire(blocking=False):
+            raise ReloadInProgress("a bootstrap is already in progress")
+        try:
+            staged = bootstrap.download_snapshot(
+                source_url, self.mutable.root, timeout_s=timeout_s)
+            try:
+                model = artifact.load_index(staged["tmp_dir"],
+                                            device=self.device)
+                version = staged["index_version"]
+                _block, stable = artifact.read_mutable_block(
+                    staged["tmp_dir"])
+                self._warm_replacement(model)
+                reseed_current = {
+                    "generation": staged["generation"],
+                    "folded_seq": staged["wal_cursor"],
+                    "next_stable": staged["next_stable"],
+                }
+                committed: dict = {}
+
+                def _commit():
+                    committed.update(bootstrap.commit_snapshot(staged))
+
+                with self.compactor.exclusive():
+                    previous = self._mutable_swap(
+                        model, version,
+                        lambda: self.mutable.reseed(
+                            model, stable, reseed_current,
+                            version=version, commit=_commit),
+                    )
+            except Exception:
+                shutil.rmtree(staged["tmp_dir"], ignore_errors=True)
+                raise
+            obs.counter_add(
+                "knn_fleet_bootstrap_total",
+                help="snapshot bootstrap installs this replica served "
+                     "as the target, by outcome",
+                outcome="ok",
+            )
+            return {"bootstrapped": True, "previous_version": previous,
+                    **committed}
+        except Exception:
+            obs.counter_add(
+                "knn_fleet_bootstrap_total",
+                help="snapshot bootstrap installs this replica served "
+                     "as the target, by outcome",
+                outcome="failed",
+            )
+            raise
+        finally:
+            self._bootstrap_lock.release()
+
     # -- hot reload --------------------------------------------------------
 
     def reload(self, path: Optional[str] = None) -> dict:
@@ -887,6 +1050,9 @@ class ServeApp:
         if self.compactor is not None:
             self.compactor.stop()
         self.batcher.close()
+        if self.fleet is not None:
+            # Before the engine: shippers read the WAL the engine owns.
+            self.fleet.close()
         if self.mutable is not None:
             self.mutable.close()
         self.close_layers()
@@ -916,7 +1082,7 @@ class ServeApp:
                                  else None),
             },
             "slo": self.slo.export(),
-            "device": self._device_block(),
+            "device": self._device_block(self.device),
             "quality": self.quality_block(),
             "ivf": (self.ivf.export(self.model)
                     if self.ivf is not None else None),
@@ -927,7 +1093,8 @@ class ServeApp:
             "workload": (self.workload.export()
                          if self.workload is not None else None),
             "shard": self.shard_block(),
-            "fleet": None,
+            "fleet": (self.fleet.export()
+                      if self.fleet is not None else None),
             "control": self.control_block(),
             "history": (self.history.status()
                         if self.history is not None else None),
@@ -976,13 +1143,21 @@ class ServeApp:
         }
 
     @staticmethod
-    def _device_block() -> dict:
-        """The card's health summary (obs/devprof.py): memory per device
-        (also refreshing the ``knn_device_memory_bytes`` gauges), build
-        events and walls, signature hit/miss."""
+    def _device_block(device) -> dict:
+        """The card's health summary (obs/devprof.py): the name of the card
+        this process serves on (None on the host; several serve processes
+        may share one card), memory per device (also refreshing the
+        ``knn_device_memory_bytes`` gauges), build events and walls,
+        signature hit/miss."""
+        import torch
+
         from knn_tpu_torch.obs import devprof
 
+        dev = torch.device(device)
         return {
+            "card": (torch.cuda.get_device_name(dev)
+                     if dev.type == "cuda" and torch.cuda.is_available()
+                     else None),
             "memory": devprof.record_device_memory(),
             "compile": devprof.compile_summary(),
             "executable_cache": devprof.executable_cache_summary(),
@@ -1098,8 +1273,12 @@ class _Handler(BaseHTTPRequestHandler):
             self._do_alerts()
         elif route == "/debug/profile":
             self._do_profile()
-        elif route in _OFF_GET:
+        elif route in _OFF_GET and self.app.mutable is None:
             self._send(404, {"error": _OFF_GET[route]})
+        elif route == "/admin/wal-since":
+            self._do_wal_since()
+        elif route == "/admin/snapshot":
+            self._do_snapshot()
         else:
             self._send(404, {"error": f"no such endpoint: {self.path}"})
 
@@ -1107,7 +1286,9 @@ class _Handler(BaseHTTPRequestHandler):
         # Refresh the scrape-time gauges (knn_slo_*, knn_device_memory_*,
         # knn_quality_*, knn_drift_*, knn_capacity_*, knn_workload_*)
         # before rendering; the capture export also completes a timed
-        # window whose traffic ceased.
+        # window whose traffic ceased. ``?format=json`` is the raw
+        # registry snapshot (exact histogram buckets) the fleet router's
+        # federated /metrics merges per replica.
         self.app.slo.export()
         from knn_tpu_torch.obs import devprof
 
@@ -1119,6 +1300,13 @@ class _Handler(BaseHTTPRequestHandler):
             self.app.workload.export()
         if self.app.mutable is not None:
             self.app.mutable.export()
+        q = parse_qs(urlparse(self.path).query)
+        if q.get("format", [None])[0] == "json":
+            from knn_tpu_torch.obs import aggregate
+
+            self._send(200, {"snapshot": aggregate.snapshot_registry()},
+                       tag_request_id=False)
+            return
         accept = self.headers.get("Accept", "")
         if "application/openmetrics-text" in accept:
             self._send_text(
@@ -1356,8 +1544,17 @@ class _Handler(BaseHTTPRequestHandler):
                 self._do_mutation(self.path[1:])
             return
         if self.path in _OFF_POST:
-            self.close_connection = True
-            self._send(404, {"error": _OFF_POST[self.path]})
+            on = (self.app.mutable if self.path == "/admin/bootstrap"
+                  else self.app.fleet)
+            if on is None:
+                self.close_connection = True
+                self._send(404, {"error": _OFF_POST[self.path]})
+            elif self.path == "/admin/wal-append":
+                self._do_wal_append()
+            elif self.path == "/admin/promote":
+                self._do_promote()
+            else:
+                self._do_bootstrap()
             return
         if self.path not in ("/predict", "/kneighbors"):
             self.close_connection = True
@@ -1376,6 +1573,18 @@ class _Handler(BaseHTTPRequestHandler):
         if self.app.mutable is None:
             self.close_connection = True
             self._send(404, {"error": _MUTABLE_OFF})
+            return
+        if (self.app.fleet is not None
+                and self.app.fleet.role == "follower"):
+            # Read-only replica: the ONE primary owns the write order. 409,
+            # not 5xx: the router never sends writes here, so a client
+            # bypassed it.
+            self.close_connection = True
+            primary = self.app.fleet.primary_url or "the router"
+            self._send(409, {
+                "error": f"this replica is a read-only follower; send "
+                         f"writes to the primary ({primary})",
+            })
             return
         body, err, status = self._read_json_body(required=True)
         if err is not None:
@@ -1417,7 +1626,212 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 — typed JSON, never a
             self._send(500, {"error": f"{type(e).__name__}: {e}"})
             return
+        fleet = self.app.fleet
+        if fleet is not None and not fleet.wait_replicated(value["seq"]):
+            # Applied and WAL-durable here, but no follower confirmed it in
+            # the ack window (this handler thread waits, never the worker):
+            # the honest answer is 503 applied=true — re-sending would
+            # duplicate the write.
+            self._send(503, {
+                "error": f"replication ack timeout: seq {value['seq']} "
+                         f"is applied and WAL-durable on this primary "
+                         f"but no follower confirmed it within "
+                         f"{fleet.ack_timeout_s:.1f} s — do not re-send; "
+                         f"re-read after the fleet recovers",
+                "applied": True, "seq": value["seq"],
+                "index_version": value.get("index_version"),
+            })
+            return
         self._send(200, value)
+
+    # -- fleet replication (fleet/, docs/SERVING.md) -----------------------
+
+    def _do_wal_append(self):
+        """``POST /admin/wal-append`` body ``{"records": [...],
+        "primary_seq": N}``: apply one primary-shipped batch on the
+        batcher's worker through the engine's full validation path. 409 on
+        the primary (split brain), 409 with ``applied_seq`` on a seq gap
+        (the shipper's resync cue), 409 ``diverged`` when the logs
+        disagree, 400 malformed — never a traceback, never a silent
+        skip."""
+        body, err, status = self._read_json_body(required=True)
+        if err is not None:
+            self.close_connection = True
+            self._send(status, {"error": err})
+            return
+        from knn_tpu_torch.mutable.state import (
+            MutationConflict,
+            ReplicationGap,
+            WALDivergence,
+        )
+
+        try:
+            result = self.app.fleet.apply_wal_records(
+                body.get("records"), body.get("primary_seq"))
+        except ReplicationGap as e:
+            self._send(409, {"error": str(e),
+                             "applied_seq": e.applied_seq})
+            return
+        except WALDivergence as e:
+            self._send(409, {"error": str(e), "diverged": True})
+            return
+        except MutationConflict as e:
+            # Content divergence (an impossible delete): terminal for the
+            # shipper too.
+            self._send(409, {"error": str(e), "diverged": True})
+            return
+        except OverloadError as e:
+            self._send(503, {"error": str(e)},
+                       retry_after=self.app.overload_retry_after_s())
+            return
+        except (ValueError, TypeError) as e:
+            self._send(400, {"error": f"bad wal-append body: {e}"})
+            return
+        except Exception as e:  # noqa: BLE001 — typed JSON, never a
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self._send(200, result)
+
+    def _do_promote(self):
+        """``POST /admin/promote`` body ``{}`` or ``{"replicate_to":
+        [URL, ...]}``: flip this follower to primary in place (the failover
+        step). 409 when already primary."""
+        body, err, status = self._read_json_body(required=False)
+        if err is not None:
+            self.close_connection = True
+            self._send(status, {"error": err})
+            return
+        from knn_tpu_torch.mutable.state import MutationConflict
+
+        urls = body.get("replicate_to") or []
+        if not isinstance(urls, list) or not all(
+                isinstance(u, str) for u in urls):
+            self._send(400, {"error": '"replicate_to" must be a list of '
+                                      'base URLs'})
+            return
+        try:
+            result = self.app.fleet.promote(urls)
+        except MutationConflict as e:
+            self._send(409, {"error": str(e)})
+            return
+        except Exception as e:  # noqa: BLE001 — typed JSON, never a
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self._send(200, result)
+
+    def _do_wal_since(self):
+        """``GET /admin/wal-since?seq=N[&limit=M]``: this replica's WAL
+        records newer than ``seq``, digest-stamped (the rejoin and
+        catch-up export). 409 when ``seq`` predates the fold point, 503
+        when compaction pruning raced the scan."""
+        q = parse_qs(urlparse(self.path).query)
+        try:
+            seq = int(q.get("seq", ["0"])[0])
+            limit = int(q.get("limit", ["512"])[0])
+            if limit < 1:
+                raise ValueError
+        except ValueError:
+            self._send(400, {"error": f"bad seq/limit query: want "
+                                      f"integers, got {self.path!r}"})
+            return
+        try:
+            records, own_seq = self.app.mutable.records_since(
+                seq, limit=limit)
+        except DataError as e:
+            self._send(409, {"error": str(e)})
+            return
+        except OSError as e:
+            self._send(503, {"error": f"WAL scan raced compaction "
+                                      f"pruning; retry: {e}"})
+            return
+        self._send(200, {"records": records, "seq": own_seq},
+                   tag_request_id=False)
+
+    def _do_snapshot(self):
+        """``GET /admin/snapshot``: the committed generation on disk. No
+        query → the manifest (files with sizes and sha256 digests, the
+        generation, the WAL cursor an installed follower resumes from);
+        ``?file=NAME&offset=N&length=M&generation=G`` → one raw chunk, 409
+        when a compaction superseded ``G`` mid-transfer."""
+        from knn_tpu_torch.fleet import bootstrap
+
+        q = parse_qs(urlparse(self.path).query)
+        name = q.get("file", [None])[0]
+        try:
+            if name is None:
+                self._send(200,
+                           bootstrap.snapshot_manifest(self.app.mutable.root),
+                           tag_request_id=False)
+                return
+            offset = int(q.get("offset", ["0"])[0])
+            length = int(q.get("length", [str(bootstrap.CHUNK_BYTES)])[0])
+            generation = int(q.get("generation", ["0"])[0])
+        except ValueError:
+            self._send(400, {"error": f"bad snapshot chunk query: "
+                                      f"{self.path!r}"})
+            return
+        try:
+            chunk = bootstrap.read_chunk(self.app.mutable.root, name,
+                                         offset, length, generation)
+        except DataError as e:
+            self._send(409, {"error": str(e)})
+            return
+        except OSError as e:
+            self._send(503, {"error": f"snapshot read failed: {e}"})
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "application/octet-stream")
+        rid = getattr(self, "_rid", None)
+        if rid is not None:
+            self.send_header("x-request-id", rid)
+        self.send_header("Content-Length", str(len(chunk)))
+        self.end_headers()
+        self.wfile.write(chunk)
+
+    def _do_bootstrap(self):
+        """``POST /admin/bootstrap`` body ``{"from": SOURCE_URL}``:
+        re-seed THIS replica from the source's snapshot while the prior
+        state keeps serving until the atomic flip. 409 on the primary or
+        while another bootstrap or compaction runs, 502 typed when the
+        transfer failed — the prior state serving in every non-200
+        case."""
+        body, err, status = self._read_json_body(required=True)
+        if err is not None:
+            self.close_connection = True
+            self._send(status, {"error": err})
+            return
+        source = body.get("from")
+        if not isinstance(source, str) or not source.startswith(
+                ("http://", "https://")):
+            self._send(400, {"error": '"from" must be the source '
+                                      "replica's base URL"})
+            return
+        from knn_tpu_torch.fleet.bootstrap import SnapshotInstallError
+        from knn_tpu_torch.mutable.compact import CompactionInProgress
+        from knn_tpu_torch.mutable.state import MutationConflict
+
+        timeout_s = float(body.get("timeout_s") or 60.0)
+        try:
+            result = self.app.bootstrap_from(source, timeout_s=timeout_s)
+        except (MutationConflict, ReloadInProgress,
+                CompactionInProgress) as e:
+            self._send(409, {"error": str(e)})
+            return
+        except SnapshotInstallError as e:
+            self._send(502, {"error": str(e), "prior_state_serving": True})
+            return
+        except DataError as e:
+            self._send(409, {"error": str(e), "prior_state_serving": True})
+            return
+        except OSError as e:
+            self._send(502, {"error": f"bootstrap transfer failed: {e}",
+                             "prior_state_serving": True})
+            return
+        except Exception as e:  # noqa: BLE001 — typed JSON, never a
+            self._send(500, {"error": f"{type(e).__name__}: {e}",
+                             "prior_state_serving": True})
+            return
+        self._send(200, result)
 
     def _do_compact(self):
         """``POST /admin/compact``: fold the delta tier and tombstones into
@@ -1646,6 +2060,14 @@ class _Handler(BaseHTTPRequestHandler):
                                                 request_id=self._rid)
             if deadline_ms is not None:
                 trace.annotate(deadline_ms=deadline_ms)
+            hop = self.headers.get("x-knn-hop")
+            if hop is not None:
+                # Which router attempt (first try, retry, hedge) this
+                # timeline belongs to: the stitched trace's linkage.
+                try:
+                    trace.annotate(upstream_attempt=int(hop))
+                except ValueError:
+                    pass  # a garbled hop header must never fail a read
         try:
             handle = self.app.batcher.submit(x, kind, deadline_ms=deadline_ms,
                                              trace=trace,
@@ -1701,6 +2123,15 @@ class _Handler(BaseHTTPRequestHandler):
             # The read's sequence point: which acknowledged mutations this
             # answer reflects.
             payload["mutation_seq"] = meta["mutation_seq"]
+            fleet = self.app.fleet
+            if fleet is not None:
+                # A follower that has SEEN primary seq N but applied only
+                # M < N answers N - M writes behind, and says so.
+                stale = fleet.staleness_seq()
+                if stale > 0:
+                    payload["staleness_seq"] = stale
+                    if trace is not None:
+                        trace.annotate(staleness_seq=stale)
         self._send(200, payload)
         self._account(kind, 200, "ok", t0, trace=trace,
                       rung=meta.get("rung"), rows=rows,

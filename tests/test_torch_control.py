@@ -236,6 +236,39 @@ class TestCooldownClockStartsAtNever:
         assert isinstance(adm.admit("bulk"), ShedByPolicy)
 
 
+class TestQueueShareByTier:
+    """ROADMAP Queue C: JAX lets every class fill the one queue bound, so a
+    sheddable class that the cutoff restores mid-overload takes the plain
+    queue-full 429. The port divides the bound by tier: below the top tier
+    a class past its share is shed by policy."""
+
+    @pytest.mark.parametrize("pmap, want", [
+        ({"interactive": 0, "batch": 1},
+         {"interactive": 1.0, "batch": 0.5, "unmapped": 1.0}),
+        ({"interactive": 0, "batch": 1, "bulk": 4},
+         {"interactive": 1.0, "batch": 2 / 3, "bulk": 1 / 3}),
+        ({"bulk": 2}, {"bulk": 1.0, "unmapped": 1.0}),
+    ])
+    def test_shares(self, pmap, want):
+        adm = PriorityAdmission(pmap)
+        assert {c: adm.queue_share(c) for c in want} == pytest.approx(want)
+
+    def test_past_its_share_a_tier_is_shed_whatever_the_cutoff(self,
+                                                                obs_on):
+        adm = PriorityAdmission({"interactive": 0, "batch": 1})
+        assert adm.admit_queued("batch", 2047, 4096) is None
+        shed = adm.admit_queued("batch", 2048, 4096)
+        assert isinstance(shed, ShedByPolicy)
+        assert shed.request_class == "batch"
+        assert RETRY_AFTER_MIN_S <= shed.retry_after_s <= RETRY_AFTER_MAX_S
+        assert "share of the queue bound 4096 is 2048" in str(shed)
+        for queued in (0, 2048, 4095, 4096):
+            assert adm.admit_queued("interactive", queued, 4096) is None
+        assert adm.export()["shed_tiers"] == 0
+        assert obs_on.counter("knn_control_shed_total",
+                              request_class="batch").value == 1
+
+
 class TestBatcherShedIntegration:
     @pytest.fixture
     def model(self):
@@ -293,6 +326,37 @@ class TestBatcherShedIntegration:
         else:
             assert seen == [[("bulk", 0.0), ("bulk", 1.0)],
                             [("interactive", 2.0)]]
+
+    def test_queue_share_sheds_by_policy_before_the_bound(self, model,
+                                                          obs_on):
+        """A 16-row bound, `bulk` half of it: with 10 rows queued inside
+        one coalescing window, `bulk` is shed by policy (where JAX would
+        queue a row and refuse 7 with the plain 429) and `interactive`
+        still queues to the bound."""
+        adm = PriorityAdmission({"interactive": 0, "bulk": 2})
+        b = MicroBatcher(model, max_batch=16, max_queue_rows=16,
+                         max_wait_ms=2000.0, admission=adm)
+
+        def rows(n):
+            return np.zeros((n, 4), np.float32)
+
+        try:
+            handles = [b.submit(rows(6), "predict", request_class="bulk"),
+                       b.submit(rows(4), "predict", request_class="bulk")]
+            for n in (1, 7):
+                with pytest.raises(ShedByPolicy, match="share of the "
+                                   "queue bound 16 is 8"):
+                    b.submit(rows(n), "predict", request_class="bulk")
+            handles.append(b.submit(rows(6), "predict",
+                                    request_class="interactive"))
+            for h in handles:
+                assert h.result(timeout=30) is not None
+        finally:
+            b.close()
+        assert obs_on.counter("knn_serve_rejected_total",
+                              reason="queue_share").value == 2
+        assert obs_on.counter("knn_serve_rejected_total",
+                              reason="queue_full").value == 0
 
 
 class TestBrownoutLadder:

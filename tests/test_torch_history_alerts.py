@@ -2,9 +2,8 @@
 the port (``knn_tpu_torch/obs/{history,alerts,report}.py``), against the
 JAX package's, on the CPU.
 
-The twins of ``tests/test_history_alerts.py`` (every class but
-``TestRouterReplicaMerge``, whose router is not ported yet), pointed at the
-port: the segment ring round-trips the registry exactly, a torn final line
+The twins of ``tests/test_history_alerts.py`` (every class, the
+router's replica merge included), pointed at the port: the segment ring round-trips the registry exactly, a torn final line
 is repaired and damage elsewhere refused typed, every rule type's
 hysteresis emits one fire/resolve pair per incident, actions are audited,
 ``/debug/history`` and ``/debug/alerts`` answer, and ``history``/``report``
@@ -751,6 +750,48 @@ class TestAlertActions:
             if t.name == "knn-alert-action-hot":
                 t.join(timeout=10)
                 assert not t.is_alive()
+
+
+class TestRouterReplicaMerge:
+    def test_scrape_tags_replica_label_and_merges(self, obs_on, tmp_path,
+                                                  monkeypatch):
+        from knn_tpu_torch.fleet.router import RouterApp
+
+        app = RouterApp(["http://127.0.0.1:9/"], health_interval_s=30.0,
+                        history_dir=str(tmp_path / "rh"),
+                        history_interval_s=5.0)
+        try:
+            monkeypatch.setattr(app.set, "usable_urls",
+                                lambda: ["http://r1", "http://r2"])
+
+            def fake_admin(method, url, payload, timeout=None):
+                if url.startswith("http://r2"):
+                    return None, None, "connection refused"
+                assert url == "http://r1/metrics?format=json"
+                return 200, {"snapshot": [
+                    {"name": "knn_serve_requests_total", "kind": "counter",
+                     "labels": {"kind": "predict"}, "help": "",
+                     "value": 7.0}]}, None
+
+            monkeypatch.setattr(app, "_admin_call", fake_admin)
+            app.history.sample_once()
+            app.history.sample_once()
+            doc = app.history.query(metric="knn_serve_requests_total")
+            series = doc["series"]
+            # The member's scraped record carries its {replica} label —
+            # raw per-replica values, never a pre-sum.
+            assert len(series) == 1
+            assert series[0]["labels"] == {"kind": "predict",
+                                           "replica": "http://r1"}
+            assert series[0]["points"][-1][1] == 7.0
+            # The failed member is simply absent from this snapshot.
+            assert not [s for s in series
+                        if s["labels"].get("replica") == "http://r2"]
+            # The router's OWN instruments land unlabelled-by-replica.
+            own = app.history.query(metric="knn_history_snapshots_total")
+            assert own["series"] and "replica" not in own["series"][0]["labels"]
+        finally:
+            app.close()
 
 
 def _mini_problem():

@@ -230,6 +230,83 @@ def test_mutable_tier_leaves_jax_and_knn_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_fleet_slice_leaves_jax_and_knn_tpu_out():
+    # The fleet: (1) a plain mutable ServeApp builds no fleet role and
+    # imports nothing of knn_tpu_torch.fleet; (2) a primary shipping to a
+    # follower, a promote and a bootstrap export, then look; (3) a fresh
+    # process builds a RouterApp with every layer on, and neither loads a
+    # kernel library (ops/_build.py, ops/cuda_knn.py) nor initializes
+    # CUDA.
+    serve = (
+        "import io, os, sys, tempfile\n"
+        "from knn_tpu_torch import cli\n"
+        "from knn_tpu_torch.serve import artifact, server\n"
+        "tr = sys.argv[1]\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "idx = {n: os.path.join(tmp, n) for n in ('p', 'f')}\n"
+        "for path in idx.values():\n"
+        "    assert cli.run(['save-index', tr, path, '--k', '3'],\n"
+        "                   stdout=io.StringIO()) == 0\n"
+        "def boot(path, **kw):\n"
+        "    m = artifact.load_index(path, device='cpu')\n"
+        "    app = server.ServeApp(m, max_wait_ms=0.0, index_path=path,\n"
+        "                          mutable=True, compact_interval_s=0.0,\n"
+        "                          **kw)\n"
+        "    app.ready = True\n"
+        "    s = server.make_server(app)\n"
+        "    import threading\n"
+        "    threading.Thread(target=s.serve_forever, daemon=True).start()\n"
+        "    return app, s, 'http://%s:%d' % s.server_address[:2]\n"
+        "plain, ps, _ = boot(idx['p'])\n"
+        "assert plain.fleet is None and plain.health()['fleet'] is None\n"
+        "assert not [m for m in sys.modules\n"
+        "            if m.startswith('knn_tpu_torch.fleet')]\n"
+        "ps.shutdown(); ps.server_close(); plain.close()\n"
+        "f, fs, furl = boot(idx['f'], follower_of='http://127.0.0.1:9')\n"
+        "p, pss, purl = boot(idx['p'], replicate_to=[furl])\n"
+        "x = p.model.train_.features[:2]\n"
+        "p.batcher.submit_mutation('insert', {'rows': x, 'values': [0, 1]}\n"
+        "                          ).result(timeout=30)\n"
+        "assert p.fleet.wait_replicated(1) and f.mutable.seq == 1\n"
+        "from knn_tpu_torch.fleet import bootstrap\n"
+        "assert bootstrap.snapshot_manifest(idx['p'])['files']\n"
+        "assert f.fleet.promote([])['role'] == 'primary'\n"
+        "for app, s in ((p, pss), (f, fs)):\n"
+        "    s.shutdown(); s.server_close(); app.close()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'knn_tpu'))\n"
+        "print(bad)\n"
+    )
+    route = (
+        "import sys, tempfile\n"
+        "from knn_tpu_torch.fleet.router import RouterApp\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "app = RouterApp(['http://127.0.0.1:9', 'http://127.0.0.1:8'],\n"
+        "                health_interval_s=30, hedge='auto',\n"
+        "                auto_failover=True, event_log=True,\n"
+        "                scale_cmd='true', history_dir=tmp,\n"
+        "                access_log=tmp + '/access.jsonl')\n"
+        "assert app.health()['usable'] == 0\n"
+        "app.close()\n"
+        "loaded = sorted(m for m in sys.modules if m in (\n"
+        "    'knn_tpu_torch.ops._build', 'knn_tpu_torch.ops.cuda_knn',\n"
+        "    'knn_tpu_torch.ops.tile_knn') or m.split('.')[0] in (\n"
+        "    'jax', 'jaxlib', 'knn_tpu'))\n"
+        "torch = sys.modules.get('torch')\n"
+        "print(loaded, torch is not None and torch.cuda.is_initialized())\n"
+    )
+    d = fixtures.datasets_dir()
+    out = subprocess.run([sys.executable, "-c", serve,
+                          str(d / "small-train.arff")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    out = subprocess.run([sys.executable, "-c", route], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False"
+
+
 def test_multi_device_slice_leaves_jax_and_knn_tpu_out():
     # The multi-device slice: import its modules (the mesh engines, the
     # collectives and their audit, the launcher and its worker, the shard

@@ -4,9 +4,12 @@ cases of ``tests/test_cli.py`` and of ``scripts/serve_smoke.py`` steps
 
 - The validation tables and exit codes are the JAX CLI's: each bad value
   exits 2 before any compute in both CLIs, with one ``error:`` line.
-- The flags of later slices (fleet, control, history) are not in the
-  port's parser: argparse exits 2 on each, where the JAX CLI accepts it
-  (ROADMAP A12). ``--shards`` (ROADMAP A11) is, with JAX's validation
+- JAX's ``--platform`` is not in the port's parser: argparse exits 2
+  (``--device`` is the port's switch). The fleet's flags (``--follower-of``,
+  ``--replicate-to``, ``--replicate-ack``, ``--replicate-ack-timeout-s``,
+  ``--bootstrap``, ROADMAP A12b) are, with JAX's validation lines, and so
+  is the ``route`` subcommand (its exit codes, error lines and ``ready
+  on`` banner). ``--shards`` (ROADMAP A11) is, with JAX's validation
   line. The mutable tier's flags (``--mutable``,
   ``--delta-cap``, ``--compact-threshold``, ``--compact-interval-s``,
   ROADMAP A10) are, with JAX's validation lines. The index family's flags
@@ -30,6 +33,7 @@ import signal
 import subprocess
 import sys
 import threading
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -166,20 +170,48 @@ class TestServeExitCodes:
         assert cli.run(["serve"]) == 2
 
     @pytest.mark.parametrize("extra", [
-        ["--replicate-ack-timeout-s", "5"],
-        ["--bootstrap", "auto"],
-        ["--follower-of", "http://127.0.0.1:1"],
-        ["--replicate-to", "http://127.0.0.1:1"],
-        ["--replicate-ack", "any"],
         ["--platform", "cpu"],
     ])
     def test_later_slice_flags_are_not_accepted(self, capsys, extra):
-        """The port's parser does not know them: argparse exits 2 rather
-        than accepting and ignoring a flag whose layer is not ported (the
-        fleet's replication flags; the control and history flags are
-        ported, ``tests/test_torch_control.py::TestCLIValidation``)."""
+        """The port's parser does not know JAX's ``--platform``: argparse
+        exits 2 rather than accepting and ignoring it (``--device`` is the
+        port's switch). Every layer's flags are ported: the control and
+        history flags in ``tests/test_torch_control.py::TestCLIValidation``,
+        the fleet's below."""
         assert cli.run(["serve", "/irrelevant/index", *extra]) == 2
         assert "unrecognized arguments" in capsys.readouterr().err
+
+    @pytest.mark.parametrize("extra,line", [
+        (["--replicate-ack-timeout-s", "0", "--mutable", "on"],
+         "error: --replicate-ack-timeout-s must be > 0, got 0.0"),
+        (["--follower-of", "http://127.0.0.1:1", "--replicate-to",
+          "http://127.0.0.1:2", "--mutable", "on"],
+         "error: --follower-of and --replicate-to are contradictory: a "
+         "replica is born either the primary or a follower"),
+        (["--follower-of", "http://127.0.0.1:1"],
+         "error: --follower-of/--replicate-to ship the mutable tier's "
+         "write-ahead log; they need --mutable on"),
+        (["--follower-of", "127.0.0.1:1", "--mutable", "on"],
+         "error: --follower-of wants a base URL, got '127.0.0.1:1'"),
+        (["--replicate-to", ",", "--mutable", "on"],
+         "error: --replicate-to wants comma-separated base URLs, got ','"),
+        (["--replicate-to", "http://127.0.0.1:1", "--replicate-ack",
+          "none", "--mutable", "on"], "not found"),
+        (["--bootstrap", "off", "--replicate-ack", "any"], "not found"),
+    ])
+    def test_fleet_flags_as_jax(self, capsys, extra, line):
+        """The fleet's serve flags (ROADMAP A12b): each bad value exits 2
+        in both CLIs with JAX's line; good ones get past the checks to the
+        artifact load (missing here: exit 2 in both)."""
+        argv = ["serve", "/irrelevant/index", *extra]
+        got = cli.run([*argv, "--device", "cpu"], stdout=io.StringIO())
+        err = capsys.readouterr().err
+        with jknn.query_bucket_ladder(jknn.query_buckets()):
+            want = jrun(argv, stdout=io.StringIO())
+        jerr = capsys.readouterr().err
+        assert got == want == 2 and "Traceback" not in err
+        assert line in err.strip().splitlines()[-1]
+        assert line in jerr.strip().splitlines()[-1]
 
     @pytest.mark.parametrize("value,code,line", [
         ("0", 2, "--shards wants a positive integer or 'auto', got '0'"),
@@ -277,10 +309,14 @@ class TestServeExitCodes:
         assert got == 2 and "not found" in err, err
 
     def test_other_subcommands_are_not_ported_yet(self, capsys):
-        """``route`` waits for the fleet layer; ``history`` and ``report``
-        are ported (``tests/test_torch_history_alerts.py``)."""
-        assert cli.run(["route", "x"]) == 2
-        capsys.readouterr()
+        """Every subcommand is ported now: ``route`` (its contracts in
+        :class:`TestRouteCLI`), ``history`` and ``report``
+        (``tests/test_torch_history_alerts.py``). A replica that is not a
+        URL exits 2 with JAX's line."""
+        got, want, err = both(["route", "x"], capsys)
+        assert got == want == 2
+        assert err.strip() == ("error: replica URL 'x' must start with "
+                               "http:// or https://")
 
     def test_replay_is_ported(self, capsys):
         """``replay`` is a subcommand of the port (ROADMAP A8b): without a
@@ -295,6 +331,86 @@ class TestServeExitCodes:
         assert got == jrun(argv) == 2
         capsys.readouterr()
         assert err.startswith("error: ") and "not found" in err
+
+
+class TestRouteCLI:
+    """``route`` (the twins of ``tests/test_cli.py``'s route contracts):
+    JAX's exit codes and error lines, and one subprocess boot to the
+    ``ready on`` banner and a SIGTERM."""
+
+    @pytest.mark.parametrize("extra", [
+        ["--port", "70000"], ["--health-interval-s", "0"],
+        ["--health-timeout-s", "0"], ["--forward-timeout-s", "-1"],
+        ["--admin-timeout-s", "0"], ["--failover-after-s", "0"],
+        ["--flight-recorder-size", "-1"], ["--slowest-k", "-1"],
+        ["--scale-cmd", "true", "--scale-min", "0"],
+        ["--scale-cmd", "true", "--scale-min", "3", "--scale-max", "2"],
+        ["--scale-cmd", "true", "--scale-cooldown-s", "0"],
+        ["--scale-min", "2"], ["--history-retention-s", "1"],
+        ["--hedge-ms", "-3"], ["--auto-failover", "maybe"],
+    ])
+    def test_bad_values_exit_2_as_jax(self, capsys, extra):
+        got, want, err = both(["route", "http://127.0.0.1:1", *extra],
+                              capsys)
+        assert got == want == 2
+        assert err.startswith("error:") or "invalid choice" in err
+
+    def test_route_alert_rules_contracts_exit_2(self, tmp_path, capsys):
+        rules = tmp_path / "rules.json"
+        # Routers have no request SLOs: burn_rate rules are a serve thing.
+        rules.write_text(json.dumps([
+            {"name": "b", "type": "burn_rate", "threshold": 1.0}]))
+        got, want, err = both(["route", "http://127.0.0.1:1",
+                               "--alert-rules", str(rules)], capsys)
+        assert got == want == 2 and "error:" in err
+        # ...and no workload recorder for capture actions.
+        rules.write_text(json.dumps([
+            {"name": "x", "type": "threshold", "metric": "m", "value": 1,
+             "actions": [{"do": "capture"}]}]))
+        got, want, err = both(["route", "http://127.0.0.1:1",
+                               "--alert-rules", str(rules)], capsys)
+        assert got == want == 2 and "workload recorder" in err
+
+    def test_route_bad_history_flags_exit_2(self, capsys):
+        got, want, err = both(["route", "http://127.0.0.1:1",
+                               "--history-interval-s", "0"], capsys)
+        assert got == want == 2 and "error:" in err
+
+    def test_ready_banner_healthz_and_sigterm(self, tmp_path):
+        """The router boots in milliseconds with no replica up: the
+        banner names the set, ``/healthz`` is a typed 503 (zero usable),
+        an unknown route a typed 404, and SIGTERM exits 0."""
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "knn_tpu_torch", "route",
+             "http://127.0.0.1:1", "http://127.0.0.1:2", "--port", "0",
+             "--health-interval-s", "0.2", "--event-log",
+             str(tmp_path / "ev.jsonl")],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            line = proc.stdout.readline()
+            m = READY_RE.search(line)
+            assert m, line
+            assert ("(replicas=2, usable=0, hedge=off, auto_failover=off)"
+                    in line)
+            base = m.group(1)
+            try:
+                urllib.request.urlopen(base + "/healthz", timeout=10)
+                raise AssertionError("healthz answered 200 with no replica")
+            except urllib.error.HTTPError as e:
+                assert e.code == 503
+                doc = json.loads(e.read())
+                assert doc["ready"] is False and doc["usable"] == 0
+            try:
+                urllib.request.urlopen(base + "/nope", timeout=10)
+            except urllib.error.HTTPError as e:
+                assert e.code == 404 and "error" in json.loads(e.read())
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=30) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
 
 
 def _post(base, path, payload):

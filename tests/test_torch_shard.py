@@ -1,7 +1,7 @@
 """Sharded serving on the port (``knn_tpu_torch/shard/``), the twin of
 ``tests/test_shard.py`` (its plan, dispatch, model, IVF, mutable and
-``ServeApp`` classes; ``TestFleetShardGroups`` belongs to the fleet layer,
-ROADMAP A12).
+``ServeApp`` classes, and ``TestFleetShardGroups``, the router's shard
+groups).
 
 Every sharded answer is held two ways: bit-identical to the port's own
 single-device rung on the same model, and equal to the JAX package's
@@ -527,3 +527,58 @@ class TestServeAppSharding:
                             "after compaction")
         finally:
             app.close()
+
+
+class TestFleetShardGroups:
+    """The router's ``url1+url2`` shard groups (``fleet/health.py``): a
+    group is usable only while every member is."""
+
+    def _set(self, specs):
+        from knn_tpu_torch.fleet.health import ReplicaSet
+
+        return ReplicaSet(specs, interval_s=999, poll_timeout_s=1)
+
+    def test_spec_parsing_heads_and_members(self):
+        rs = self._set(["http://a:1+http://a:2", "http://b:1"])
+        assert rs.urls == ["http://a:1", "http://b:1"]
+        assert rs.groups == {"http://a:1": ("http://a:1", "http://a:2")}
+        assert set(rs._states) == {"http://a:1", "http://a:2",
+                                   "http://b:1"}
+
+    def test_duplicate_member_across_specs_rejected(self):
+        with pytest.raises(ValueError, match="duplicate"):
+            self._set(["http://x:1+http://x:2", "http://x:2"])
+
+    def test_group_usable_only_when_every_member_healthy(self):
+        rs = self._set(["http://a:1+http://a:2", "http://b:1"])
+        for s in rs._states.values():
+            s.healthy = True
+        assert rs.usable_urls() == ["http://a:1", "http://b:1"]
+        # kill the NON-head member: the head's own poll stays 200, but
+        # the group must look down to routing (a partial shard group
+        # cannot answer from its whole index)
+        rs._states["http://a:2"].healthy = False
+        assert not rs.is_healthy("http://a:1")
+        assert rs.usable_urls() == ["http://b:1"]
+        rs._states["http://a:2"].healthy = True
+        assert rs.is_healthy("http://a:1")
+
+    def test_group_gates_failover_queries_and_export(self):
+        rs = self._set(["http://a:1+http://a:2", "http://b:1"])
+        for s in rs._states.values():
+            s.healthy = True
+        rs._states["http://a:1"].role = "primary"
+        rs._states["http://b:1"].role = "follower"
+        assert rs.primary_url() == "http://a:1"
+        rs._states["http://a:2"].healthy = False
+        assert rs.primaries() == []
+        assert rs.down_primary() == "http://a:1"  # failover trigger
+        assert rs.most_caught_up() == "http://b:1"
+        doc = rs.export()
+        head = doc["replicas"]["http://a:1"]
+        assert head["shard_group"]["members"] == ["http://a:1",
+                                                  "http://a:2"]
+        assert head["shard_group"]["unhealthy"] == ["http://a:2"]
+        assert head["healthy"] is False  # the GROUP's usability
+        assert doc["usable"] == 1
+        assert "shard_group" not in doc["replicas"]["http://b:1"]
