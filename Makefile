@@ -7,7 +7,7 @@ CXX      ?= g++
 CXXFLAGS ?= -O3 -std=c++17 -fPIC -Wall -Wextra
 LIB_DIR  := knn_tpu/native/lib
 
-.PHONY: all native main multi-thread mpi tpu datasets test verify chaos serve-smoke chaos-soak quality-soak ivf-soak mutable-soak fleet-soak shard-soak overload-soak capacity-probe replay-gate bench bench-gate parity device-parity ref-diff clean
+.PHONY: all native main multi-thread mpi tpu datasets test verify chaos serve-smoke chaos-soak quality-soak ivf-soak mutable-soak fleet-soak shard-soak overload-soak capacity-probe replay-gate bench bench-gate parity device-parity ref-diff verify-torch capacity-probe-torch device-parity-torch parity-torch clean
 
 all: native main multi-thread mpi tpu datasets
 
@@ -229,6 +229,30 @@ device-parity:
 
 ref-diff:
 	python3 scripts/reference_differential.py
+
+# The PyTorch/CUDA port's gates (knn_tpu_torch/gates/), beside JAX's: each
+# imports torch and the port only, and runs on the card unless given
+# --device cpu. verify-torch is the port's tier-1 gate on the CPU: a
+# bytecode-compile of the package, the port's tests and the disabled-path
+# overhead gate (every layer zero-cost while off).
+verify-torch:
+	python3 -m compileall -q knn_tpu_torch
+	JAX_PLATFORMS=cpu python3 -m pytest tests/test_torch_*.py -q \
+		-m 'not slow' --continue-on-collection-errors -p no:cacheprovider
+	python3 -m knn_tpu_torch.gates.disabled_overhead --device cpu
+
+# The knee of a live `knn_tpu_torch serve` against the headroom model.
+capacity-probe-torch:
+	python3 -m knn_tpu_torch.gates.capacity_probe --short \
+		--json-out build/capacity-probe-torch-verdict.json
+
+# Random problems through every card route, exact against the oracle.
+device-parity-torch:
+	python3 -m knn_tpu_torch.gates.device_parity_sweep
+
+# Every backend over the dataset ladder x k, against the oracle.
+parity-torch:
+	python3 -m knn_tpu_torch.gates.parity_report
 
 clean:
 	rm -rf $(LIB_DIR) main multi-thread mpi tpu build/fixtures

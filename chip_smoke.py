@@ -249,7 +249,22 @@ Phases, each printed as it runs; any failure exits non-zero:
                         read failing; federated /metrics, a stitched
                         request, lag 0, the audit events. One ``fleet:
                         {...}`` JSON line.
-24. ``kernels``       — one JSON line describing every kernel.
+24. ``gates``         — the port's gates (``knn_tpu_torch/gates/``), each
+                        run on the card as a subprocess (the overhead
+                        gate's ``sys.modules`` checks need a fresh
+                        interpreter): ``disabled_overhead``;
+                        ``device_parity_sweep`` (30 trials x 8 paths and
+                        the k > 16 block, exact against the oracle, a
+                        kernel launched on every kernel path);
+                        ``parity_report`` over small and medium (every
+                        backend equal to the oracle), these three at once;
+                        then alone ``capacity_probe --short`` on the xl
+                        index (the knee, set by the server, within
+                        [0.2, 3.0]x the low-load estimate, conservation,
+                        a clean drain, then the single-row reading). Each
+                        gate's verdict lines and wall. One ``gates:
+                        {...}`` JSON line.
+25. ``kernels``       — one JSON line describing every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -5690,6 +5705,83 @@ def _fleet_legs(res, procs, work, idx_xl, pool_path, ins_path, ncls,
           f"stitched, lag {lag}, events {sorted(set(events))}")
 
 
+#: The gates of the ``gates`` phase: (module, arguments, the lines to
+#: print besides FAIL lines: substrings of the gate's verdict lines).
+GATE_RUNS = (
+    ("disabled_overhead", [], ("disabled-overhead:",)),
+    ("device_parity_sweep", ["30", "--bigk-trials", "10"],
+     ("device:", "device parity sweep", "launches:")),
+    ("parity_report", [], ("|", "launches on", "runs prediction-identical")),
+    ("capacity_probe", ["--short", "--no-single-row"], ("capacity-probe:",)),
+)
+
+
+def _run_gate(name: str, argv) -> "tuple[subprocess.CompletedProcess, float]":
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"knn_tpu_torch.gates.{name}", *argv],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    return proc, time.perf_counter() - t0
+
+
+def phase_gates(idx_xl: Path) -> dict:
+    """Run each gate of ``knn_tpu_torch/gates/`` on the card as a child of
+    this script: a fresh interpreter for each, as ``make`` runs them. The
+    two that time nothing (the sweep and the report check exactness and
+    launches) run together; the overhead gate, which times a predict, and
+    the capacity probe, which measures the server's 128-row knee on the xl
+    index the ``serve`` phase saved, each run alone. The probe's
+    single-row part (a trickle as long as its capacity window, then a
+    ramp) is left to the standalone probe. A gate that exits non-zero
+    fails the phase. Returns each gate's wall, the sweep's launches per
+    path and the capacity probe's report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out_dir = REPO / "build" / "chip_smoke" / "gates"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cap_json = out_dir / "capacity-probe.json"
+    runs = {name: [*argv, "--index", str(idx_xl), "--json-out",
+                   str(cap_json)] if name == "capacity_probe" else argv
+            for name, argv, _ in GATE_RUNS}
+    alone = ("disabled_overhead", "capacity_probe")
+    done = {"disabled_overhead": _run_gate("disabled_overhead",
+                                           runs["disabled_overhead"])}
+    with ThreadPoolExecutor(len(runs) - len(alone)) as pool:
+        futs = {name: pool.submit(_run_gate, name, argv)
+                for name, argv in runs.items() if name not in alone}
+        done.update({name: f.result() for name, f in futs.items()})
+    done["capacity_probe"] = _run_gate("capacity_probe",
+                                       runs["capacity_probe"])
+    res: dict = {"wall_s": {}}
+    for name, _argv, keep in GATE_RUNS:
+        proc, wall = done[name]
+        res["wall_s"][name] = round(wall, 1)
+        (out_dir / f"{name}.log").write_text(proc.stdout + proc.stderr)
+        for line in (proc.stdout + proc.stderr).splitlines():
+            if any(k in line for k in keep) or "FAIL" in line:
+                print(f"  {name}: {line}")
+                if line.startswith("launches: "):
+                    res["sweep_launches"] = json.loads(line[len("launches: "):])
+        print(f"gate {name}: exit {proc.returncode}, {wall:.1f} s")
+        if proc.returncode != 0:
+            raise SystemExit(f"gates: {name} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    rep = json.loads(cap_json.read_text())
+    res["capacity"] = {
+        "estimate_qps": rep["estimate"]["sustainable_qps"],
+        "estimate_rows_per_s": rep["estimate"]["sustainable_rows_per_s"],
+        "dispatch_model": rep["estimate"]["dispatch_model"],
+        "frontend_ms": rep["estimate"]["frontend_ms_per_request"],
+        "frontend_clock": rep["estimate"]["frontend_clock"],
+        "knee": rep["knee"],
+        "procs": rep["capacity_probe"]["procs"],
+        "steps": len(rep["ramp"]),
+        "client_limited_steps": len(rep["client_limited_steps"]),
+        "boot_s": rep["capacity_probe"]["boot_s"],
+    }
+    return res
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -5921,6 +6013,10 @@ def main() -> int:
                       REPO / "build" / "chip_smoke" / "idx-xl",
                       test.features, smi)
     print(f"fleet: {json.dumps(flt)}")
+
+    phase("gates")
+    gts = phase_gates(REPO / "build" / "chip_smoke" / "idx-xl")
+    print(f"gates: {json.dumps(gts)}")
 
     phase("kernels")
     replaces = {"scan": "knn_tpu/ops/pallas_knn.py:279",

@@ -34,6 +34,9 @@ the caller asks for the host (``device="cpu"``).
 - ``knn_tpu_torch.mutable``  — ``serve --mutable on``: the delta tier,
   tombstones, the write-ahead epoch log and compaction; the delta rows on
   the card for the torch-scan route and the ivf rung.
+- ``knn_tpu_torch.gates``    — the repo's gates on the port: the
+  disabled-path overhead gate, the device parity sweep, the parity report
+  and the capacity probe, each ``python -m knn_tpu_torch.gates.<name>``.
 - ``knn_tpu_torch.cli``      — ``python -m knn_tpu_torch TRAIN TEST k
   [threads]``, with the JAX CLI's personas and classify flags.
 - ``knn_tpu_torch.convert``  — a ``knn_tpu`` dataset's fields (or IVF

@@ -28,7 +28,27 @@ the batcher already knows —
 From those, the **headroom model** (docs/OBSERVABILITY.md §Cost &
 capacity): a saturated worker dispatches full batches back to back, so the
 sustainable row rate is ``max_batch / w(max_batch)`` and the sustainable
-request rate divides by the observed rows-per-request mix. Headroom is
+request rate divides by the observed rows-per-request mix.
+
+**The port adds the front end's host time** (a departure from JAX, ROADMAP
+Queue C): the HTTP handlers read, parse and answer each request on the
+same interpreter as the dispatch worker, so a full batch of ``max_batch``
+rows costs the replica ``w(max_batch) + f · max_batch / rows_per_request``
+ms, ``f`` the mean CPU ms of a served request's handler thread over the
+window (:meth:`CapacityTracker.note_frontend`; 0 until the server records
+one; CPU time, since a handler's wall under load also counts its waits
+for the interpreter lock). The thread CPU clock may advance only in
+scheduler ticks (on the card's host six low-load requests read 0.0,
+3.3333 or 5.0 ms: whole 10 ms ticks over six), so a few requests' front
+end reads as 0 or as several ms: below
+:data:`FRONTEND_CPU_MIN_MS` of CPU in the window, ``f`` is the handlers'
+mean wall instead, which at such low load holds few lock waits.
+On the card at xl (``python -m knn_tpu_torch.gates.capacity_probe``) the
+front end costs about as much as a warm 128-row dispatch and the
+dispatch-only model read several times the measured knee: PERF.md §6
+keeps both models' readings against the knees, 128-row and single-row,
+with the card's name and power limit. On a CPU the
+dispatch dwarfs ``f``, as in JAX. Headroom is
 that sustainable QPS over the current arrival QPS; a Little's-law estimate
 (``L = λ·W``: served rate × mean request wall — admitted load, since a
 rejected request never enters the system) reports the concurrency the
@@ -60,6 +80,11 @@ OCCUPANCY_BUCKETS = (0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875,
                      1.0)
 
 
+#: The window's front-end CPU ms from which the thread CPU clock's mean is
+#: trusted: 20 ticks of a 10 ms clock, about a 22 % standard error.
+FRONTEND_CPU_MIN_MS = 200.0
+
+
 class CapacityTracker:
     """Arrival/served/dispatch telemetry + the headroom model.
 
@@ -80,6 +105,9 @@ class CapacityTracker:
         self._arrivals = SecondRing(2, self.window_s)
         # Fields: [requests, rows, request_ms_sum]
         self._served = SecondRing(3, self.window_s)
+        # Fields: [requests, front-end CPU ms, front-end wall ms]
+        # (note_frontend).
+        self._frontend = SecondRing(3, self.window_s)
         # Fields: [dispatches, busy_ms, rows, padded_rows, fit_rows^2,
         # fit_rows*ms, occupancy_sum, fit_n, fit_busy_ms, fit_rows] —
         # the fit_* fields are the sufficient statistics for the affine
@@ -108,6 +136,12 @@ class CapacityTracker:
         """One successfully answered request and its enqueue->answer wall
         (the Little's-law ``W``)."""
         self._served.add(1, int(rows), float(request_ms))
+
+    def note_frontend(self, cpu_ms: float, wall_ms: float) -> None:
+        """One served request's host time outside the dispatch worker:
+        its handler thread's read, parse and answer (the HTTP front end),
+        as the thread's CPU ms and as wall ms."""
+        self._frontend.add(1, float(cpu_ms), float(wall_ms))
 
     def note_dispatch(self, wall_ms: float, rows: int, padded_rows: int,
                       max_batch: int, compiled: bool = True) -> None:
@@ -247,10 +281,20 @@ class CapacityTracker:
         rows_per_request = max(1.0, rows_per_request)
         waste = (d_pad - d_rows) / d_pad if d_pad > 0 else 0.0
 
+        fe_reqs, fe_cpu, fe_wall = self._frontend.window_sums(w)
+        frontend_clock = (None if not fe_reqs
+                          else "cpu" if fe_cpu >= FRONTEND_CPU_MIN_MS
+                          else "wall")
+        frontend_ms = ((fe_cpu if frontend_clock == "cpu" else fe_wall)
+                       / fe_reqs if fe_reqs else 0.0)
+
         a, b, model_source = self._fit(disp)
         sustainable_qps = sustainable_rows_per_s = None
         if a is not None:
-            full_wall_ms = a + b * self.max_batch
+            # A full batch's dispatch, plus the front end of the requests
+            # that fill it (they share the worker's interpreter).
+            full_wall_ms = (a + b * self.max_batch
+                            + frontend_ms * self.max_batch / rows_per_request)
             if full_wall_ms > 0:
                 sustainable_rows_per_s = (
                     self.max_batch / (full_wall_ms / 1e3))
@@ -281,6 +325,8 @@ class CapacityTracker:
                 "b_ms_per_row": round(b, 6) if b is not None else None,
                 "source": model_source,
             },
+            "frontend_ms_per_request": round(frontend_ms, 4),
+            "frontend_clock": frontend_clock,
             "sustainable_qps": (round(sustainable_qps, 2)
                                 if sustainable_qps is not None else None),
             "sustainable_rows_per_s": (
@@ -329,8 +375,9 @@ class CapacityTracker:
             obs.gauge_set(
                 "knn_capacity_sustainable_qps", round(sustainable_qps, 2),
                 help="modeled saturated request rate: max_batch/w(max_batch) "
-                     "dispatches at the fitted affine dispatch cost, over "
-                     "the observed rows-per-request mix",
+                     "dispatches at the fitted affine dispatch cost plus "
+                     "the front end's host ms of the requests that fill "
+                     "them, over the observed rows-per-request mix",
             )
             obs.gauge_set(
                 "knn_capacity_headroom_ratio",

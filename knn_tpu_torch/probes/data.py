@@ -1,10 +1,11 @@
-"""Generated data for the probes and ``chip_smoke.py``.
+"""Generated data for the probes, the gates and ``chip_smoke.py``.
 
-The port's copy of the JAX package's ``bench.py::load_large`` with the
-``scripts/make_fixtures.py`` recipe, of its xl train set (the large train
-rows tiled), and of the wide (MNIST-784-shaped) arrays of ``bench.py``'s
-mnist784 config. Everything is made from a seed;
-nothing is read from outside the checkout.
+The port's copy of the JAX package's ``scripts/make_fixtures.py`` (the
+small, medium and large fixtures; the ARFF files are byte-identical to
+that script's for the same seed) and of ``bench.py::load_large``, of its
+xl train set (the large train rows tiled), and of the wide
+(MNIST-784-shaped) arrays of ``bench.py``'s mnist784 config. Everything is
+made from a seed; nothing is read from outside the checkout.
 """
 
 from __future__ import annotations
@@ -16,17 +17,25 @@ import numpy as np
 
 from knn_tpu_torch.data.arff import load_arff
 
-# Where load_large writes its ARFF files: build/ at the repository root.
+# Where the fixture ladder's ARFF files are written: build/ at the
+# repository root.
 FIXTURE_DIR = Path(__file__).resolve().parents[2] / "build" / "probe-fixtures"
 
-LARGE_SHAPE = (30803, 1718, 11)  # train rows, test rows, features
+#: The fixture ladder of scripts/make_fixtures.py: name -> (train rows,
+#: test rows, features).
+SIZES = {
+    "small": (592, 80, 7),
+    "medium": (7354, 370, 11),
+    "large": (30803, 1718, 11),
+}
 
 
-def large_fixture(seed: int = 0):
-    """The large fixture's arrays, by the recipe of scripts/make_fixtures.py:
-    30,803 train x 1,718 test, 11 features, 10 classes; sentinel rows 0..9
-    pin num_classes; half the test rows duplicate train rows (dist == 0)."""
-    n_train, n_test, d = LARGE_SHAPE
+def fixture(size: str, seed: int = 0):
+    """``(train_x, train_y, test_x, test_y)`` of fixture ``size`` by the
+    recipe of scripts/make_fixtures.py: sentinel rows 0..9 pin
+    num_classes = 10; half the test rows duplicate train rows
+    (dist == 0)."""
+    n_train, n_test, d = SIZES[size]
     rng = np.random.default_rng(seed)
     centers = rng.normal(0, 5, size=(10, d))
     labels = rng.integers(0, 10, size=n_train)
@@ -41,6 +50,12 @@ def large_fixture(seed: int = 0):
         0, 1.5, size=(n_test - n_dup, d))).astype(np.float32)])
     ty = np.concatenate([labels[dup_idx], tl])
     return x, labels.astype(np.int32), tx, ty.astype(np.int32)
+
+
+def large_fixture(seed: int = 0):
+    """The large fixture's arrays: 30,803 train x 1,718 test, 11 features,
+    10 classes (:func:`fixture`)."""
+    return fixture("large", seed)
 
 
 def tiled_large(x: np.ndarray, y: np.ndarray, reps: int = 33):
@@ -79,19 +94,31 @@ def write_arff(path: Path, x: np.ndarray, y: np.ndarray, relation: str) -> None:
                    fmt=["%.6g"] * d + ["%d"], delimiter=",")
 
 
-def load_large(directory: "Path | None" = None):
-    """``(train, test)`` Datasets of the large fixture (seed 0), parsed from
-    ARFF files as bench.py's ``load_large`` parses the fixture ladder's: the
-    ``%.6g`` cells round the features. The files are written under
-    ``directory`` (default :data:`FIXTURE_DIR`) at first use; a file is
-    renamed into place whole."""
+def fixture_paths(size: str, directory: "Path | None" = None):
+    """``(train, test)`` ARFF paths of fixture ``size`` (seed 0) under
+    ``directory`` (default :data:`FIXTURE_DIR`), written at first use as
+    scripts/make_fixtures.py writes them; a file is renamed into place
+    whole."""
     directory = Path(directory or FIXTURE_DIR)
-    paths = [directory / f"large-{part}.arff" for part in ("train", "test")]
+    paths = [directory / f"{size}-{part}.arff" for part in ("train", "test")]
     if not all(p.exists() for p in paths):
         directory.mkdir(parents=True, exist_ok=True)
-        x, y, tx, ty = large_fixture(seed=0)
+        x, y, tx, ty = fixture(size, seed=0)
         for path, xs, ys in zip(paths, (x, tx), (y, ty)):
             tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
             write_arff(tmp, xs, ys, path.stem)
             os.replace(tmp, path)
-    return load_arff(str(paths[0])), load_arff(str(paths[1]))
+    return paths[0], paths[1]
+
+
+def load_pair(size: str, directory: "Path | None" = None):
+    """``(train, test)`` Datasets of fixture ``size``, parsed from its ARFF
+    files (:func:`fixture_paths`) as the JAX package's tests and bench.py
+    parse the fixture ladder's: the ``%.6g`` cells round the features."""
+    train, test = fixture_paths(size, directory)
+    return load_arff(str(train)), load_arff(str(test))
+
+
+def load_large(directory: "Path | None" = None):
+    """``(train, test)`` Datasets of the large fixture (:func:`load_pair`)."""
+    return load_pair("large", directory)

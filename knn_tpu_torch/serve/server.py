@@ -2008,6 +2008,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _do_inference(self, kind: str):
         t_recv = time.monotonic()
+        cpu_recv = time.thread_time()
         body, err, status = self._read_json_body(required=True)
         if err is not None:
             self.close_connection = True
@@ -2090,6 +2091,7 @@ class _Handler(BaseHTTPRequestHandler):
                           req_class=req_class)
             return
         timeout = deadline_ms / 1e3 if deadline_ms is not None else None
+        cpu_submitted, t_submitted = time.thread_time(), time.monotonic()
         try:
             value = handle.result(timeout=timeout)
         except DeadlineExceededError as e:
@@ -2105,7 +2107,9 @@ class _Handler(BaseHTTPRequestHandler):
                           rung=(handle.meta or {}).get("rung"),
                           req_class=req_class)
             return
-        ms = round((time.monotonic() - t0) * 1e3, 3)
+        t_answered = time.monotonic()
+        ms = round((t_answered - t0) * 1e3, 3)
+        cpu_answered = time.thread_time()
         meta = handle.meta or {}
         if kind == "predict":
             payload = {"predictions": np.asarray(value).tolist(),
@@ -2137,6 +2141,15 @@ class _Handler(BaseHTTPRequestHandler):
                       rung=meta.get("rung"), rows=rows,
                       index_version=meta.get("index_version"),
                       req_class=req_class)
+        if self.app.capacity is not None:
+            # The handler's read and parse, then its answer, as its
+            # thread's CPU time and as wall (obs/capacity.py takes the
+            # first under load, the second while the CPU clock's ticks
+            # are too few to read).
+            self.app.capacity.note_frontend(
+                (cpu_submitted - cpu_recv + time.thread_time()
+                 - cpu_answered) * 1e3,
+                (t_submitted - t_recv + time.monotonic() - t_answered) * 1e3)
 
 
 class KNNServer(ThreadingHTTPServer):

@@ -1069,6 +1069,54 @@ class TestAgainstJAX:
             assert (json.dumps(got.query(metric=metric), sort_keys=True)
                     == json.dumps(want.query(metric=metric), sort_keys=True))
 
+    def test_capture_action_refused_while_a_window_is_armed(self, tmp_path,
+                                                            obs_on):
+        # ROADMAP Queue C: the alert's capture action refused while the
+        # autotuner's window was armed. Both packages keep one workload
+        # recorder and the first to arm it wins
+        # (knn_tpu/obs/workload.py:352-357, the same in the port); the
+        # autotuner's docstring states the other direction. Armed first
+        # as the autotuner arms it, the alert's capture is refused in both
+        # packages with the same error and the same audit outcome, and the
+        # armed window keeps its owner.
+        from knn_tpu.obs import workload as jworkload
+        from knn_tpu_torch.obs import workload
+
+        audits = []
+        for name, wl_mod, eng_cls, rec_cls, parse in (
+                ("port", workload, AlertEngine, HistoryRecorder, parse_rules),
+                ("jax", jworkload, jalerts.AlertEngine,
+                 jhistory.HistoryRecorder, jalerts.parse_rules)):
+            clock = FakeClock()
+            wl = wl_mod.WorkloadCapture(str(tmp_path / name), num_features=3,
+                                        autostart=False)
+            wl.start(reason="autotune", window_s=5.0)
+            eng = eng_cls(parse([{
+                "name": "hot", "type": "threshold", "metric": "t_depth",
+                "value": 5, "actions": [{"do": "capture", "window_s": 8}]}]),
+                clock=clock, workload=wl)
+            feed = [snap(gauge=10)]
+            rec = make_recorder(feed, clock, cls=rec_cls)
+            _step(feed, rec, eng, clock)
+            eng.drain_actions()
+            acts = [{k: v for k, v in e.items() if k != "ts"}
+                    for e in _events(eng, "action")]
+            owner = wl.export()
+            audits.append((acts, owner["capturing"], owner["reason"]))
+            eng.close()
+        assert audits[0] == audits[1]
+        acts, capturing, reason = audits[0]
+        assert capturing and reason == "autotune"
+        assert acts == [{
+            "alert": "hot", "event": "action", "on": "fire",
+            "action": "capture",
+            "outcome": "error: CaptureStateError('a capture window is "
+                       "already armed; stop it first (POST /admin/capture "
+                       "{\"action\": \"stop\"})')",
+            "detail": "CaptureStateError('a capture window is already "
+                      "armed; stop it first (POST /admin/capture "
+                      "{\"action\": \"stop\"})')"}]
+
     RULES = [
         {"name": "low_headroom", "type": "threshold",
          "metric": "knn_capacity_headroom_ratio", "op": "<", "value": 0.15,

@@ -307,6 +307,27 @@ def test_fleet_slice_leaves_jax_and_knn_tpu_out():
     assert out.stdout.strip() == "[] False"
 
 
+def test_gates_leave_jax_knn_tpu_bench_and_tests_out():
+    # The gates import torch and the port only: importing the package and
+    # every gate module (as `python -m knn_tpu_torch.gates.<name>` does)
+    # leaves the JAX package, jax, bench.py, the scripts and the tests out.
+    code = (
+        "import sys\n"
+        "import knn_tpu_torch.gates\n"
+        "from knn_tpu_torch.gates import (capacity_probe,\n"
+        "    device_parity_sweep, disabled_overhead, parity_report,\n"
+        "    procgroup)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
+        "    'jax', 'jaxlib', 'knn_tpu', 'bench', 'tests', 'scripts',\n"
+        "    'procgroup', 'make_fixtures'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_multi_device_slice_leaves_jax_and_knn_tpu_out():
     # The multi-device slice: import its modules (the mesh engines, the
     # collectives and their audit, the launcher and its worker, the shard
