@@ -1,0 +1,9 @@
+"""Share of the traced window in which no kernel, copy or fill ran on the
+card, in % (``torch.profiler`` timeline)."""
+
+
+def read(r):
+    t = r.trace
+    if t is None or t.busy_s <= 0 or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
