@@ -18,8 +18,10 @@ route falls back to another. The distance form is always the exact one.
 The call sites carry the JAX package's fault points (``guarded_call``
 with ``device.put`` around ``backend.compile`` on the kernel route; the
 XLA route's own in ``backends/cuda.py::candidates_arrays``) and its spans:
-``fit``, ``distance``, ``fetch`` (deferred calls), ``vote``, ``sweep_k``
-and, on the XLA route, ``prepare``. The mutable tier's device merge
+``fit``, ``distance``, ``vote``, ``sweep_k``, and ``kneighbors`` around
+the classifier's public retrieval; the routes' entries open ``prepare``,
+``dispatch`` (the kernels' route) and ``fetch`` below ``distance``, a
+deferred call's ``fetch`` when it is resolved. The mutable tier's device merge
 enters as ``merge_tail`` (torch-scan route only, as in JAX). The serving
 batcher's staged upload enters as ``prefetched_queries``, and every
 retrieval counts its signature in ``obs/devprof.py``'s executable-cache
@@ -200,12 +202,6 @@ def _kneighbors_arrays(
                     cache=cache, deferred=deferred,
                     prefetched_queries=prefetched_queries,
                 )))
-        if deferred and obs.enabled():
-            def resolve_stripe(inner=out):
-                with obs.span("fetch", engine="stripe"):
-                    return inner()
-
-            return resolve_stripe
         return out
     return candidates_arrays(train_x, test_x, k, form, device=device,
                              cache=cache, deferred=deferred,
@@ -559,14 +555,16 @@ class KNNClassifier:
         tie-break order. No reference analogue (its kernel discards the
         candidate set after voting, main.cpp:64-78); standard retrieval API.
         """
-        return self._retrieve(test)
+        with obs.span("kneighbors", k=self.k):
+            return self._retrieve(test)
 
     def kneighbors_async(self, test: Dataset) -> AsyncResult:
         """:meth:`kneighbors` with the wait deferred: the device work and
         the copies to the host are enqueued when this returns;
         ``.result()`` on the handle waits once and returns the identical
         ``(dists, indices)``."""
-        return AsyncResult(self._retrieve(test, deferred=True))
+        with obs.span("kneighbors", k=self.k, deferred=True):
+            return AsyncResult(self._retrieve(test, deferred=True))
 
     def predict_async(self, test: Dataset) -> AsyncResult:
         """:meth:`predict` as a future. Computed from the retrieval core

@@ -42,11 +42,20 @@
 
 Everything is OFF by default and zero-cost when off: ``span()`` returns a
 shared no-op context manager and the metric helpers return at once, so the
-default path pays one predicate per call site. Enable programmatically with
-:func:`enable`, from the CLI with ``--metrics-out``/``--trace-out``, or
-ambiently with ``KNN_TPU_OBS=1`` (``KNN_TPU_OBS=torch`` also wraps each
-span in a ``torch.profiler.record_function``). The metric and span names
-are the JAX package's, so its dashboards read the port's artifacts.
+default path pays one predicate per call site (``span()`` two). Enable
+programmatically with :func:`enable`, from the CLI with
+``--metrics-out``/``--trace-out``, or ambiently with ``KNN_TPU_OBS`` set to
+anything but empty or ``0``. The metric and span names are the JAX
+package's, so its dashboards read the port's artifacts.
+
+Spans and the profiler follow one rule, on or off: while a
+``torch.profiler`` records on the calling thread, every ``span()`` is a
+``torch.profiler.record_function`` range of its name on the profiler's
+timeline, beside the card's kernels and copies; the tracer records the span
+only while obs is enabled. A benchmark's profiler, ``--trace-dir``,
+``--profile-out`` and ``/debug/profile`` thus see the host entry's stages
+with obs off. ``obs`` imports no torch: it takes torch from
+``sys.modules``, and a process that has not imported it runs no profiler.
 
 The module-level helpers operate on one process-global tracer and registry;
 tests and embedders that want isolation construct their own
@@ -58,7 +67,12 @@ from __future__ import annotations
 import os
 
 from knn_tpu_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
-from knn_tpu_torch.obs.tracer import Span, SpanTracer
+from knn_tpu_torch.obs.tracer import (
+    Span,
+    SpanTracer,
+    profiler_range,
+    profiler_recording,
+)
 
 __all__ = [
     "SpanTracer", "Span", "MetricsRegistry", "Counter", "Gauge", "Histogram",
@@ -87,16 +101,12 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-def enable(annotations: bool = False) -> None:
-    """Turn the global tracer + registry on. ``annotations=True``
-    additionally wraps every span in a ``torch.profiler.record_function``
-    so host spans line up with the card's timeline in a profiler trace.
-    Needs no compile listener: the port's builds (``nvcc`` in
-    ``ops/_build.py``, ``g++`` in ``native/``) report themselves to
-    ``obs/devprof.py`` when they run."""
+def enable() -> None:
+    """Turn the global tracer + registry on. Needs no compile listener: the
+    port's builds (``nvcc`` in ``ops/_build.py``, ``g++`` in ``native/``)
+    report themselves to ``obs/devprof.py`` when they run."""
     global _ENABLED
     _ENABLED = True
-    _TRACER.annotations = bool(annotations)
 
 
 def history_flag_error(interval_s: float,
@@ -144,11 +154,14 @@ def registry() -> MetricsRegistry:
 
 
 def span(name: str, **attrs):
-    """Context manager recording a nested span on the global tracer; a
-    shared no-op when observability is disabled."""
-    if not _ENABLED:
-        return _NULL_SPAN
-    return _TRACER.span(name, **attrs)
+    """Context manager recording a nested span on the global tracer. While
+    observability is disabled: the profiler's range alone when a profiler
+    records on this thread, else a shared no-op."""
+    if _ENABLED:
+        return _TRACER.span(name, **attrs)
+    if profiler_recording():
+        return profiler_range(name)
+    return _NULL_SPAN
 
 
 def counter_add(name: str, value=1, *, help: str = "", **labels) -> None:
@@ -169,4 +182,4 @@ def histogram_observe(name: str, value, *, buckets=None, help: str = "",
 
 
 if os.environ.get("KNN_TPU_OBS", "") not in ("", "0"):
-    enable(annotations=os.environ.get("KNN_TPU_OBS") == "torch")
+    enable()

@@ -5,10 +5,10 @@ hit/miss counters.
 
 - :func:`capture` / :func:`capture_for` — a ``torch.profiler`` capture with
   CPU and CUDA activities, returning ONE Perfetto-loadable Chrome
-  ``trace_event`` JSON object. During the window the global tracer's
-  ``torch.profiler.record_function`` pass-through (``obs/tracer.py``) is
-  forced on, so host spans recorded meanwhile appear in the same timeline
-  as the kernels. Exposed as ``--profile-out`` on the classify CLI and
+  ``trace_event`` JSON object. By the profiler rule (``obs/__init__.py``),
+  every span opened meanwhile on a thread the profiler records is a
+  ``record_function`` range in the same timeline as the kernels, with obs
+  on or off. Exposed as ``--profile-out`` on the classify CLI and
   ``GET /debug/profile?ms=N`` on the serve front-end. The profiler is
   process-global: a second capture while one runs raises
   :class:`CaptureBusy`.
@@ -243,16 +243,15 @@ def _activities():
 
 
 @contextlib.contextmanager
-def capture(annotate: bool = True):
+def capture():
     """Run a ``torch.profiler`` capture (CPU and, with a card, CUDA
     activities) around the with-block, yielding a :class:`Capture` whose
     ``.trace`` is the Perfetto-loadable Chrome ``trace_event`` JSON after
     exit.
 
-    ``annotate=True`` (default) forces the global tracer's
-    ``record_function`` pass-through on for the window, so host spans
-    recorded meanwhile appear beside the kernels (restored after). One
-    capture at a time: a concurrent attempt raises :class:`CaptureBusy`
+    Host spans opened in the block on this thread appear beside the kernels
+    as ``record_function`` ranges (the profiler rule, ``obs/__init__.py``).
+    One capture at a time: a concurrent attempt raises :class:`CaptureBusy`
     at once (the serve endpoint maps it to 409)."""
     if not _capture_lock.acquire(blocking=False):
         raise CaptureBusy(
@@ -260,16 +259,12 @@ def capture(annotate: bool = True):
         )
     cap = Capture()
     tmp = tempfile.mkdtemp(prefix="knn_devprof_")
-    tracer = obs.tracer()
-    prev_anno = tracer.annotations
     prof = None
     t0 = time.monotonic()
     try:
         try:
             from torch.profiler import profile
 
-            if annotate:
-                tracer.annotations = True
             prof = profile(activities=_activities())
             prof.__enter__()
         except Exception as e:  # noqa: BLE001 — a build without a profiler
@@ -278,7 +273,6 @@ def capture(annotate: bool = True):
         try:
             yield cap
         finally:
-            tracer.annotations = prev_anno
             path = os.path.join(tmp, "trace.json")
             if prof is not None:
                 try:
@@ -300,13 +294,13 @@ def capture(annotate: bool = True):
         _capture_lock.release()
 
 
-def capture_for(duration_ms: float, annotate: bool = True) -> dict:
+def capture_for(duration_ms: float) -> dict:
     """Blocking fixed-window capture (the ``/debug/profile?ms=N`` shape):
     start, sleep ``duration_ms`` while other threads keep working, stop,
     return the trace dict. The caller's thread contributes nothing to the
     window; the events come from the threads serving load (the card's
     kernels from every thread; host events as the profiler records them)."""
-    with capture(annotate=annotate) as cap:
+    with capture() as cap:
         time.sleep(max(0.0, float(duration_ms)) / 1e3)
     return cap.trace
 

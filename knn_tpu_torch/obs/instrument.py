@@ -12,14 +12,15 @@ backend uniformly reports:
 - ``knn_first_call_wall_ms{backend=...}``    first-call wall (kernel build
   and upload included: an upper bound of the first call's set-up)
 
-plus a ``predict`` span wrapping the call; :func:`record_transfer` counts
+plus a ``predict`` span wrapping the call (with obs off too, so that a
+profiler's trace holds its range); :func:`record_transfer` counts
 ``knn_transfer_bytes_total``; the ``record_serve_*`` helpers are the
 serving instrument set (``knn_tpu_torch/serve/``), with the JAX package's
 names, labels and buckets; the sharded set (:func:`record_shard_dispatch`,
 :func:`record_shard_wall`, :func:`record_shard_candidates`,
 :func:`record_collective`, :data:`STRATEGY_PATHS`) is the multi-device
 slice's (``knn_tpu_torch/parallel/``, ``knn_tpu_torch/shard/``).
-Everything here is a no-op while ``knn_tpu_torch.obs`` is disabled.
+Everything here records nothing while ``knn_tpu_torch.obs`` is disabled.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ def observed_backend(name: str, fn):
     @functools.wraps(fn)
     def wrapped(train, test, k, *args, **kwargs):
         if not obs.enabled():
-            return fn(train, test, k, *args, **kwargs)
+            with obs.span("predict", backend=name, k=k):
+                return fn(train, test, k, *args, **kwargs)
         q = getattr(test, "num_instances", None)
         t0 = time.monotonic()
         with obs.span("predict", backend=name, k=k):

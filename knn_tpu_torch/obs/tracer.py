@@ -9,17 +9,38 @@ Chrome ``trace_event`` JSON (the ``{"traceEvents": [...]}`` wrapper with
 matched ``B``/``E`` duration events), which both ``chrome://tracing`` and
 https://ui.perfetto.dev open directly.
 
-Spans carry optional attributes (rendered as Perfetto ``args``) and an
-optional ``torch.profiler.record_function`` pass-through, so host-side
-phases line up with the card's timeline when a ``torch.profiler`` trace is
-being taken.
+Spans carry optional attributes (rendered as Perfetto ``args``). While a
+``torch.profiler`` records on the calling thread (:func:`profiler_recording`),
+each span is also a ``record_function`` range of its name, so host-side
+phases sit on the profiler's timeline beside the card's kernels and copies.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+
+def profiler_recording() -> bool:
+    """Whether a ``torch.profiler`` records on the calling thread (the
+    profiler records the thread that started it). torch is taken from
+    ``sys.modules``: a process that has not imported it runs no profiler,
+    and this module imports none."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    try:
+        return torch.autograd._profiler_enabled()
+    except AttributeError:  # torch half imported on another thread
+        return False
+
+
+def profiler_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``name``, for a
+    ``with`` block; call it only where :func:`profiler_recording` is true."""
+    return sys.modules["torch"].profiler.record_function(name)
 
 
 class Span:
@@ -70,9 +91,7 @@ class SpanTracer:
     # stays bounded and the truncation is visible in the exported artifacts.
     DEFAULT_MAX_SPANS = 100_000
 
-    def __init__(self, annotations: bool = False,
-                 max_spans: int = DEFAULT_MAX_SPANS):
-        self.annotations = annotations
+    def __init__(self, max_spans: int = DEFAULT_MAX_SPANS):
         self.max_spans = max_spans
         self.dropped = 0
         self._lock = threading.Lock()
@@ -100,10 +119,8 @@ class SpanTracer:
         s.depth = len(stack)
         s.tid = threading.get_ident()
         stack.append(s)
-        if self.annotations:
-            import torch
-
-            s._annotation = torch.profiler.record_function(s.name)
+        if profiler_recording():
+            s._annotation = profiler_range(s.name)
             s._annotation.__enter__()
         s.wall_start_s = time.time()
         s.start_ns = time.monotonic_ns()  # last: excludes setup from dur

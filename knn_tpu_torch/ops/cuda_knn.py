@@ -37,7 +37,10 @@ forms: the exact form with d <= 128 runs the stripe kernel; the matmul forms
 with ``deferred=True`` returns before the card has finished: its queries go
 up through pinned host memory and its answers come back by copies into
 pinned host memory that an event marks done (:func:`to_device_async`,
-:func:`host_copy_async`).
+:func:`host_copy_async`). Both entries open the JAX package's stage spans
+on the calling thread: ``prepare`` (the train looked up, the queries put
+on the card, the chunk plan), ``dispatch`` (a chunk's kernels and its
+answers' copy enqueued) and ``fetch`` (the answers brought to the caller).
 
 Semantics, shared by the kernel and :func:`knn_stripe_candidates_reference`:
 per query, the k smallest ``(distance, train index)`` pairs over rows
@@ -57,6 +60,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from knn_tpu_torch import obs
 from knn_tpu_torch.ops import _build
 from knn_tpu_torch.ops.distance import DIST_FNS, pairwise_sq_dists
 from knn_tpu_torch.ops.vote import vote_neighbors
@@ -755,7 +759,12 @@ def stripe_candidates_arrays(
     now and ``resolve()`` returns their result. ``prefetched_queries`` is
     a float32 block already on ``device`` whose first Q rows are the
     queries (the serving batcher's staged upload): it is read in place of
-    the upload."""
+    the upload.
+
+    Spans: ``prepare`` once, ``dispatch`` once per chunk, and ``fetch``
+    over the whole of ``resolve()`` (so a deferred call's opens when it is
+    resolved), or over a chunk that leaves the window while later chunks
+    dispatch."""
     from knn_tpu_torch.utils.windowed import windowed_dispatch_deferred
 
     form = _resolve_stripe_precision(precision, train_x.shape[1])
@@ -767,20 +776,27 @@ def stripe_candidates_arrays(
         return (lambda: empty) if deferred else empty
     if chunk_rows is not None and chunk_rows < 1:
         raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
-    tx = cached_train(train_x, dev, cache,
-                      stripe_store_dtype(form, train_x.shape[1]))
-    qx = (prefetched_queries[:q] if prefetched_queries is not None
-          else to_device_async(test_x, dev))
-    if chunk_rows is None:
-        chunk_rows = q if dev.type == "cpu" else candidate_chunk_rows(
-            n, q, dev, train_x.shape[1], k, form)
+    with obs.span("prepare", engine="stripe"):
+        tx = cached_train(train_x, dev, cache,
+                          stripe_store_dtype(form, train_x.shape[1]))
+        qx = (prefetched_queries[:q] if prefetched_queries is not None
+              else to_device_async(test_x, dev))
+        if chunk_rows is None:
+            chunk_rows = q if dev.type == "cpu" else candidate_chunk_rows(
+                n, q, dev, train_x.shape[1], k, form)
 
     def dispatch(s0):
-        return host_copy_async(*stripe_route_candidates(
-            tx, qx[s0 : s0 + chunk_rows], n, k, form))
+        with obs.span("dispatch", engine="stripe"):
+            return host_copy_async(*stripe_route_candidates(
+                tx, qx[s0 : s0 + chunk_rows], n, k, form))
+
+    resolving = []
 
     def fetch(wait, s0):
-        return wait()
+        if resolving:
+            return wait()
+        with obs.span("fetch", engine="stripe"):
+            return wait()
 
     drain = windowed_dispatch_deferred(range(0, q, chunk_rows), dispatch,
                                        fetch)
@@ -788,9 +804,11 @@ def stripe_candidates_arrays(
 
     def resolve():
         if not memo_out:
-            parts = drain()
-            memo_out.append((np.concatenate([p[0] for p in parts]),
-                             np.concatenate([p[1] for p in parts])))
+            with obs.span("fetch", engine="stripe"):
+                resolving.append(True)
+                parts = drain()
+                memo_out.append((np.concatenate([p[0] for p in parts]),
+                                 np.concatenate([p[1] for p in parts])))
         return memo_out[0]
 
     return resolve if deferred else resolve()
@@ -828,7 +846,9 @@ def stripe_classify_arrays(
     :func:`knn_stripe_classify` on at most ``max_rows`` queries a call (the
     JAX entry's ``max_rows``: the degradation ladder halves it after an
     out-of-memory error), and returns ``[Q]`` int32 predictions on the
-    host — the copy back waits for the device work."""
+    host — the copy back waits for the device work. Spans: ``prepare``
+    (the uploads), ``dispatch`` (every chunk's kernels and vote, and their
+    join), ``fetch`` (the copy back)."""
     form = _resolve_stripe_precision(precision, train_x.shape[1])
     dev = resolve_device(device)
     q = test_x.shape[0]
@@ -836,12 +856,16 @@ def stripe_classify_arrays(
         return np.empty(0, np.int32)
     if max_rows is not None and max_rows < 1:
         raise ValueError(f"max_rows must be >= 1, got {max_rows}")
-    tx = cached_train(train_x, dev, cache,
-                      stripe_store_dtype(form, train_x.shape[1]))
-    ty = cached_labels(train_y, dev, cache)
-    qx = to_device(test_x, np.float32, dev)
+    with obs.span("prepare", engine="stripe"):
+        tx = cached_train(train_x, dev, cache,
+                          stripe_store_dtype(form, train_x.shape[1]))
+        ty = cached_labels(train_y, dev, cache)
+        qx = to_device(test_x, np.float32, dev)
     rows = max_rows or q
-    return torch.cat([
-        knn_stripe_classify(tx, ty, qx[s : s + rows], train_x.shape[0], k,
-                            num_classes, form)
-        for s in range(0, q, rows)]).cpu().numpy()
+    with obs.span("dispatch", engine="stripe"):
+        out = torch.cat([
+            knn_stripe_classify(tx, ty, qx[s : s + rows], train_x.shape[0],
+                                k, num_classes, form)
+            for s in range(0, q, rows)])
+    with obs.span("fetch", engine="stripe"):
+        return out.cpu().numpy()

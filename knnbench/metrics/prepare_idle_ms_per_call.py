@@ -1,0 +1,13 @@
+"""The card's idle inside the traced window's calls while ``prepare`` was
+the innermost stage span of the program open on the calling thread (the
+train looked up, the queries put on the card, the chunk plan), over the
+calls, in ms (``stages.py``). Nothing when the trace holds no entry span
+of the program."""
+
+from knnbench import stages
+
+stages.install()
+
+
+def read(r):
+    return stages.per_call_ms(r, "prepare")

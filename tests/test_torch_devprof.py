@@ -10,7 +10,7 @@
 - Executable-signature hit/miss with JAX's miss-then-hit semantics, keyed
   on the port's (route, form, swept rows, k, d), at the retrieval core.
 - ``torch.profiler`` captures: host spans ride the trace as
-  ``record_function`` ranges; ``CaptureBusy`` for a second capture; the
+  ``record_function`` ranges, with obs on or off; ``CaptureBusy`` for a second capture; the
   serve endpoints and the classify CLI's ``--profile-out``/``--trace-dir``.
 
 What the card adds (the kernels' events in a capture, real memory
@@ -187,7 +187,17 @@ class TestCapture:
         assert trace["otherData"]["source"] == "torch.profiler"
         names = {e.get("name", "") for e in trace["traceEvents"]}
         assert "serve.dispatch" in names
-        assert obs.tracer().annotations is False  # scoped to the window
+        # With obs off the capture holds the host ranges all the same (the
+        # profiler rule), and the tracer records nothing.
+        obs.disable()
+        obs.reset()
+        with devprof.capture() as cap:
+            with obs.span("prepare", engine="stripe"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+        assert cap.error is None
+        assert "prepare" in {e.get("name", "")
+                             for e in cap.trace["traceEvents"]}
+        assert obs.tracer().spans() == []
 
     def test_concurrent_capture_raises_busy(self, obs_on):
         with devprof.capture():

@@ -10,9 +10,13 @@ nesting, attributes — timestamps, thread ids and the category aside); and
 Tolerances: exact, timestamps and wall times aside.
 """
 
+import contextlib
 import io
 import json
 import math
+import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -74,6 +78,21 @@ def _spans(tracer):
 
 def _shape(events):
     return [(e["name"], e["ph"], e.get("args")) for e in events]
+
+
+@contextlib.contextmanager
+def _profiled():
+    """A ``torch.profiler`` recording the block on this thread; yields a
+    list that holds, after the block, the names of the ``record_function``
+    ranges it recorded, in start order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        yield names
+    ranges = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.is_user_annotation()), key=lambda e: e.start_ns())
+    names.extend(e.name() for e in ranges)
 
 
 class TestRegistryTwin:
@@ -185,24 +204,72 @@ class TestTracerTwin:
         doc = metrics_document(tr, MetricsRegistry())
         assert doc["spans_dropped"] == 2
 
-    def test_annotations_use_record_function(self, monkeypatch):
-        seen = []
-
-        class Recorder:
-            def __init__(self, name):
-                seen.append(("init", name))
-
-            def __enter__(self):
-                seen.append("enter")
-
-            def __exit__(self, *exc):
-                seen.append("exit")
-
-        monkeypatch.setattr(torch.profiler, "record_function", Recorder)
-        tr = SpanTracer(annotations=True)
-        with tr.span("classify"):
+    def test_annotations_use_record_function(self):
+        """The profiler rule on a tracer: a span is a ``record_function``
+        range of its name exactly while a profiler records on the thread;
+        the tracer records every span either way."""
+        tr = SpanTracer()
+        with tr.span("before"):
             pass
-        assert seen == [("init", "classify"), "enter", "exit"]
+        with _profiled() as names:
+            with tr.span("classify", backend="cuda"):
+                with tr.span("predict"):
+                    pass
+        with tr.span("after"):
+            pass
+        assert names == ["classify", "predict"]
+        assert [s.name for s in tr.spans()] == ["before", "predict",
+                                                "classify", "after"]
+
+
+class TestProfilerRule:
+    """``obs.span`` and the profiler, with obs off and on."""
+
+    def test_off_with_a_profiler_is_a_range_and_records_nothing(self):
+        obs.disable()
+        obs.reset()
+        with _profiled() as names:
+            with obs.span("prepare", engine="stripe"):
+                with obs.span("dispatch"):
+                    pass
+        assert names == ["prepare", "dispatch"]
+        assert obs.tracer().spans() == []
+
+    def test_off_without_a_profiler_is_the_shared_null(self):
+        obs.disable()
+        null = obs.span("anything")
+        with _profiled():
+            assert obs.span("inside") is not null
+        assert obs.span("after", big="attr") is null
+        assert obs.tracer().spans() == []
+
+    def test_on_with_a_profiler_one_range_per_span(self):
+        obs.enable()
+        obs.reset()
+        with _profiled() as names:
+            for _ in range(3):
+                with obs.span("fetch"):
+                    with obs.span("vote"):
+                        pass
+        assert names == ["fetch", "vote"] * 3
+        assert [s.name for s in obs.tracer().spans()] == ["vote", "fetch"] * 3
+
+    def test_obs_imports_no_torch(self):
+        code = ("import sys\n"
+                "from knn_tpu_torch import obs\n"
+                "with obs.span('a'):\n"
+                "    pass\n"
+                "obs.enable()\n"
+                "with obs.span('b'):\n"
+                "    pass\n"
+                "assert obs.tracer().find('b') is not None\n"
+                "assert 'torch' not in sys.modules, 'obs imported torch'\n")
+        env = {k: v for k, v in os.environ.items() if k != "KNN_TPU_OBS"}
+        done = subprocess.run([sys.executable, "-c", code], env=env,
+                              cwd=os.path.dirname(os.path.dirname(
+                                  os.path.abspath(__file__))),
+                              capture_output=True, text=True, timeout=120)
+        assert done.returncode == 0, done.stderr
 
 
 class TestDisabledIsNoop:
