@@ -15,7 +15,10 @@ no kernel fails (no quiet fallback), and a torch-op path that launched a
 hand kernel fails too. After JAX's trials, a block of trials from the same
 generator at k 17–min(n, 300) (:data:`BIGK_PATHS`) covers the tile scan's
 k > 16 selection, exact and bf16, at random shapes; JAX sends k > 16 to
-XLA and has no such block.
+XLA and has no such block. There each trial also holds the tile scan's
+``[Q, splits, k]`` keys in the exact and fast forms (:data:`BIGK_KEYS`), at
+the wrapper's split plan, bit-equal to ``knn_tile_scan_reference``'s: on
+these integer grids the fast form's distances are exact too.
 
 With ``--device cpu`` every path runs its plain versions on the host and
 no kernel launches, so the launch rule is off.
@@ -58,6 +61,11 @@ BIGK_PATHS = {
     "tile-exact": (None, ("tile_exact", "stripe_merge")),
     "tile-bf16": (None, ("tile_bf16", "stripe_merge")),
 }
+
+
+#: The k > 16 block's key check: the tile scan's forms whose keys are held
+#: bit-equal to the plain version's.
+BIGK_KEYS = ("exact", "fast")
 
 
 def draw_trial(rng, t: int, n_lo: int = 3, k_lo: int = 1, k_hi: int = 16):
@@ -135,8 +143,32 @@ def _path_fns(dev, train_x, train_y, test_x, k, c):
     }
 
 
+def _key_failures(dev, train_x, test_x, k, forms, t, where) -> int:
+    """Hold the tile scan's keys in each of ``forms`` at the wrapper's split
+    plan bit-equal to its plain version's; print each failure."""
+    import torch
+
+    from knn_tpu_torch.ops import tile_knn
+    from knn_tpu_torch.probes.tune_stripe_selection import H100_SMS
+
+    sm = (torch.cuda.get_device_properties(dev).multi_processor_count
+          if dev.type == "cuda" else H100_SMS)
+    tx, qx = torch.from_numpy(train_x).to(dev), torch.from_numpy(test_x).to(dev)
+    n, q = train_x.shape[0], test_x.shape[0]
+    failures = 0
+    for form in forms:
+        plan = tile_knn.tile_split_plan(n, q, sm, k, form)
+        got = tile_knn.knn_tile_scan(tx, qx, n, k, form, *plan)
+        want = tile_knn.knn_tile_scan_reference(tx, qx, n, k, form, *plan)
+        if not torch.equal(got, want):
+            failures += 1
+            print(f"FAIL trial {t} [keys-{form}]: {where} plan={plan} "
+                  f"({int((got != want).sum())} keys differ)")
+    return failures
+
+
 def _run_block(label, rng, t0, trials, paths, draw_kw, dev, on_card,
-               launches) -> int:
+               launches, keys=()) -> int:
     from knn_tpu_torch.backends.oracle import knn_oracle
 
     reset, read = _counters()
@@ -168,6 +200,8 @@ def _run_block(label, rng, t0, trials, paths, draw_kw, dev, on_card,
                       + (f"no launch of {idle}" if idle else
                          f"hand kernels launched on a torch-op path")
                       + f"; launches {seen}")
+        if keys:
+            failures += _key_failures(dev, train_x, test_x, k, keys, t, where)
         if (t - t0 + 1) % 10 == 0:
             print(f"{label}: {t - t0 + 1}/{trials} trials, {failures} "
                   f"failures", file=sys.stderr)
@@ -206,10 +240,11 @@ def main(argv=None) -> int:
           "ALL EXACT" if failures == 0 else f"{failures} FAILURES")
     big_fail = _run_block("bigk", rng, args.trials, args.bigk_trials,
                           BIGK_PATHS, dict(n_lo=17, k_lo=17, k_hi=300), dev,
-                          on_card, launches)
+                          on_card, launches, keys=BIGK_KEYS)
     print("device parity sweep, k > 16 block:",
           f"{args.bigk_trials} trials x {len(BIGK_PATHS)} paths",
-          "ALL EXACT" if big_fail == 0 else f"{big_fail} FAILURES")
+          "ALL EXACT" if big_fail == 0 else f"{big_fail} FAILURES",
+          f"(with the tile scan's {'/'.join(BIGK_KEYS)} keys)")
     print("launches: " + json.dumps(
         {label: {name: {key: n for key, n in seen.items() if n}
                  for name, seen in per.items()}

@@ -16,7 +16,9 @@ threshold-filtered list in its output row, and :func:`tile_split_plan`
 makes each split at least 2k rows so that the list fills in its first half.
 
 :func:`knn_tile_scan` is the wrapper (``knn_tile_scan.launches`` counts its
-launches per form); :func:`knn_tile_scan_reference` its plain version;
+launches per form; ``.candidates``, ``.folds`` and ``.overflow_rounds`` the
+k > 16 selection's work while obs is on, as :func:`selection_counters`
+reads it); :func:`knn_tile_scan_reference` its plain version;
 :func:`knn_tile_candidates` plans the splits and runs scan and merge.
 
 The norms of the matmul forms are hoisted out of the kernel, as in the JAX
@@ -46,6 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from knn_tpu_torch import obs
 from knn_tpu_torch.ops import _build
 from knn_tpu_torch.ops.cuda_knn import (
     INT_MAX,
@@ -185,7 +188,7 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 # The C entries of csrc/tile_knn.cu; pointers and the stream are 64-bit.
 _SIGNATURES = {
     "tile_knn_scan": ([_i, _p, _i, _p, _i, _p, _i, _p, _i, _i, _i, _i, _i, _p,
-                       _p], _i),
+                       _p, _p], _i),
     "tile_knn_scan_bf16": ([_p, _i, _p, _i, _p, _p, _i, _i, _i, _i, _i, _p, _p],
                            _i),
 }
@@ -193,6 +196,43 @@ _SIGNATURES = {
 
 def _library():
     return _build.load_library("tile_knn", _SIGNATURES)
+
+
+#: The CUDA-core forms' k > 16 selection's totals, in the order the kernel
+#: keeps them: candidate keys appended (each is folded once), folds of a
+#: query's buffer into its list, overflow rounds (csrc/tile_knn.cu,
+#: ``BufferedSelection``).
+SELECTION_COUNTERS = ("candidates", "folds", "overflow_rounds")
+# device -> int64 [3] on that card: the totals since the process began,
+# added to by the kernel while obs is on.
+_selection_totals: dict = {}
+
+
+def _selection_stats(dev: torch.device) -> Optional[torch.Tensor]:
+    """The card's totals tensor while obs is on, else None (the kernel
+    then keeps no totals)."""
+    if not obs.enabled():
+        return None
+    totals = _selection_totals.get(dev)
+    if totals is None:
+        totals = _selection_totals.setdefault(
+            dev, torch.zeros(len(SELECTION_COUNTERS), dtype=torch.int64,
+                             device=dev))
+    return totals
+
+
+def selection_counters() -> dict:
+    """The k > 16 selection's totals over every card, as counted while obs
+    was on: ``knn_tile_scan.candidates``, ``.folds`` and
+    ``.overflow_rounds`` are set to them, and returned by name. Reading
+    them waits for the cards' work: call it when the counters are read,
+    never on a call's path."""
+    sums = [0] * len(SELECTION_COUNTERS)
+    for totals in list(_selection_totals.values()):
+        sums = [a + b for a, b in zip(sums, totals.tolist())]
+    for name, value in zip(SELECTION_COUNTERS, sums):
+        setattr(knn_tile_scan, name, value)
+    return dict(zip(SELECTION_COUNTERS, sums))
 
 
 def knn_tile_scan(
@@ -210,7 +250,9 @@ def knn_tile_scan(
     split starting on a multiple of ``SPLIT_ALIGN`` rows), the bf16 form
     the tensor-core kernel over :func:`bf16_operand` copies. The train's
     norms are kept with it too. ``knn_tile_scan.launches[form]`` counts the
-    launches.
+    launches. At k > 16, while obs is on, the exact and fast forms add
+    their selection's totals on the card, without waiting for it;
+    :func:`selection_counters` reads them.
 
     The bf16 kernel's tolerance: its operands are the plain version's
     (rounded once, to nearest even; zero features add exactly 0) and so
@@ -255,12 +297,14 @@ def knn_tile_scan(
         else:
             train_t = feature_major(train_x, cache=True)
             test_t = feature_major(test_x)
+            stats = _selection_stats(dev) if k > STRIPE_MAX_K else None
             rc = lib.tile_knn_scan(
                 FORMS.index(form), train_t.data_ptr(), train_t.shape[1],
                 None if t2 is None else t2.data_ptr(), n_valid,
                 test_t.data_ptr(), test_t.shape[1],
                 None if q2 is None else q2.data_ptr(), q, d, k, n_splits,
-                rows_per_split, partial.data_ptr(), stream)
+                rows_per_split, partial.data_ptr(),
+                None if stats is None else stats.data_ptr(), stream)
     if rc != 0:
         raise launch_error(f"tile_knn_scan ({form})", rc)
     knn_tile_scan.launches[form] += 1
@@ -268,6 +312,9 @@ def knn_tile_scan(
 
 
 knn_tile_scan.launches = dict.fromkeys(FORMS, 0)
+# The k > 16 selection's totals as selection_counters() last read them.
+knn_tile_scan.candidates = knn_tile_scan.folds = 0
+knn_tile_scan.overflow_rounds = 0
 
 
 def knn_tile_candidates(

@@ -193,6 +193,81 @@ def test_big_k_tile_kernel_equals_plain_version(card, form, k, plan):
     assert torch.equal(ki, ri) and torch.equal(kd, rd)
 
 
+def _bigk_case(case, d):
+    """``(train, test, n_valid)`` for the k > 16 selection: 3,001 integer
+    rows (n_valid 2,924), 300 queries (the last query block holds 44).
+    ``grid``: small integers, duplicated rows, NaN rows; ``descending``:
+    every query's distance falls with the row index, so every row passes
+    its threshold and the buffers overflow; ``equal``: one distance for
+    every row of a query, so the lowest indices win; ``nan``: half the rows
+    NaN."""
+    n, q = 3001, 300
+    rng = np.random.default_rng(d * 7 + len(case))
+    if case == "grid":
+        train, test = _grid(rng, n, q, d)
+        train[rng.choice(n, 200, replace=False), rng.integers(0, d, 200)] = np.nan
+    elif case == "descending":
+        train = np.zeros((n, d), np.float32)
+        train[:, 0] = np.arange(n, 0, -1)
+        test = rng.integers(0, 2, (q, d)).astype(np.float32)
+    elif case == "equal":
+        train = np.ones((n, d), np.float32)
+        test = rng.integers(0, 3, (q, d)).astype(np.float32)
+    else:
+        train, test = _grid(rng, n, q, d)
+        train[rng.choice(n, n // 2, replace=False), 0] = np.nan
+    return train, test, n - 77
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["grid", "descending", "equal", "nan"])
+@pytest.mark.parametrize("d", [11, 128, 784])
+@pytest.mark.parametrize("k", [17, 100, 128, 256, 1000])
+@pytest.mark.parametrize("form", ["exact", "fast"])
+def test_k_over_16_selection_keys_equal_plain_version(card, form, k, d, case):
+    # The CUDA-core forms' k > 16 selection (candidates filtered in the
+    # epilogue, buffered and folded in batches, overflow rounds) at the
+    # wrapper's plan and at splits of 128 rows (fewer valid rows than k
+    # from k = 128 on) and 700 rows; integer data, so the fast form's keys
+    # are exact too. Keys bit-equal per (query, split).
+    train, test, n_valid = _bigk_case(case, d)
+    t, q = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
+    sm = torch.cuda.get_device_properties(card).multi_processor_count
+    plans = [tile_knn.tile_split_plan(n_valid, 300, sm, k, form),
+             (-(-n_valid // 128), 128), (-(-n_valid // 700), 700)]
+    for plan in plans:
+        got = tile_knn.knn_tile_scan(t, q, n_valid, k, form, *plan)
+        want = tile_knn.knn_tile_scan_reference(t, q, n_valid, k, form, *plan)
+        assert torch.equal(got, want), (plan, int((got != want).sum()))
+
+
+@pytest.mark.cuda
+def test_k_over_16_selection_counters_count_on_the_card(card):
+    # With obs on the kernel adds its totals on the card; every row passes
+    # on descending rows, so the first tile's 128 keys a query overflow the
+    # 64-key buffers.
+    from knn_tpu_torch import obs
+
+    train, test, n_valid = _bigk_case("descending", 11)
+    t, q = torch.from_numpy(train).to(card), torch.from_numpy(test).to(card)
+    before = tile_knn.selection_counters()
+    tile_knn.knn_tile_scan(t, q, n_valid, 100, "exact", 1, 3072)
+    assert tile_knn.selection_counters() == before  # obs off: no totals
+    was = obs.enabled()
+    obs.enable()
+    try:
+        tile_knn.knn_tile_scan(t, q, n_valid, 100, "exact", 1, 3072)
+    finally:
+        if not was:
+            obs.disable()
+    got = tile_knn.selection_counters()
+    delta = {name: got[name] - before[name] for name in got}
+    assert delta["candidates"] == 300 * n_valid  # every row passes
+    assert delta["folds"] >= 300 * n_valid // 64
+    assert delta["overflow_rounds"] >= 1
+    assert tile_knn.knn_tile_scan.candidates == got["candidates"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine", ["auto", "xla"])
 @pytest.mark.parametrize("metric,precision,k", [

@@ -434,21 +434,37 @@ def test_cli_result_line_matches_jax_tpu_pallas(tmp_path, precision):
     assert got == want
 
 
-def test_bigk_probe_main_at_a_reduced_size():
+@pytest.mark.parametrize("shape,d", [("large", 11), ("sift128", 128)])
+def test_bigk_probe_main_at_a_reduced_size(shape, d):
     from knn_tpu_torch.probes import tile_bigk
     out = io.StringIO()
-    assert tile_bigk.main(["--device", "cpu", "--rows", "700", "--queries",
-                           "9", "--ks", "17,300", "--factors", "1,2",
-                           "--reps", "1"], stdout=out) == 0
+    assert tile_bigk.main(["--device", "cpu", "--shape", shape, "--seed",
+                           "2147483651", "--rows", "700", "--queries", "9",
+                           "--ks", "17,300", "--factors", "1,2", "--reps",
+                           "1"], stdout=out) == 0
     lines = out.getvalue().splitlines()
     assert lines[0] == ("device: cpu (plain versions); 9 queries x 700 train "
-                        "x 11 feats, exact form")
+                        f"x {d} feats, exact form")
     rows = [json.loads(line) for line in lines[1:]]
     assert [r["k"] for r in rows] == [17, 300]
     for r in rows:
         assert r["plan"] == list(tile_knn.tile_split_plan(700, 9, 132, r["k"]))
         assert sorted(r["factors"]) == ["1", "2"]
         assert all(ok is True for _, _, ok in r["factors"].values())
+        assert r["ref_parity"] is True
+        # The plain version keeps no counters.
+        assert r["selection"] == dict.fromkeys(tile_knn.SELECTION_COUNTERS, 0)
+
+
+def test_bigk_probe_sift_shape_is_drawn_from_the_seed():
+    from knn_tpu_torch.probes import tile_bigk
+    x, q = tile_bigk.sift128(7, rows=50, queries=3)
+    assert x.shape == (50, 128) and q.shape == (3, 128)
+    assert x.dtype == q.dtype == np.float32
+    assert np.array_equal(np.unique(np.round(x * 255)), np.unique(x * 255))
+    assert 0 <= x.min() and x.max() <= 1
+    assert np.array_equal(x, tile_bigk.sift128(7, rows=50, queries=3)[0])
+    assert not np.array_equal(x, tile_bigk.sift128(8, rows=50, queries=3)[0])
 
 
 # The bf16 kernel's host-side operands: bfloat16 copies rounded once and
@@ -590,6 +606,17 @@ def test_tile_forms_probe_main_at_a_reduced_size():
         cuda_knn._pack_keys(dist, idx).sum())
 
 
+def test_selection_counters_exist_and_start_at_zero():
+    # The k > 16 selection's obs counters: on the wrapper, by name, 0 until
+    # a card's kernel counts; no card has counted in this process.
+    assert tile_knn.SELECTION_COUNTERS == ("candidates", "folds",
+                                           "overflow_rounds")
+    assert tile_knn.selection_counters() == dict.fromkeys(
+        tile_knn.SELECTION_COUNTERS, 0)
+    for name in tile_knn.SELECTION_COUNTERS:
+        assert getattr(tile_knn.knn_tile_scan, name) == 0
+
+
 @pytest.mark.parametrize("rows", [1, 127, 128, 300])
 @pytest.mark.parametrize("d", [1, 11, 128, 129, 784])
 def test_feature_major_transposes_and_pads_the_rows(d, rows):
@@ -640,6 +667,16 @@ def test_tile_kernel_constants_match_the_source():
 
     assert const(src, "kTile") == tile_knn._TILE_ROWS == 128
     assert const(src, "kChunk") == 16 and const(src, "kStages") == 2
+    # The k > 16 path of the CUDA-core forms: the ring, then per query a
+    # buffer of kBufKeys keys, a threshold key, a count, a fill and a bit,
+    # and the block's two totals; two blocks, each with the 1 KB the card reserves
+    # per block, fit an SM's 228 KB, as at k <= 16.
+    tile, chunk, stages = const(src, "kTile"), const(src, "kChunk"), 2
+    buf_keys, fold_at = const(src, "kBufKeys"), const(src, "kFoldAt")
+    ring = stages * 2 * chunk * tile * 4
+    smem = ring + tile * buf_keys * 8 + tile * (8 + 4 + 4) + 2 * 8 + tile // 8
+    assert 2 * (smem + 1024) <= 228 * 1024
+    assert buf_keys & (buf_keys - 1) == 0 and 1 <= fold_at <= buf_keys
     assert const(head, "kRowGranule") == cuda_knn.ROW_GRANULE == 128
     assert const(head, "kSplitAlign") == cuda_knn.SPLIT_ALIGN == 4
     assert tile_knn._TILE_ROWS % cuda_knn.SPLIT_ALIGN == 0
