@@ -37,8 +37,14 @@ def make_inputs(config: dict, traffic: dict, seed: int, device) -> dict:
     train_y = torch.randint(0, config["classes"], (config["train_rows"],),
                             generator=g, device=device, dtype=torch.int32)
     pool = _features(g, pool_rows(traffic), config, device)
-    return {"train_x": train_x.cpu().numpy(), "train_y": train_y.cpu().numpy(),
-            "pool": pool.cpu().numpy()}
+    out = {"train_x": train_x.cpu().numpy(), "train_y": train_y.cpu().numpy(),
+           "pool": pool.cpu().numpy()}
+    # The program's fit starts on an empty card: the draw's blocks go back
+    # from the caching allocator.
+    del train_x, train_y, pool
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def pool_rows(traffic: dict) -> int:

@@ -9,6 +9,15 @@ the lowest index; a vote tie goes to the lowest class.
 float64 arithmetic: that is the control, the reference with the operands of
 a TF32 or bfloat16 path and an accumulation finer than any such path has,
 put in the program's place.
+
+The train stays on the host and goes through the device in blocks of rows,
+so the reference's device memory is bounded whatever the train's size: one
+train block in float64 (:data:`TRAIN_BLOCK_ELEMENTS`, 4 GiB) beside two
+distance tiles (:data:`BLOCK_ELEMENTS`, 2 GiB each) and a mask of one tile,
+under :data:`DEVICE_BUDGET_BYTES`. A train whose float64 copy fits one block
+is ranked in one block, which stays on the device while the neighbors'
+distances are found again; a longer train's neighbors are gathered on the
+host.
 """
 
 from __future__ import annotations
@@ -17,6 +26,10 @@ import numpy as np
 import torch
 
 BLOCK_ELEMENTS = 1 << 28  # distances held at once: 2 GiB in float64
+TRAIN_BLOCK_ELEMENTS = 1 << 29  # train features held at once: 4 GiB in float64
+# The most the reference holds on the device at once: a train block and
+# its squares, or a train block, two distance tiles and a tile's mask.
+DEVICE_BUDGET_BYTES = 9 << 30
 OPERANDS = (None, "tf32", "bf16")
 
 
@@ -34,50 +47,96 @@ def round_operands(x: torch.Tensor, operands: "str | None") -> torch.Tensor:
     raise ValueError(f"operands must be one of {OPERANDS}, got {operands!r}")
 
 
+def _on_device(rows: np.ndarray, device, operands) -> torch.Tensor:
+    """Host float32 ``rows`` on ``device``, rounded to ``operands``, in
+    float64."""
+    rows = np.require(rows, requirements=("C", "W"))
+    return round_operands(torch.as_tensor(rows).to(device),
+                          operands).to(torch.float64)
+
+
+def train_block_rows(n: int, dim: int) -> int:
+    """The train rows of one block: all ``n`` where their float64 copy
+    fits :data:`TRAIN_BLOCK_ELEMENTS`, and never more than a distance tile
+    holds for one query."""
+    return max(1, min(n, TRAIN_BLOCK_ELEMENTS // max(dim, 1), BLOCK_ELEMENTS))
+
+
 def neighbors(train_x: np.ndarray, queries: np.ndarray, k: int,
               device="cpu", operands: "str | None" = None):
     """``(dist [Q, k] float64, idx [Q, k] int64)``: the ``k`` nearest train
-    rows of each query, ascending by (distance, index)."""
+    rows of each query, ascending by (distance, index).
+
+    For each train block and each tile of queries, the block's ``k`` best
+    by (distance, column) as :func:`_smallest` ranks them, merged into each
+    query's running best by (distance, train index); then the distances of
+    the ``k`` found again as sums of squared differences, and the ranking
+    by them."""
     device = torch.device(device)
+    n, q = train_x.shape[0], queries.shape[0]
+    block = train_block_rows(n, train_x.shape[1])
+    rows = max(1, BLOCK_ELEMENTS // block)
+    best_d = np.empty((q, 0), np.float64)
+    best_i = np.empty((q, 0), np.int64)
+    whole = None  # the train on the device, where it is one block
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        t = round_operands(torch.as_tensor(train_x).to(device),
-                           operands).to(torch.float64)
-        t2 = (t * t).sum(dim=1)
-        n, q = t.shape[0], queries.shape[0]
-        out_d = np.empty((q, k), np.float64)
-        out_i = np.empty((q, k), np.int64)
-        rows = max(1, BLOCK_ELEMENTS // max(n, 1))
-        for s in range(0, q, rows):
-            x = round_operands(torch.as_tensor(np.array(queries[s:s + rows]))
-                               .to(device), operands).to(torch.float64)
-            d = (x * x).sum(dim=1)[:, None] + t2[None, :] - 2 * (x @ t.T)
-            _, idx = _smallest(d, k)
-            # The ranking's distances again, as sums of squared differences,
-            # and the ranking by them.
-            rows_i = torch.as_tensor(idx, device=device)
-            dist = ((t[rows_i] - x[:, None]) ** 2).sum(-1).cpu().numpy()
-            order = np.lexsort((idx, dist), axis=-1)
-            out_d[s:s + rows] = np.take_along_axis(dist, order, -1)
-            out_i[s:s + rows] = np.take_along_axis(idx, order, -1)
-            del d, x
-        return out_d, out_i
+        for start in range(0, n, block):
+            t = _on_device(train_x[start:start + block], device, operands)
+            t2 = (t * t).sum(dim=1)
+            found_d = np.empty((q, min(k, t.shape[0])), np.float64)
+            found_i = np.empty(found_d.shape, np.int64)
+            for s in range(0, q, rows):
+                x = _on_device(queries[s:s + rows], device, operands)
+                d = (x * x).sum(dim=1)[:, None] + t2[None, :]
+                cross = x @ t.T
+                d -= cross.mul_(2)
+                del cross
+                found_d[s:s + rows], found_i[s:s + rows] = _smallest(
+                    d, found_d.shape[1])
+                del d, x
+            if block >= n:
+                whole = t
+            del t, t2
+            best_d = np.concatenate([best_d, found_d], axis=1)
+            best_i = np.concatenate([best_i, found_i + start], axis=1)
+            order = np.lexsort((best_i, best_d), axis=-1)[:, :k]
+            best_d = np.take_along_axis(best_d, order, -1)
+            best_i = np.take_along_axis(best_i, order, -1)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    # The ranking's distances again, as sums of squared differences, and
+    # the ranking by them.
+    dist = distances(train_x if whole is None else whole, queries, best_i,
+                     device, operands, rows)
+    order = np.lexsort((best_i, dist), axis=-1)
+    return (np.take_along_axis(dist, order, -1),
+            np.take_along_axis(best_i, order, -1))
 
 
-def distances(train_x: np.ndarray, queries: np.ndarray, idx: np.ndarray,
-              device="cpu") -> np.ndarray:
+def distances(train, queries: np.ndarray, idx: np.ndarray, device="cpu",
+              operands: "str | None" = None,
+              rows: "int | None" = None) -> np.ndarray:
     """``[Q, k]`` float64 squared distances of each query to the train rows
-    ``idx [Q, k]`` names, as sums of squared differences."""
+    ``idx [Q, k]`` names, as sums of squared differences, ``rows`` queries
+    at a time and never more than a quarter of a distance tile holds.
+    ``train`` is the host's float32 array, whose rows are gathered on the
+    host, or the whole train on the device as :func:`_on_device` made it."""
     device = torch.device(device)
-    t = torch.as_tensor(train_x).to(device)
     out = np.empty(idx.shape, np.float64)
-    rows = max(1, BLOCK_ELEMENTS // 4 // max(idx.shape[1] * train_x.shape[1], 1))
+    most = max(1, BLOCK_ELEMENTS // 4 // max(idx.shape[1] * train.shape[1], 1))
+    rows = most if rows is None else min(rows, most)
     for s in range(0, idx.shape[0], rows):
-        x = torch.as_tensor(np.array(queries[s:s + rows])).to(device, torch.float64)
-        near = t[torch.as_tensor(idx[s:s + rows], device=device)].to(torch.float64)
+        x = _on_device(queries[s:s + rows], device, operands)
+        picked = idx[s:s + rows]
+        if isinstance(train, torch.Tensor):
+            near = train[torch.as_tensor(picked, device=device)]
+        else:
+            near = torch.index_select(torch.as_tensor(train), 0,
+                                      torch.as_tensor(picked.reshape(-1)))
+            near = round_operands(near.to(device), operands).to(
+                torch.float64).reshape(*picked.shape, -1)
         out[s:s + rows] = ((near - x[:, None]) ** 2).sum(-1).cpu().numpy()
     return out
 

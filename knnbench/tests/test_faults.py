@@ -3,11 +3,14 @@ come out false for each fault a cell can have, and true without one."""
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 
 from knn_tpu_torch.models.knn import KNNClassifier
 from knnbench import manifest, run
+from knnbench.tests.conftest import cut_to_cpu_size, write_json
 
 CELLS = [w["name"] for w in manifest.load()["workloads"]]
 
@@ -80,3 +83,49 @@ def test_each_fault_fails_the_check(tiny_cell, break_program, name, fault):
         assert result["failed"] == result["attempted"] > 0
         assert result["checks"]["unanswered"]["value"] > 0
     assert np.isfinite(result["metrics"]["setup_s"]["value"])
+
+
+def add_bigann(root):
+    """BIGANN-100M's shape, 100,000,000 x 128, and a cell on it: one new
+    file and two new entries."""
+    bench_dir = root / "knnbench"
+    cfg = json.loads((bench_dir / "configs" / "sift-128-euclidean.json")
+                     .read_text())
+    cfg.update(name="bigann-100m", train_rows=100_000_000,
+               source="big-ann-benchmarks bigann-100M")
+    write_json(bench_dir / "configs" / "bigann-100m.json", cfg)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "bigann-100m", "source": "a test",
+                             "file": "knnbench/configs/bigann-100m.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": "bigann100m.k10.batch10k",
+                               "config": "bigann-100m",
+                               "traffic": "kneighbors-k10-batch10k",
+                               "chips": 1, "why": "a test"})
+    write_json(root / "BENCHMARK.json", bench)
+
+
+@pytest.mark.parametrize("fault", [None, alter_one_answer])
+def test_a_configuration_of_any_size_runs_as_new_files(
+        tiny_root, tiny_cell, break_program, fault):
+    """A 100M-row configuration added to the CPU copy as new files and
+    entries is cut by the fixture's one rule and checked like the others,
+    and no file that was there changes."""
+    before = {p: p.read_bytes() for p in (tiny_root / "knnbench").rglob("*")
+              if p.is_file()}
+    old = manifest.load(tiny_root)
+    add_bigann(tiny_root)
+    cut_to_cpu_size(tiny_root)
+    for path, data in before.items():
+        assert path.read_bytes() == data, path
+    new = manifest.load(tiny_root)
+    for key, value in old.items():
+        kept = new[key][:len(value)] if isinstance(value, list) else new[key]
+        assert kept == value
+    cell = tiny_cell("bigann100m.k10.batch10k")
+    assert (cell.config["train_rows"], cell.config["dim"]) == (3000, 128)
+    if fault:
+        break_program(fault)
+    result = run.run_cell(cell, 2**31 + 3, 0.3, False, device="cpu")
+    assert result["correct"] is (fault is None)
+    assert result["checks"]["compared"]["value"] == 64

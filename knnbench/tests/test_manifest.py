@@ -182,3 +182,12 @@ def test_a_mix_passes_its_precision_and_limits_to_the_program(
     result = run.run_cell(cell, 2**31 + 9, 0.2, False, device="cpu")
     assert seen and all(kw.get("precision") == "bf16" for kw in seen)
     assert result["checks"]["wrong_label_share"]["limit"] == 0.5
+
+
+@pytest.mark.parametrize("name, rows", [("sift128.k10.batch10k", 3000),
+                                        ("fmnist784.k10.batch10k", 900),
+                                        ("sift128.k100.batch10k", 3000)])
+def test_the_cpu_cut_keeps_each_cells_rows(tiny_cell, name, rows):
+    """The one rule of ``cut_to_cpu_size`` gives the rows the CPU tests
+    have always run."""
+    assert tiny_cell(name).config["train_rows"] == rows

@@ -48,6 +48,60 @@ def test_blocks_give_the_same_answer(monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("n, d, k, block, tile, seed", [
+    (40, 3, 5, 7, 10**6, 0),  # duplicate rows, many ties, 6 blocks
+    (40, 3, 5, 7, 20, 1),  # with query tiles of 2 queries
+    (41, 16, 5, 8, 10**6, 0),  # rows not a multiple of the block
+    (30, 3, 12, 5, 10**6, 1),  # k larger than a block's rows
+    (1000, 8, 100, 96, 10**6, 2),  # k = 100 over 11 blocks
+    (1000, 8, 100, 300, 900, 3),  # k = 100, query tiles of 3 queries
+])
+def test_train_blocks_give_the_one_block_answer(monkeypatch, n, d, k, block,
+                                                tile, seed):
+    rng = np.random.default_rng(seed)
+    levels = 4 if k < 100 else 256
+    train = rng.integers(0, levels, (n, d)).astype(np.float32)
+    train[n // 2:] = train[:n - n // 2]  # duplicate rows: distance ties
+    queries = rng.integers(0, levels, (13, d)).astype(np.float32)
+    whole = reference.neighbors(train, queries, k)
+    monkeypatch.setattr(reference, "TRAIN_BLOCK_ELEMENTS", block * d)
+    monkeypatch.setattr(reference, "BLOCK_ELEMENTS", tile)
+    assert reference.train_block_rows(n, d) == block
+    streamed = reference.neighbors(train, queries, k)
+    for a, b in zip(whole, streamed):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(streamed[1], brute(train, queries, k))
+
+
+def test_no_tile_or_train_block_exceeds_the_budget(monkeypatch):
+    """Every train block and query tile sent to the device and every
+    distance tile stays under the budget's element counts, whatever the
+    train's rows."""
+    rng = np.random.default_rng(6)
+    train = rng.integers(0, 16, (997, 16)).astype(np.float32)
+    queries = rng.integers(0, 16, (29, 16)).astype(np.float32)
+    whole = reference.neighbors(train, queries, 10)
+    monkeypatch.setattr(reference, "TRAIN_BLOCK_ELEMENTS", 100 * 16)
+    monkeypatch.setattr(reference, "BLOCK_ELEMENTS", 512)
+    uploads, tiles = [], []
+    on_device, smallest = reference._on_device, reference._smallest
+
+    def count_upload(rows, device, operands):
+        uploads.append(rows.size)
+        return on_device(rows, device, operands)
+
+    def count_tile(d, k):
+        tiles.append(d.numel())
+        return smallest(d, k)
+    monkeypatch.setattr(reference, "_on_device", count_upload)
+    monkeypatch.setattr(reference, "_smallest", count_tile)
+    streamed = reference.neighbors(train, queries, 10)
+    for a, b in zip(whole, streamed):
+        np.testing.assert_array_equal(a, b)
+    assert max(uploads) <= 100 * 16 and max(tiles) <= 512
+    assert len(tiles) == 10 * 6  # 10 train blocks, 6 tiles of 5 queries
+
+
 def test_vote_ties_go_to_the_lowest_class():
     labels = np.array([[2, 1, 1, 2], [3, 3, 0, 0], [4, 4, 4, 1], [5, 6, 7, 8]])
     np.testing.assert_array_equal(reference.vote(labels, 9), [1, 0, 4, 5])
@@ -76,6 +130,24 @@ def test_distances_of_named_rows():
     np.testing.assert_array_equal(reference.distances(train, queries, idx), want)
     dist, near = reference.neighbors(train, queries, 3)
     np.testing.assert_array_equal(reference.distances(train, queries, near), dist)
+
+
+@pytest.mark.parametrize("tile", [None, 4 * 2 * 6 * 3])
+def test_distances_equal_the_gather_on_the_device(monkeypatch, tile):
+    """The rows gathered on the host give what gathering from the whole
+    train on the device gave, bit for bit, in one block or in many."""
+    rng = np.random.default_rng(7)
+    train = rng.random((300, 6), dtype=np.float32)
+    queries = rng.random((11, 6), dtype=np.float32)
+    idx = rng.integers(0, 300, (11, 2))
+    t = torch.as_tensor(train)
+    near = t[torch.as_tensor(idx)].to(torch.float64)
+    x = torch.as_tensor(queries).to(torch.float64)
+    want = ((near - x[:, None]) ** 2).sum(-1).numpy()
+    if tile:
+        monkeypatch.setattr(reference, "BLOCK_ELEMENTS", tile)  # 3 queries
+    np.testing.assert_array_equal(reference.distances(train, queries, idx),
+                                  want)
 
 
 @pytest.mark.parametrize("operands", ["tf32", "bf16"])
