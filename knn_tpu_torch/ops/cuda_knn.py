@@ -8,9 +8,15 @@ the features (rows at or past ``n_valid`` are masked inside the kernel),
 and no super-chunks or chunk sizes tuned to the TPU's fetch round trip: the
 retrieval entry cuts the queries only as far as the kernels' partial-key
 buffer needs (:func:`candidate_chunk_rows`). Like the TPU
-kernel, it reads a transposed train: :func:`feature_major` makes the
-``[D, N]`` copy (rows rounded up to 128) once per train tensor and keeps it
-with it, for this kernel and the tile kernel's exact and fast forms.
+kernel, it reads a transposed train, ``[D, N]`` with the rows rounded up to
+128, as do the tile kernel's exact and fast forms. The host entries hold a
+float32 train on the device as that operand alone (:func:`route_train`):
+built from the host array in row blocks, through two pinned buffers, with
+no row-major copy on the device and no whole second copy on the host
+(:func:`train_residency` reports it), and handed to the wrappers as its
+``[N, D]`` view with the operand kept with it. A row-major train tensor
+handed to a wrapper gets its :func:`feature_major` copy made once and kept
+with it.
 
 Two kernels, each with its own wrapper, launch counter and plain version:
 :func:`knn_stripe_scan` keeps the k best keys of each (query, train split),
@@ -54,6 +60,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -89,6 +97,10 @@ _REFERENCE_BLOCK = 1 << 26
 # Bytes of the kernels' [rows, splits, k] int64 partial keys that one chunk
 # of a retrieval may hold on the card (stripe_candidates_arrays).
 PARTIAL_BYTES_CAP = 256 << 20
+# Bytes of one row block of a train's upload (upload_feature_major): each of
+# the two pinned host buffers, and the one block on the device beside the
+# operand, holds this much.
+UPLOAD_BLOCK_BYTES = 256 << 20
 
 
 def stripe_route_ok(precision: str, d: int, k: int) -> bool:
@@ -226,6 +238,164 @@ def feature_major(x: torch.Tensor, cache: bool = False) -> torch.Tensor:
     return _kept_with(x, "feature_major", make) if cache else make()
 
 
+def _reads_operand(train_x: torch.Tensor) -> bool:
+    """Whether a kernel reads ``train_x`` through the :func:`feature_major`
+    operand kept with it, whatever its own layout (the view
+    :func:`upload_feature_major` gives)."""
+    hit = _kept.get(train_x, {}).get("feature_major")
+    return hit is not None and hit[0] == train_x._version
+
+
+# The record of the train the kernels' route last read (route_train).
+_last_residency: list = []
+# The device cache's keys (their first field) of a train on the kernels' route.
+_TRAIN_KEYS = ("train", "train_operand")
+
+
+def train_residency() -> Optional[dict]:
+    """The train the kernels' route last read (:func:`route_train`), or
+    None before any: ``rows``, ``dim``, ``host_bytes`` (N * D * 4),
+    ``card_bytes`` (the storage of every tensor held for the train on its
+    device, read from the tensors at that call: :func:`_note_residency`),
+    ``blocks`` (row blocks uploaded), ``upload_s`` (host clock, the first
+    block's staging to the last block's transpose, waited on), ``stage_s``
+    (host clock in the staging of the blocks), and ``copy_s`` and
+    ``transpose_s``: the blocks' host-to-device copies and their transposes
+    on the device's clock (CUDA events, summed), None on the CPU. Kept after
+    the train is freed."""
+    return dict(_last_residency[0]) if _last_residency else None
+
+
+def upload_block_rows(d: int) -> int:
+    """Rows of one upload block of a ``d``-feature float32 train."""
+    return max(1, UPLOAD_BLOCK_BYTES // (4 * max(d, 1)))
+
+
+def upload_feature_major(train_x: np.ndarray, dev: torch.device
+                         ) -> torch.Tensor:
+    """``train_x`` ``[N, D]`` (converted to float32) -> its rows on ``dev``
+    as the ``[N, D]`` view ``operand[:D, :N].T`` of its :func:`feature_major`
+    operand, which is kept with the view (``feature_major(view, cache=True)``
+    is the operand), so the kernels read the operand and the plain versions
+    the view, with no row-major copy. The operand is built in row blocks of
+    :func:`upload_block_rows`: each block is staged into one of two host
+    buffers (pinned for a CUDA device, so that staging the next block
+    overlaps this one's copy), copied into one device block and written
+    transposed into its columns of the operand, allocated once. So the
+    device holds at most the operand and one block, the host the two
+    buffers beyond its own array. Each block is one ``upload`` span; with
+    obs on, ``knn_train_upload_bytes_total`` and
+    ``knn_train_upload_blocks_total`` count them. The :func:`train_residency`
+    record is kept with the view."""
+    n, d = train_x.shape
+    cuda = dev.type == "cuda"
+    rows_pad = -(-max(n, 1) // ROW_GRANULE) * ROW_GRANULE
+    operand = torch.empty((max(d, 1), rows_pad), dtype=torch.float32,
+                          device=dev)
+    operand[d:].zero_()
+    operand[:, n:].zero_()
+    step = upload_block_rows(d)
+    size = min(step, n)
+    stage = [torch.empty((size, d), dtype=torch.float32, pin_memory=cuda)
+             for _ in range(min(2, -(-n // step)))]
+    block = (torch.empty((size, d), dtype=torch.float32, device=dev)
+             if cuda and stage else None)
+    stream = torch.cuda.current_stream(dev) if cuda else None
+    copied = [None, None]  # per buffer: an event after the copy out of it
+    marks = []  # per block on a CUDA device: events around copy, transpose
+    stage_s, blocks = 0.0, 0
+    t0 = time.perf_counter()
+    for s in range(0, n, step):
+        e = min(s + step, n)
+        with obs.span("upload"):
+            b = blocks % 2
+            if copied[b] is not None:
+                copied[b].synchronize()
+            t = time.perf_counter()
+            host = stage[b][: e - s]
+            with warnings.catch_warnings():
+                # Read-only Dataset arrays: the tensor is only read.
+                warnings.simplefilter("ignore", UserWarning)
+                host.copy_(torch.from_numpy(
+                    np.ascontiguousarray(train_x[s:e], np.float32)))
+            stage_s += time.perf_counter() - t
+            rows = host
+            if cuda:
+                ev = [stream.record_event(torch.cuda.Event(enable_timing=True))]
+                rows = block[: e - s]
+                rows.copy_(host, non_blocking=True)
+                ev.append(stream.record_event(
+                    torch.cuda.Event(enable_timing=True)))
+                copied[b] = ev[1]
+            operand[:d, s:e].copy_(rows.T)
+            if cuda:
+                ev.append(stream.record_event(
+                    torch.cuda.Event(enable_timing=True)))
+                marks.append(ev)
+        blocks += 1
+        obs.counter_add("knn_train_upload_bytes_total", (e - s) * d * 4,
+                        help="train bytes uploaded to the device in blocks")
+        obs.counter_add("knn_train_upload_blocks_total",
+                        help="train row blocks uploaded to the device")
+    if cuda:
+        stream.synchronize()
+    record = {"rows": n, "dim": d, "host_bytes": n * d * 4, "blocks": blocks,
+              "upload_s": time.perf_counter() - t0, "stage_s": stage_s,
+              "copy_s": None, "transpose_s": None}
+    if cuda:
+        record["copy_s"] = sum(a.elapsed_time(c) for a, c, _ in marks) / 1e3
+        record["transpose_s"] = sum(c.elapsed_time(t)
+                                    for _, c, t in marks) / 1e3
+    view = operand[:d, :n].T
+    _kept_with(view, "feature_major", lambda: operand)
+    _kept_with(view, "residency", lambda: record)
+    _note_residency(view, None, dev)
+    return view
+
+
+def train_sq_norms(train: torch.Tensor) -> torch.Tensor:
+    """``distance.sq_norms`` of a float32 ``[N, D]`` train, bit for bit
+    (the same sum over each row's values in their order), summed in upload
+    blocks, each a row-major copy squared in place: so a view of the
+    operand (:func:`upload_feature_major`) needs one block beside it, not a
+    row-major copy of the whole."""
+    n, d = train.shape
+    t2 = torch.empty(n, dtype=torch.float32, device=train.device)
+    step = upload_block_rows(d)
+    for s in range(0, n, step):
+        rows = train[s : s + step].clone(memory_format=torch.contiguous_format)
+        torch.sum(rows.mul_(rows), dim=1, out=t2[s : s + step])
+    return t2
+
+
+def _note_residency(tx: torch.Tensor, cache: Optional[dict],
+                    dev: torch.device) -> None:
+    """Make the record kept with the train view ``tx`` the last
+    (:func:`train_residency`), its ``card_bytes`` read now: the storage of
+    the tensors held for the train on ``dev`` (the entries of ``cache``
+    under :data:`_TRAIN_KEYS` for ``dev``, keyed by ``str(dev)`` as
+    :func:`memo`'s callers key them, or ``tx`` alone without a cache) and
+    of every tensor kept with each, each storage once. Sets the gauge
+    ``knn_train_card_bytes``."""
+    rec = _kept_with(tx, "residency", dict)
+    dev = str(dev)
+    held = [tx] if cache is None else [
+        t for key, t in cache.items()
+        if isinstance(key, tuple) and len(key) > 1
+        and key[0] in _TRAIN_KEYS and key[1] == dev]
+    storages = {}
+    for t in held:
+        kept = [v for _, v in _kept.get(t, {}).values()]
+        for x in (t, *kept):
+            if isinstance(x, torch.Tensor):
+                storage = x.untyped_storage()
+                storages[storage.data_ptr()] = storage.nbytes()
+    rec["card_bytes"] = sum(storages.values())
+    _last_residency[:] = [rec]
+    obs.gauge_set("knn_train_card_bytes", rec["card_bytes"],
+                  help="device bytes held for the train the route last read")
+
+
 def knn_stripe_candidates_reference(
     train_x: torch.Tensor, test_x: torch.Tensor, n_valid: int, k: int,
     form: str = "exact",
@@ -293,9 +463,11 @@ def _check_kernel_inputs(train_x, test_x, n_valid: int, k: int) -> None:
                 f"{name} is on {t.device}; the kernel needs both inputs on "
                 f"one CUDA device (train_x is on {train_x.device})"
             )
-        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+        if t.dtype != torch.float32 or t.dim() != 2 or not (
+                t.is_contiguous() or (t is train_x and _reads_operand(t))):
             raise ValueError(
-                f"{name} must be a contiguous 2-D float32 tensor, got "
+                f"{name} must be a contiguous 2-D float32 tensor (or a train "
+                "with its feature-major operand kept), got "
                 f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
             )
     n, d = train_x.shape
@@ -392,9 +564,9 @@ def knn_stripe_scan(
 
     CPU tensors take the plain version. CUDA tensors launch the scan kernel
     on the current stream over the train's :func:`feature_major` copy (kept
-    with ``train_x``), or raise; each split must start on a multiple of
-    :data:`SPLIT_ALIGN` rows. ``knn_stripe_scan.launches`` counts the
-    launches."""
+    with ``train_x``, or given with it by :func:`upload_feature_major`), or
+    raise; each split must start on a multiple of :data:`SPLIT_ALIGN` rows.
+    ``knn_stripe_scan.launches`` counts the launches."""
     n_valid, k = int(n_valid), int(k)
     n_splits, rows_per_split = int(n_splits), int(rows_per_split)
     check_stripe_k(k)
@@ -636,6 +808,24 @@ def cached_train(train_x: np.ndarray, dev: torch.device, cache: Optional[dict],
                 lambda: to_device(train_x, np.float32, dev).to(dtype))
 
 
+def route_train(train_x: np.ndarray, dev: torch.device, cache: Optional[dict],
+                form: str, dtype: torch.dtype) -> torch.Tensor:
+    """The train as the kernels' route of ``form`` reads it on ``dev``,
+    memoized in ``cache``: the bf16 form's store (``dtype``), row-major, for
+    its own operand; for the exact and fast forms the float32 train's view
+    of its feature-major operand (:func:`upload_feature_major`), one per
+    device, with the fast form's norms (:func:`train_sq_norms`) kept with
+    it, and its :func:`train_residency` record made the last."""
+    if form == "bf16":
+        return cached_train(train_x, dev, cache, dtype)
+    tx = memo(cache, ("train_operand", str(dev)),
+              lambda: upload_feature_major(train_x, dev))
+    if form == "fast":
+        _kept_with(tx, "sq_norms", lambda: train_sq_norms(tx))
+    _note_residency(tx, cache, dev)
+    return tx
+
+
 def cached_labels(train_y: np.ndarray, dev: torch.device,
                   cache: Optional[dict]) -> torch.Tensor:
     """The device-resident ``[N]`` int32 labels, memoized per device."""
@@ -745,7 +935,7 @@ def stripe_candidates_arrays(
     unpadded ``([Q, k]`` float32 distances, ``[Q, k]`` int32 indices``)``
     out, ascending by (distance, index); any k >= 1, and ``(0, k)`` empties
     for no queries. ``cache`` (a ``Dataset.device_cache`` dict) memoizes
-    the device-side train matrix.
+    the device-side train (:func:`route_train`).
 
     The queries go to the card once and run in chunks of at most
     ``chunk_rows`` rows (default :func:`candidate_chunk_rows`, which bounds
@@ -761,7 +951,8 @@ def stripe_candidates_arrays(
     queries (the serving batcher's staged upload): it is read in place of
     the upload.
 
-    Spans: ``prepare`` once, ``dispatch`` once per chunk, and ``fetch``
+    Spans: ``prepare`` once (an ``upload`` in it per row block of a train
+    built), ``dispatch`` once per chunk, and ``fetch``
     over the whole of ``resolve()`` (so a deferred call's opens when it is
     resolved), or over a chunk that leaves the window while later chunks
     dispatch."""
@@ -777,8 +968,8 @@ def stripe_candidates_arrays(
     if chunk_rows is not None and chunk_rows < 1:
         raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
     with obs.span("prepare", engine="stripe"):
-        tx = cached_train(train_x, dev, cache,
-                          stripe_store_dtype(form, train_x.shape[1]))
+        tx = route_train(train_x, dev, cache, form,
+                         stripe_store_dtype(form, train_x.shape[1]))
         qx = (prefetched_queries[:q] if prefetched_queries is not None
               else to_device_async(test_x, dev))
         if chunk_rows is None:
@@ -842,7 +1033,7 @@ def stripe_classify_arrays(
     max_rows: Optional[int] = None,
 ) -> np.ndarray:
     """Host entry for a full stripe-route classify: uploads (train memoized
-    in ``cache``, stored as :func:`stripe_store_dtype` says), runs
+    in ``cache`` as :func:`route_train` holds it), runs
     :func:`knn_stripe_classify` on at most ``max_rows`` queries a call (the
     JAX entry's ``max_rows``: the degradation ladder halves it after an
     out-of-memory error), and returns ``[Q]`` int32 predictions on the
@@ -857,8 +1048,8 @@ def stripe_classify_arrays(
     if max_rows is not None and max_rows < 1:
         raise ValueError(f"max_rows must be >= 1, got {max_rows}")
     with obs.span("prepare", engine="stripe"):
-        tx = cached_train(train_x, dev, cache,
-                          stripe_store_dtype(form, train_x.shape[1]))
+        tx = route_train(train_x, dev, cache, form,
+                         stripe_store_dtype(form, train_x.shape[1]))
         ty = cached_labels(train_y, dev, cache)
         qx = to_device(test_x, np.float32, dev)
     rows = max_rows or q

@@ -24,7 +24,9 @@ reads it); :func:`knn_tile_scan_reference` its plain version;
 The norms of the matmul forms are hoisted out of the kernel, as in the JAX
 package: the wrapper sums them in float32 with ``distance.sq_norms`` from
 the values as stored, so a train matrix stored as bfloat16 gives the norms
-of its rounded values, and the query norms come from the float32 queries.
+of its rounded values, and the query norms come from the float32 queries
+(the host entries' float32 train, a view of its feature-major operand,
+carries its norms, summed by ``cuda_knn.train_sq_norms`` to the same bits).
 Which store a route uses is part of the function: the stripe route stores
 the bf16 form's train as bfloat16 only past 128 features
 (``cuda_knn.stripe_store_dtype``), the merge route always
@@ -55,9 +57,9 @@ from knn_tpu_torch.ops.cuda_knn import (
     SPLIT_ALIGN,
     STRIPE_MAX_K,
     _kept_with,
+    _reads_operand,
     _resolve_stripe_precision,
     cached_labels,
-    cached_train,
     check_k,
     check_splits,
     feature_major,
@@ -65,6 +67,7 @@ from knn_tpu_torch.ops.cuda_knn import (
     knn_stripe_merge,
     knn_stripe_scan_reference,
     resolve_device,
+    route_train,
     split_plan,
     stripe_classify_arrays,
     stripe_route_ok,
@@ -157,6 +160,14 @@ def knn_tile_candidates_reference(
     return knn_stripe_candidates_reference(train_x, test_x, n_valid, k, form)
 
 
+def _plain_rows(train_x: torch.Tensor, form: str) -> torch.Tensor:
+    """The train as a plain version of ``form`` reads it: as it is for the
+    exact form, whose distances are elementwise, and row-major for the
+    matmul forms, whose sums depend on the layout (a view of the operand,
+    ``cuda_knn.upload_feature_major``, is copied)."""
+    return train_x if form == "exact" else train_x.contiguous()
+
+
 def _check_tile_inputs(train_x, test_x, n_valid: int, k: int, form: str) -> None:
     if form not in FORMS:
         raise ValueError(f"unknown form {form!r}; the tile kernel takes {FORMS}")
@@ -166,8 +177,11 @@ def _check_tile_inputs(train_x, test_x, n_valid: int, k: int, form: str) -> None
                 f"{name} is on {t.device}; the kernel needs both inputs on "
                 f"one CUDA device (train_x is on {train_x.device})"
             )
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor, got "
+        if t.dim() != 2 or not (t.is_contiguous() or (
+                form != "bf16" and t is train_x and _reads_operand(t))):
+            raise ValueError(f"{name} must be a contiguous 2-D tensor (or, "
+                             "but for the bf16 form, a train with its "
+                             "feature-major operand kept), got "
                              f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
     if test_x.dtype != torch.float32:
         raise ValueError(f"test_x must be float32, got {test_x.dtype}")
@@ -269,8 +283,9 @@ def knn_tile_scan(
     n_valid, k = int(n_valid), int(k)
     n_splits, rows_per_split = int(n_splits), int(rows_per_split)
     if train_x.device.type == "cpu" and test_x.device.type == "cpu":
-        return knn_tile_scan_reference(train_x, test_x, n_valid, k, form,
-                                       n_splits, rows_per_split)
+        return knn_tile_scan_reference(_plain_rows(train_x, form), test_x,
+                                       n_valid, k, form, n_splits,
+                                       rows_per_split)
     _check_tile_inputs(train_x, test_x, n_valid, k, form)
     check_splits(n_valid, n_splits, rows_per_split,
                  1 if form == "bf16" else SPLIT_ALIGN)
@@ -331,7 +346,8 @@ def knn_tile_candidates(
     :class:`CompileError`, a refused launch a :class:`DeviceError`, inputs
     the kernels do not take a ``ValueError``."""
     if train_x.device.type == "cpu" and test_x.device.type == "cpu":
-        return knn_tile_candidates_reference(train_x, test_x, n_valid, k, form)
+        return knn_tile_candidates_reference(_plain_rows(train_x, form),
+                                             test_x, n_valid, k, form)
     n_valid = int(n_valid)
     _check_tile_inputs(train_x, test_x, n_valid, int(k), form)
     sm_count = torch.cuda.get_device_properties(
@@ -361,8 +377,9 @@ def predict_tile(
     with k <= 16: ``cuda_knn.stripe_classify_arrays``) and the merge route
     otherwise (the tile kernel, train stored as :func:`merge_store_dtype`
     says), k > 16 included; ``stripe`` and ``merge`` force one. Both routes
-    take any k >= 1. ``cache`` (a ``Dataset.device_cache`` dict) memoizes the device-side train arrays. Nothing falls back: a route that
-    fails raises."""
+    take any k >= 1. ``cache`` (a ``Dataset.device_cache`` dict) memoizes
+    the device-side train arrays (``cuda_knn.route_train``). Nothing falls
+    back: a route that fails raises."""
     d = train_x.shape[1]
     form = _resolve_stripe_precision(precision, d)
     check_k(k)
@@ -378,7 +395,7 @@ def predict_tile(
     dev = resolve_device(device)
     if test_x.shape[0] == 0:
         return np.empty(0, np.int32)
-    tx = cached_train(train_x, dev, cache, merge_store_dtype(form))
+    tx = route_train(train_x, dev, cache, form, merge_store_dtype(form))
     ty = cached_labels(train_y, dev, cache)
     _, idx = knn_tile_candidates(tx, to_device(test_x, np.float32, dev),
                                  train_x.shape[0], k, form)

@@ -1012,3 +1012,122 @@ def test_sharded_ladder_ends_typed_on_cuda(card, backend):
     assert "falling back to 'cuda'" in warned[0]
     np.testing.assert_array_equal(
         res.predictions, get_backend("cuda")(tr, te, 5))
+
+
+def _sift_shaped(seed, n=1_000_000, q=1024, d=128):
+    """sift-128's shape with the benchmark's values: integers / 255."""
+    rng = np.random.default_rng(seed)
+    train = (rng.integers(0, 256, (n, d), dtype=np.int32) / 255).astype(
+        np.float32)
+    test = (rng.integers(0, 256, (q, d), dtype=np.int32) / 255).astype(
+        np.float32)
+    return train, test
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["stripe", "exact", "fast"])
+def test_blocked_train_gives_the_one_block_keys_at_sift_size(card,
+                                                             monkeypatch,
+                                                             route):
+    """A 1,000,000 x 128 train uploaded in eight blocks gives the stripe
+    scan's, and the tile scan's exact and fast forms', keys bit-equal to
+    the train uploaded in one block, whose operand and norms equal the
+    row-major tensor's."""
+    train, test = _sift_shaped(5)
+    q = torch.from_numpy(test).to(card)
+    n, k = train.shape[0], 10 if route == "stripe" else 100
+
+    def keys(tx):
+        if route == "stripe":
+            plan = cuda_knn.stripe_split_plan(n, q.shape[0], card, 128, k)
+            return cuda_knn.knn_stripe_scan(tx, q, n, k, *plan)
+        sm = torch.cuda.get_device_properties(card).multi_processor_count
+        plan = tile_knn.tile_split_plan(n, q.shape[0], sm, k, route)
+        return tile_knn.knn_tile_scan(tx, q, n, k, route, *plan)
+
+    def built():
+        return cuda_knn.route_train(train, card, None,
+                                    "exact" if route == "stripe" else route,
+                                    torch.float32)
+
+    monkeypatch.setattr(cuda_knn, "UPLOAD_BLOCK_BYTES", train.nbytes)
+    whole = built()
+    assert cuda_knn.train_residency()["blocks"] == 1
+    want = keys(whole)
+    row_major = torch.from_numpy(train).to(card)
+    assert torch.equal(cuda_knn.feature_major(whole, cache=True),
+                       cuda_knn.feature_major(row_major))
+    if route == "fast":
+        from knn_tpu_torch.ops.distance import sq_norms
+
+        assert torch.equal(cuda_knn._kept_with(whole, "sq_norms", None),
+                           sq_norms(row_major))
+    assert torch.equal(keys(row_major), want)
+    del whole, row_major
+    monkeypatch.setattr(cuda_knn, "UPLOAD_BLOCK_BYTES", train.nbytes // 8)
+    blocked = built()
+    assert cuda_knn.train_residency()["blocks"] >= 8
+    assert torch.equal(keys(blocked), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norms", [False, True])
+def test_fit_device_peak_is_the_operand_plus_two_blocks(card, norms):
+    """The fit's peak of allocated device memory: the operand and at most
+    two blocks beyond it (with the fast form's norms, summed after, held
+    too)."""
+    train, _ = _sift_shaped(6, q=1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    tx = cuda_knn.route_train(train, card, None, "fast" if norms else "exact",
+                              torch.float32)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card) - base
+    block = cuda_knn.upload_block_rows(128) * 128 * 4
+    rec = cuda_knn.train_residency()
+    held = rec["card_bytes"]
+    # Nothing else is left allocated (the allocator rounds each block up).
+    assert 0 <= torch.cuda.memory_allocated(card) - base - held < 1 << 20
+    assert 0 < rec["copy_s"] < rec["upload_s"]
+    assert 0 < rec["transpose_s"] < rec["upload_s"]
+    operand = cuda_knn.feature_major(tx, cache=True)
+    assert held == operand.numel() * 4 + (train.shape[0] * 4 if norms
+                                          else 0)
+    assert peak <= held + 2 * block, (peak, held, block)
+
+
+@pytest.mark.cuda
+def test_fit_host_growth_is_the_staging_buffers(card):
+    """The host's peak resident set (``VmHWM``, or ``ru_maxrss`` where
+    ``/proc/self/status`` has no such line) grows over the fit of a 512 MB
+    train by at most the two staging buffers and 256 MiB: no whole host
+    copy. Run in a fresh process, whose peak the fit can move."""
+    import subprocess
+    import sys
+
+    script = """
+import resource
+import numpy as np, torch
+from knn_tpu_torch.ops import cuda_knn
+
+def hwm():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM"):
+                return int(line.split()[1]) * 1024
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+x = np.ones((1_000_000, 128), np.float32)
+torch.zeros(1, device="cuda")
+before = hwm()
+cuda_knn.upload_feature_major(x, torch.device("cuda"))
+print(hwm() - before, 2 * cuda_knn.UPLOAD_BLOCK_BYTES)
+"""
+    root = __file__.rsplit("/tests/", 1)[0]
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300, cwd=root)
+    assert out.returncode == 0, out.stderr[-3000:]
+    grew, staging = map(int, out.stdout.split())
+    assert grew <= staging + (256 << 20), (grew, staging)

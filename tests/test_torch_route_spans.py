@@ -99,8 +99,9 @@ def test_two_chunks_dispatch_twice_and_fetch_once():
                                      device="cpu")
     got, names = ranges(lambda: stripe_candidates_arrays(
         train.features, test.features, 3, device="cpu", chunk_rows=20))
-    assert names == [("prepare", 0), ("dispatch", 0), ("dispatch", 0),
-                     ("fetch", 0)]
+    # No cache: the train is built in the call, one upload in prepare.
+    assert names == [("prepare", 0), ("upload", 1), ("dispatch", 0),
+                     ("dispatch", 0), ("fetch", 0)]
     for a, b in zip(got, whole):
         np.testing.assert_array_equal(a, b)
 
@@ -116,7 +117,8 @@ def test_chunks_past_the_window_fetch_as_they_leave_it():
     got, names = ranges(lambda: stripe_candidates_arrays(
         train.features, test.features, 3, device="cpu", chunk_rows=10))
     d, f = ("dispatch", 0), ("fetch", 0)
-    assert names == [("prepare", 0), d, d, d, d, d, f, d, f, d, f, f]
+    assert names == [("prepare", 0), ("upload", 1), d, d, d, d, d, f, d, f,
+                     d, f, f]
     for a, b in zip(got, whole):
         np.testing.assert_array_equal(a, b)
 

@@ -387,8 +387,8 @@ def test_tile_backend_caches_the_stored_train(tmp_path):
                                        ("labels", "cpu")}
     predict(train, test, 5, precision="bf16", engine="merge", device="cpu")
     assert len(train.device_cache) == 2  # d > 128: both routes store bf16
-    predict(train, test, 5, device="cpu")  # auto: fast, float32 store
-    assert ("train", "cpu", "torch.float32") in train.device_cache
+    predict(train, test, 5, device="cpu")  # auto: fast, feature-major
+    assert ("train_operand", "cpu") in train.device_cache
     np.testing.assert_array_equal(
         first, get_backend("oracle")(train, test, 5))
 
